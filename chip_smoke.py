@@ -11,21 +11,29 @@ Phases, each fatal on failure:
                 card's name and power limit;
   2. kernels  — hold each kernel against its plain PyTorch version on the
                 card at llama2-7b's shapes plus GQA, softcap and band cases,
-                in f32 (TF32 off) and bf16, each with its stated tolerance;
-                time kernel, plain version and (flash attention) the
-                ``scaled_dot_product_attention`` yardstick, and work out
-                each kernel's bound from its bytes and operations;
+                in f32 (TF32 off) and bf16, each with its stated tolerance
+                (the fused-dequant paged decode on int8 and fp8 pages, and
+                bitwise against the model-dtype kernel on dequantized pages
+                with f32 q); time kernel, plain version and (flash
+                attention) the ``scaled_dot_product_attention`` yardstick,
+                and work out each kernel's bound from its bytes and
+                operations;
   3. reference — a small model through the kernels on the card against the
-                same model through the plain versions on the CPU, and a
-                warmed decode horizon under
+                same model through the plain versions on the CPU, with a
+                model-dtype and with an int8 page pool, and warmed decode
+                horizons (both pools) under
                 ``torch.cuda.set_sync_debug_mode("error")`` (no host sync
                 inside the horizon);
   4. serve    — ``repro_torch.launch.serve`` with llama2-7b at full width
                 (bf16, random weights from the seed, all 32 layers), paged
                 executor, masked mode, RL policy with an untrained Q-net:
                 every request done, at least one block pruned, zero
-                overcommits, pool peak within capacity, every kernel's
-                launch counter raised during the serve.
+                overcommits, pool peak within capacity, the model-dtype
+                path's kernels launched during the serve;
+  5. serve 2  — the same serve with ``--kv-dtype int8
+                --max-prefill-tokens 64``: the same checks, an int8 pool of
+                at least 1.8x serve 1's pages, and every decode launch on
+                the fused-dequant kernel.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a GPU, or without the rest of
@@ -44,6 +52,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
             "torch.float32": 67e12}  # dense tensor bf16 / non-tensor f32
+SERVE_ARGV = ["--arch", "llama2-7b", "--executor", "paged", "--mode",
+              "masked", "--policy", "rl", "--episodes", "0", "--requests",
+              "6", "--decode-horizon", "8", "--max-new", "8", "--seed", "0",
+              "--budget-quantum", "0.3"]
+SERVE2_ARGV = SERVE_ARGV + ["--kv-dtype", "int8", "--max-prefill-tokens",
+                            "64"]
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 
 
@@ -177,6 +191,75 @@ def paged_cases(torch, ops, pdec):
                      f"({toks} tokens) {dt}"}
 
 
+def paged_quant_cases(torch, ops, pdec, attention):
+    """Fused-dequant paged decode: int8 and fp8 pages, q f32 and bf16, G=1
+    and G=4, softcap, a length one past a page edge, and the serve's
+    shape; each held against its plain version and, with f32 q, against
+    the model-dtype kernel on ``page_dequant``-ed pages bitwise."""
+    errs = {}
+    # the serve's shape (G=1) uses the model-dtype kernel's timing inputs
+    cases = [(8, 32, 32, 128, 16, 512, 0.0, 12),
+             (4, 32, 8, 128, 16, 200, 0.0, 31),       # GQA G=4
+             (3, 8, 2, 64, 16, 96, 30.0, 32),         # softcap
+             (2, 32, 32, 128, 16, 17, 0.0, 33)]       # one past a page edge
+    pdts = (torch.int8, torch.float8_e4m3fn)
+    for i, (B, H, K, D, pt, S, cap, seed) in enumerate(cases):
+        for pdt in pdts:
+            q, kp, vp, table, lengths = paged_inputs(
+                torch, B, H, K, D, pt, S, torch.float32, seed=seed)
+            kq, ks = attention.page_quant(kp, pdt)
+            vq, vs = attention.page_quant(vp, pdt)
+            bit = torch.equal(
+                ops.paged_decode_attention(q, kq, vq, table, lengths,
+                                           k_scales=ks, v_scales=vs,
+                                           softcap=cap),
+                pdec.paged_decode_attention_cuda(
+                    q, attention.page_dequant(kq, ks),
+                    attention.page_dequant(vq, vs), table, lengths,
+                    softcap=cap))
+            print(f"  paged_decode_quant B={B} H={H} K={K} D={D} len<={S} "
+                  f"cap={cap} {pdt}: f32 q equals the model-dtype kernel on "
+                  f"dequantized pages bitwise: {bit}")
+            if not bit:
+                raise AssertionError("fused dequant is not bitwise equal to "
+                                     "the kernel on dequantized pages")
+            for dt in (torch.float32, torch.bfloat16):
+                qd = q.to(dt)
+                errs[(i, str(pdt), str(dt))] = check(
+                    f"paged_decode_quant B={B} H={H} K={K} D={D} pt={pt} "
+                    f"len<={S} cap={cap} {pdt} q {dt}",
+                    ops.paged_decode_attention(qd, kq, vq, table, lengths,
+                                               k_scales=ks, v_scales=vs,
+                                               softcap=cap),
+                    pdec.paged_decode_attention_quant_ref(
+                        qd, kq, vq, ks, vs, table, lengths, softcap=cap), dt)
+    # serve 2's decode: int8 pages, bf16 q
+    B, H, K, D, pt, S, _, seed = cases[0]
+    dt, pdt = torch.bfloat16, torch.int8
+    q, kp, vp, table, lengths = paged_inputs(torch, B, H, K, D, pt, S,
+                                             torch.float32, seed=seed)
+    q = q.to(dt)
+    kq, ks = attention.page_quant(kp, pdt)
+    vq, vs = attention.page_quant(vp, pdt)
+    toks = int(lengths.sum())
+    pages = int(((lengths + pt - 1) // pt).sum())
+    nbytes = (2 * toks * K * D * kq.element_size() + 2 * pages * K * 4
+              + 2 * q.numel() * q.element_size() + table.numel() * 4
+              + lengths.numel() * 4)
+    bms, by = bound_ms(nbytes, 4 * toks * H * D, dt)
+    return {"name": "paged_decode_attention_quant", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+            "replaces": "src/repro/kernels/paged_decode_attention.py:97",
+            "max_abs_err": errs[(0, str(pdt), str(dt))],
+            "ms": time_ms(lambda: pdec.paged_decode_attention_quant_cuda(
+                q, kq, vq, ks, vs, table, lengths)),
+            "plain_ms": time_ms(lambda: pdec.paged_decode_attention_quant_ref(
+                q, kq, vq, ks, vs, table, lengths)),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": f"B={B} H=K={H} D={D} pt={pt} ragged len<={S} "
+                     f"({toks} tokens) int8 pages, q {dt}"}
+
+
 def flash_cases(torch, ops, fa):
     g = torch.Generator(device="cuda").manual_seed(3)
     errs = {}
@@ -219,11 +302,36 @@ def flash_cases(torch, ops, fa):
 
 
 # ---------------------------------------------------------------- phases
+def _paged_pools(torch, attention, put_pages, cfg, cache, table, n_pages,
+                 kv_dtype):
+    """Lay a prefill cache [L, B, npg·pt, K, Dh] into a page pool at
+    ``table`` — model dtype, or quantized as the executor's prefill does."""
+    L, B, npg = cfg.n_layers, table.shape[0], table.shape[1]
+    dev = table.device
+    shape = (L, n_pages, cache["attn"]["k"].shape[2] // npg, cfg.n_kv_heads,
+             cfg.dh)
+    pools = {}
+    for pk, sk in (("k", "ks"), ("v", "vs")):
+        kv = cache["attn"][pk].reshape(L, B, npg, *shape[2:])
+        if kv_dtype is None:
+            pools[pk] = torch.zeros(shape, device=dev)
+            pools[pk][:, table.long()] = kv
+        else:
+            codes, scales = attention.page_quant(kv.float(), kv_dtype)
+            pools[pk] = torch.zeros(shape, device=dev).to(kv_dtype)
+            put_pages(pools[pk], (slice(None), table.long()), codes)
+            pools[sk] = torch.zeros(L, n_pages, cfg.n_kv_heads, device=dev)
+            pools[sk][:, table.long()] = scales
+    return pools
+
+
 def reference_phase(torch) -> None:
-    """Small fp32 model: kernels on the card vs plain versions on the CPU;
-    then a warmed horizon with host syncs turned into errors."""
+    """Small fp32 model, model-dtype and int8 page pools: kernels on the
+    card vs plain versions on the CPU; then warmed horizons with host syncs
+    turned into errors."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models import decoder, registry
+    from repro_torch.kernels.ref import put_pages
+    from repro_torch.models import attention, decoder, registry
     cfg = get_smoke_config("llama2-7b").replace(n_layers=4)
     model = registry.build(cfg)
     cpu_params = model.init(0, "cpu")
@@ -231,42 +339,40 @@ def reference_phase(torch) -> None:
     toks = torch.randint(0, cfg.vocab_size, (2, 40),
                          generator=torch.Generator().manual_seed(5))
     pt, npg = 16, 4
-    outs = {}
-    for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
-        logits, cache = decoder.prefill(p, cfg, toks.to(dev), npg * pt)
-        n_pages = 2 * npg + 1
-        shape = (cfg.n_layers, n_pages, pt, cfg.n_kv_heads, cfg.dh)
-        pools = {"k": torch.zeros(shape, device=dev),
-                 "v": torch.zeros(shape, device=dev)}
-        table = torch.arange(2 * npg, dtype=torch.int32,
-                             device=dev).reshape(2, npg)
-        for name in ("k", "v"):
-            pools[name][:, table.long()] = cache["attn"][name].reshape(
-                cfg.n_layers, 2, npg, pt, cfg.n_kv_heads, cfg.dh)
-        pos = torch.full((2,), 40, dtype=torch.int32, device=dev)
-        first = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        h_toks, _, _ = decoder.paged_decode_horizon(p, cfg, pools, table, pos,
-                                                    first, 8)
-        outs[dev] = (logits.cpu(), h_toks.cpu())
-    err = max_err(outs["cuda"][0], outs["cpu"][0])
-    print(f"  reference: prefill logits max|Δ| card vs CPU {err:.2e}; "
-          f"horizon tokens equal: "
-          f"{bool(torch.equal(outs['cuda'][1], outs['cpu'][1]))}")
-    if err > 1e-3 or not torch.equal(outs["cuda"][1], outs["cpu"][1]):
-        raise AssertionError("the card's path disagrees with the CPU "
-                             "reference")
-    # warmed horizon: no host synchronisation inside the decode loop
-    decoder.paged_decode_horizon(gpu_params, cfg, pools, table, pos, first, 4)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    for kv_dtype in (None, torch.int8):
+        outs = {}
+        for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
+            logits, cache = decoder.prefill(p, cfg, toks.to(dev), npg * pt)
+            table = torch.arange(2 * npg, dtype=torch.int32,
+                                 device=dev).reshape(2, npg)
+            pools = _paged_pools(torch, attention, put_pages, cfg, cache,
+                                 table, 2 * npg + 1, kv_dtype)
+            pos = torch.full((2,), 40, dtype=torch.int32, device=dev)
+            first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            h_toks, _, _ = decoder.paged_decode_horizon(
+                p, cfg, pools, table, pos, first, 8)
+            outs[dev] = (logits.cpu(), h_toks.cpu())
+        err = max_err(outs["cuda"][0], outs["cpu"][0])
+        same = bool(torch.equal(outs["cuda"][1], outs["cpu"][1]))
+        print(f"  reference ({kv_dtype or 'model-dtype'} pool): prefill "
+              f"logits max|Δ| card vs CPU {err:.2e}; horizon tokens equal: "
+              f"{same}")
+        if err > 1e-3 or not same:
+            raise AssertionError("the card's path disagrees with the CPU "
+                                 "reference")
+        # warmed horizon: no host synchronisation inside the decode loop
         decoder.paged_decode_horizon(gpu_params, cfg, pools, table, pos,
                                      first, 4)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    print("  warmed decode horizon ran with sync debug mode 'error': no "
-          "host sync")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decoder.paged_decode_horizon(gpu_params, cfg, pools, table, pos,
+                                         first, 4)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print(f"  warmed decode horizon ({kv_dtype or 'model-dtype'} pool) "
+              f"ran with sync debug mode 'error': no host sync")
 
 
 def _tree_to(tree, device):
@@ -275,13 +381,12 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def serve_phase(torch, ops, card: str) -> dict:
+def serve_phase(torch, ops, card: str, argv) -> dict:
+    """Serve llama2-7b at full width through ``launch.serve`` and check the
+    report; returns the launch counts and a summary of the run."""
+    import gc
     from repro_torch.launch import serve
     L = 32
-    argv = ["--arch", "llama2-7b", "--executor", "paged", "--mode", "masked",
-            "--policy", "rl", "--episodes", "0", "--requests", "6",
-            "--decode-horizon", "8", "--max-new", "8", "--seed", "0",
-            "--budget-quantum", "0.3"]
     print(f"  serve argv: {' '.join(argv)}")
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -303,17 +408,21 @@ def serve_phase(torch, ops, card: str) -> dict:
     print(f"  depth {cfg.n_layers} layers; done {len(done)}/"
           f"{len(rep.results)}; pruned requests {len(pruned)} "
           f"(blocks kept: {[int(r.mask.sum()) for r in done]}); overcommits "
-          f"{int(pool['overcommit_events'])}; pool peak "
+          f"{int(pool['overcommit_events'])}; pool {int(pool['n_pages'])} "
+          f"pages of {engine.pool.effective_kv_dtype()}, peak "
           f"{pool['peak_reserved_bytes'] / 1e9:.3f} of "
           f"{pool['capacity_bytes'] / 1e9:.3f} GB")
     print(f"  launches during serve: {counts}")
     if (len(done) != len(rep.results) or not pruned
             or pool["overcommit_events"] != 0
-            or pool["peak_reserved_bytes"] > pool["capacity_bytes"]
-            or min(counts.values()) < 1):
+            or pool["peak_reserved_bytes"] > pool["capacity_bytes"]):
         raise AssertionError("serve phase failed its checks")
     decides = [r.decide_s * 1e3 for r in done if not r.cached_decision]
     summary = {"card": card, "layers": cfg.n_layers, "requests": len(done),
+               "kv_dtype": engine.pool.effective_kv_dtype(),
+               "n_pages": int(pool["n_pages"]),
+               "in_use_scale": pool["in_use_scale"],
+               "max_prefill_tokens": engine.cfg.max_prefill_tokens,
                "generated_tokens": rep.generated_tokens,
                "tok_per_s": rep.tokens_per_s, "wall_s": wall,
                "ttft_ms": {k: rep.ttft[k] * 1e3 for k in ("p50", "p99")},
@@ -331,7 +440,11 @@ def serve_phase(torch, ops, card: str) -> dict:
           f"{summary['decide_s_total']:.1f} s, prefill + decode launches and "
           f"read-backs {rep.launch_s:.1f} s")
     print("serve: " + json.dumps(summary))
-    return counts
+    # free the 7B model before the next serve
+    del engine, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
 
 
 def main() -> None:
@@ -347,6 +460,7 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pdec
     from repro_torch.kernels import swiglu
+    from repro_torch.models import attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -358,8 +472,9 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s -> {lib}")
 
     print("kernels vs plain versions:")
-    entries = [paged_cases(torch, ops, pdec), glu_cases(torch, ops, swiglu),
-               flash_cases(torch, ops, fa)]
+    entries = [paged_cases(torch, ops, pdec),
+               paged_quant_cases(torch, ops, pdec, attention),
+               glu_cases(torch, ops, swiglu), flash_cases(torch, ops, fa)]
     for e in entries:
         print(f"  {e['name']} @ {e['shape']} [{card}]: kernel "
               f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
@@ -368,9 +483,28 @@ def main() -> None:
     print("reference:")
     reference_phase(torch)
     print("serve:")
-    counts = serve_phase(torch, ops, card)
+    s1 = serve_phase(torch, ops, card, SERVE_ARGV)
+    c1 = s1["launches"]
+    if (min(c1["paged_decode_attention"], c1["fused_glu"],
+            c1["flash_attention"]) < 1 or c1["paged_decode_attention_quant"]):
+        raise AssertionError("serve 1 did not run the model-dtype kernels")
+    print("serve 2:")
+    s2 = serve_phase(torch, ops, card, SERVE2_ARGV)
+    c2 = s2["launches"]
+    print(f"  int8 pool {s2['n_pages']} pages vs serve 1's {s1['n_pages']} "
+          f"({s2['n_pages'] / s1['n_pages']:.3f}x); in_use_scale "
+          f"{s2['in_use_scale']:.4f}")
+    if (s2["kv_dtype"] != "int8" or s2["in_use_scale"] >= 1.0
+            or s2["n_pages"] < 1.8 * s1["n_pages"]
+            or c2["paged_decode_attention_quant"] < 1
+            or c2["paged_decode_attention"] != 0
+            or min(c2["fused_glu"], c2["flash_attention"]) < 1):
+        raise AssertionError("serve 2 failed its int8 checks")
+    # each kernel's launches come from the serve whose path runs it
     for e in entries:
-        e["launches"] = counts[e["name"]]
+        src = s2 if e["name"] == "paged_decode_attention_quant" else s1
+        e["launches"] = src["launches"][e["name"]]
+        e["launches_serve2"] = c2[e["name"]]
     print(f"device: {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

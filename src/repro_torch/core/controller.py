@@ -28,8 +28,8 @@ class Decision:
     fits: bool
     latency_s: float
     cached: bool = False      # served from the (bucket, shape) memo table
-    # per-request KV storage precision (None = the pool's precision);
-    # quantized pools are ROADMAP queue 1, item 6
+    # per-request KV storage precision (None = the pool's precision),
+    # stamped by the policy and checked by KVPool.check_kv_dtype
     kv_dtype: Optional[str] = None
 
 

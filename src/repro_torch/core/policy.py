@@ -45,10 +45,19 @@ class PruningPolicy:
 
     name: str = "base"
     mm: MemoryModel
+    # KV storage precision this policy asks the engine to serve requests at
+    # ("fp32"/"bf16"/"int8"/"fp8", or None = the pool's own); every
+    # Decision carries it and the pool rejects a mismatch
     kv_dtype: Optional[str] = None
 
     def observe(self, state: PolicyState) -> Decision:
         raise NotImplementedError
+
+    def _stamp(self, d: Decision) -> Decision:
+        """Attach this policy's requested KV precision to a Decision."""
+        if self.kv_dtype is None or d.kv_dtype == self.kv_dtype:
+            return d
+        return dataclasses.replace(d, kv_dtype=self.kv_dtype)
 
     def feedback(self, result) -> None:
         """Called with the completed request's ``RequestResult``."""
@@ -66,8 +75,8 @@ class RLPolicy(PruningPolicy):
         self.mm = controller.mm
 
     def observe(self, state: PolicyState) -> Decision:
-        return self.controller.decide(state.batch, state.total_len,
-                                      state.budget_bytes)
+        return self._stamp(self.controller.decide(
+            state.batch, state.total_len, state.budget_bytes))
 
 
 class DensePolicy(PruningPolicy):
@@ -81,8 +90,9 @@ class DensePolicy(PruningPolicy):
     def observe(self, state: PolicyState) -> Decision:
         mask = masks_lib.full_mask(self.mm.n_layers)
         peak = self.mm.peak_bytes(mask, state.batch, state.total_len)
-        return Decision(mask=mask, steps=0, peak_bytes=peak,
-                        fits=peak <= state.budget_bytes, latency_s=0.0)
+        return self._stamp(Decision(mask=mask, steps=0, peak_bytes=peak,
+                                    fits=peak <= state.budget_bytes,
+                                    latency_s=0.0))
 
 
 # ---------------------------------------------------------------- registry

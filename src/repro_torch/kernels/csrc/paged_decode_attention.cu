@@ -1,31 +1,59 @@
 // Paged flash-decode: one query token per row against a global page pool.
 //
 // Replaces the Pallas TPU kernel
-// src/repro/kernels/paged_decode_attention.py::paged_decode_attention (its
-// model-dtype body `_kernel`). Row b's token t lives in physical page
-// table[b, t / pt] at slot t % pt; row b attends its first lengths[b]
-// tokens with scale 1/sqrt(D) and an optional tanh softcap.
+// src/repro/kernels/paged_decode_attention.py::paged_decode_attention, both
+// bodies: `_kernel` (model-dtype pages) and `_kernel_quant` (int8 or
+// float8_e4m3fn pages with one f32 scale per (page, kv head), fused
+// dequant). Row b's token t lives in physical page table[b, t / pt] at slot
+// t % pt; row b attends its first lengths[b] tokens with scale 1/sqrt(D)
+// and an optional tanh softcap.
 //
 // Bound on the H100 by memory: each row's K and V bytes are read once
-// (4 flops per K/V element pair against ~2 bytes each in bf16). Design: one
-// CTA per (row b, kv head g) serves the G query heads sharing that kv head,
-// so each K/V element is fetched from device memory once for all G heads.
-// The TPU kernel's sequential page axis becomes a loop inside the block over
-// tiles of 64 tokens; the block reads table[b, .] and lengths[b] itself in
-// place of scalar prefetch, and stops at the row's length (the TPU kernel
-// fetches and masks the padded pages, which are exact no-ops). The online
-// softmax state (m, l, acc) stays in f32 in shared memory. Within a tile a
-// warp reduces each (head, token) dot product over D with coalesced loads,
-// then every thread owns (head, d) accumulator entries for the P.V update.
+// (4 flops per K/V element pair against ~2 bytes each in bf16, 1 byte each
+// for quantized pages). Design: one CTA per (row b, kv head g) serves the
+// G query heads sharing that kv head, so each K/V element is fetched from
+// device memory once for all G heads. The TPU kernel's sequential page axis
+// becomes a loop inside the block over tiles of 64 tokens; the block reads
+// table[b, .] and lengths[b] itself in place of scalar prefetch, and stops
+// at the row's length (the TPU kernel fetches and masks the padded pages,
+// which are exact no-ops). The online softmax state (m, l, acc) stays in
+// f32 in shared memory. Within a tile a warp reduces each (head, token) dot
+// product over D with coalesced loads, then every thread owns (head, d)
+// accumulator entries for the P.V update.
+//
+// The two bodies are one template over the page loader. Quantized pages
+// read their (page, g) scales once per tile while the tile's offsets are
+// built (the TPU kernel's scalar prefetch), and each element is widened as
+// float(code) * scale before the same f32 op sequence: with f32 q the
+// quantized kernel equals the model-dtype kernel run on page_dequant-ed
+// pages bitwise.
 #include "common.cuh"
+
+#include <cuda_fp8.h>
 
 constexpr int kTile = 64;     // tokens per tile
 constexpr int kThreads = 128;
 
-template <typename T>
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);  // exact: every e4m3 value is an f32
+}
+
+// One page element widened to f32: the plain cast for model-dtype pages,
+// code * scale for quantized ones.
+template <bool kQuant, typename P>
+__device__ __forceinline__ float load_page(const P* p, long long i, float s) {
+  if constexpr (kQuant) return to_f32(p[i]) * s;
+  else return to_f32(p[i]);
+}
+
+// T: q/out dtype; P: page dtype; kQuant: pages carry [n_pages, K] scales.
+template <typename T, typename P, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ table,
+paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ kp,
+                    const P* __restrict__ vp, const float* __restrict__ ks,
+                    const float* __restrict__ vs,
+                    const int* __restrict__ table,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     int H, int K, int D, int pt, int max_pages, float scale,
                     float softcap) {
@@ -38,6 +66,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float* m_s = s_s + G * kTile;                                  // [G]
   float* l_s = m_s + G;                                          // [G]
   float* a_s = l_s + G;                                          // [G]
+  float* ks_s = a_s + G;              // [kTile] K scale per token (quant)
+  float* vs_s = ks_s + kTile;         // [kTile] V scale per token (quant)
 
   const int b = blockIdx.x, g = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -63,15 +93,21 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const int t = t0 + j;
       const long long page = table[(long long)b * max_pages + t / pt];
       off_s[j] = (page * pt + t % pt) * tok_stride + (long long)g * D;
+      if constexpr (kQuant) {
+        ks_s[j] = ks[page * K + g];
+        vs_s[j] = vs[page * K + g];
+      }
     }
     __syncthreads();
     // scores s[h, j] = scale * q_h . k_j (one warp per (h, j) pair)
     for (int p = warp; p < G * nt; p += nwarps) {
       const int h = p / nt, j = p - h * nt;
-      const T* kr = kp + off_s[j];
+      const P* kr = kp + off_s[j];
       const float* qh = q_s + h * D;
+      const float sj = kQuant ? ks_s[j] : 1.f;
       float dot = 0.f;
-      for (int d = lane; d < D; d += 32) dot += qh[d] * to_f32(kr[d]);
+      for (int d = lane; d < D; d += 32)
+        dot += qh[d] * load_page<kQuant>(kr, d, sj);
       dot = warp_sum(dot);
       if (lane == 0) {
         float s = dot * scale;
@@ -107,7 +143,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const int h = i / D, d = i - h * D;
       const float* ph = s_s + h * kTile;
       float a = acc[i] * a_s[h];
-      for (int j = 0; j < nt; ++j) a += ph[j] * to_f32(vp[off_s[j] + d]);
+      for (int j = 0; j < nt; ++j)
+        a += ph[j] * load_page<kQuant>(vp, off_s[j] + d,
+                                       kQuant ? vs_s[j] : 1.f);
       acc[i] = a;
     }
   }
@@ -117,6 +155,32 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const int h = i / D;
     ob[i] = from_f32<T>(acc[i] / fmaxf(l_s[h], 1e-30f));
   }
+}
+
+static size_t smem_bytes(int G, int D, bool quant) {
+  return kTile * sizeof(long long)
+      + (size_t)(2 * G * D + G * kTile + 3 * G + (quant ? 2 * kTile : 0))
+        * sizeof(float);
+}
+
+template <typename T, typename P, bool kQuant>
+static int launch(const void* q, const void* kp, const void* vp,
+                  const void* ks, const void* vs, const void* table,
+                  const void* lengths, void* out, int B, int H, int K, int D,
+                  int pt, int max_pages, float scale, float softcap,
+                  cudaStream_t s) {
+  const size_t smem = smem_bytes(H / K, D, kQuant);
+  auto kern = paged_decode_kernel<T, P, kQuant>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<dim3(B, K), kThreads, smem, s>>>(
+      (const T*)q, (const P*)kp, (const P*)vp, (const float*)ks,
+      (const float*)vs, (const int*)table, (const int*)lengths, (T*)out, H, K,
+      D, pt, max_pages, scale, softcap);
+  return (int)cudaGetLastError();
 }
 
 // q [B,1,H,D]; k/v pages [n_pages, pt, K, D]; table int32 [B, max_pages];
@@ -129,21 +193,37 @@ extern "C" int rap_paged_decode_attention(const void* q, const void* kp,
                                           float softcap, int dtype,
                                           void* stream) {
   if (B == 0) return 0;
-  const int G = H / K;
-  const size_t smem = kTile * sizeof(long long)
-      + (size_t)(2 * G * D + G * kTile + 3 * G) * sizeof(float);
-  dim3 grid(B, K);
   cudaStream_t s = (cudaStream_t)stream;
   RAP_DISPATCH(dtype, T, {
-    auto kern = paged_decode_kernel<T>;
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    kern<<<grid, kThreads, smem, s>>>(
-        (const T*)q, (const T*)kp, (const T*)vp, (const int*)table,
-        (const int*)lengths, (T*)out, H, K, D, pt, max_pages, scale, softcap);
+    return launch<T, T, false>(q, kp, vp, nullptr, nullptr, table, lengths,
+                               out, B, H, K, D, pt, max_pages, scale,
+                               softcap, s);
   });
-  return (int)cudaGetLastError();
+  return 0;
+}
+
+// As above with int8 (page_dtype 0) or float8_e4m3fn (page_dtype 1) pages
+// and f32 scales k/v_scales [n_pages, K]; q and out in `dtype`.
+extern "C" int rap_paged_decode_attention_quant(
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* table, const void* lengths, void* out, int B,
+    int H, int K, int D, int pt, int max_pages, float scale, float softcap,
+    int dtype, int page_dtype, void* stream) {
+  if (B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  RAP_DISPATCH(dtype, T, {
+    switch (page_dtype) {
+      case 0:
+        return launch<T, int8_t, true>(q, kp, vp, ks, vs, table, lengths,
+                                       out, B, H, K, D, pt, max_pages, scale,
+                                       softcap, s);
+      case 1:
+        return launch<T, __nv_fp8_e4m3, true>(q, kp, vp, ks, vs, table,
+                                              lengths, out, B, H, K, D, pt,
+                                              max_pages, scale, softcap, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  });
+  return 0;
 }

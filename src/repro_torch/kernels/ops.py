@@ -25,15 +25,39 @@ def fused_glu(h, activation: str = "swiglu"):
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
+                           k_scales=None, v_scales=None,
                            softcap: float = 0.0):
     """q: [B,1,H,D]; k/v_pages: [n_pages, pt, K, D]; page_table: int32
-    [B, max_pages]; lengths: int32 [B] → [B,1,H,D]."""
+    [B, max_pages]; lengths: int32 [B] → [B,1,H,D]. ``k/v_scales`` (f32
+    ``[n_pages, K]``, both or neither) mark int8/fp8 pages and go to
+    :func:`paged_decode_attention_quant`."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be given together")
+    if k_scales is not None:
+        return paged_decode_attention_quant(
+            q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
+            softcap=softcap)
     if q.is_cuda:
         paged_decode_attention.launches += 1
         return _pdec.paged_decode_attention_cuda(
             q, k_pages, v_pages, page_table, lengths, softcap=softcap)
     return _pdec.paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                             lengths, softcap=softcap)
+
+
+def paged_decode_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
+                                 page_table, lengths, *,
+                                 softcap: float = 0.0):
+    """Fused-dequant paged decode: int8/fp8 pages with per-(page, kv head)
+    f32 scales ``[n_pages, K]``; otherwise as :func:`paged_decode_attention`."""
+    if q.is_cuda:
+        paged_decode_attention_quant.launches += 1
+        return _pdec.paged_decode_attention_quant_cuda(
+            q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
+            softcap=softcap)
+    return _pdec.paged_decode_attention_quant_ref(
+        q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
+        softcap=softcap)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -47,7 +71,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                              softcap=softcap)
 
 
-KERNELS = (fused_glu, paged_decode_attention, flash_attention)
+KERNELS = (fused_glu, paged_decode_attention,
+           paged_decode_attention_quant, flash_attention)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -6,6 +6,13 @@ and runs a masked softmax. ``paged_decode_attention_cuda`` launches the CUDA
 kernel ``csrc/paged_decode_attention.cu`` (the port of the Pallas kernel
 ``repro/kernels/paged_decode_attention.py::paged_decode_attention``,
 model-dtype pages), which chases the page table without a gather.
+
+The quantized pair serves int8 / float8_e4m3fn pages with f32 scales
+``[n_pages, K]``: ``paged_decode_attention_quant_ref`` widens the gathered
+pages with ``page_dequant`` before the same masked softmax (as JAX's XLA
+gather does), and ``paged_decode_attention_quant_cuda`` launches the same
+CUDA kernel body with a dequantizing page loader (the port of
+``_kernel_quant``).
 """
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import _sdpa
+from repro_torch.kernels.ref import _sdpa, gather_pages
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
@@ -22,24 +29,28 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
     """q: [B,1,H,D]; k/v_pages: [n_pages, pt, K, D]; page_table: int
     [B, max_pages]; lengths: int [B] → [B,1,H,D]. Row b attends its first
     lengths[b] tokens; token t lives at (page_table[b, t // pt], t % pt)."""
-    B = q.shape[0]
-    pt = k_pages.shape[1]
-    S = page_table.shape[1] * pt
-    idx = page_table.long()
-    ck = k_pages[idx].reshape(B, S, *k_pages.shape[2:]).to(q.dtype)
-    cv = v_pages[idx].reshape(B, S, *v_pages.shape[2:]).to(q.dtype)
-    valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    return paged_decode_attention_quant_ref(q, k_pages, v_pages, None, None,
+                                            page_table, lengths,
+                                            softcap=softcap)
+
+
+def paged_decode_attention_quant_ref(q, k_pages, v_pages, k_scales, v_scales,
+                                     page_table, lengths, *,
+                                     softcap: float = 0.0):
+    """As :func:`paged_decode_attention_ref` on int8/fp8 pages with f32
+    scales ``k/v_scales [n_pages, K]``: each gathered page is widened to
+    ``code.float() * scale`` before the masked softmax (``None`` scales:
+    model-dtype pages, read as they are)."""
+    ck = gather_pages(k_pages, page_table, q.dtype, k_scales)
+    cv = gather_pages(v_pages, page_table, q.dtype, v_scales)
+    valid = (torch.arange(ck.shape[1], device=q.device)[None, :]
+             < lengths[:, None])
     return _sdpa(q, ck, cv, valid[:, None, :], softcap)
 
 
-def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths, *,
-                                softcap: float = 0.0):
-    tensors = (q, k_pages, v_pages, page_table, lengths)
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("paged_decode_attention_cuda takes CUDA tensors")
-    if not (q.dtype == k_pages.dtype == v_pages.dtype):
-        raise TypeError("q and the pages must share one dtype (quantized "
-                        "pages are ROADMAP queue 2, item 2)")
+def _check(q, k_pages, v_pages, page_table, lengths, extra_smem: int):
+    """Shapes, index dtypes, layout and shared memory of either kernel;
+    returns (B, H, K, D, pt)."""
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("page_table and lengths must be int32")
     B, one, H, D = q.shape
@@ -51,13 +62,25 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths, *,
                          f"{tuple(page_table.shape)} lengths "
                          f"{tuple(lengths.shape)}")
     G = H // K
-    smem = 64 * 8 + (2 * G * D + 64 * G + 3 * G) * 4
+    smem = 64 * 8 + (2 * G * D + 64 * G + 3 * G) * 4 + extra_smem
     if D > 256 or smem > 227 * 1024:
         raise ValueError(f"head dim {D} / group {G} exceed the kernel's "
                          f"shared memory")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         # the pool is updated in place: a silent copy would detach it
         raise ValueError("k/v pages must be contiguous")
+    return B, H, K, D, pt
+
+
+def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths, *,
+                                softcap: float = 0.0):
+    tensors = (q, k_pages, v_pages, page_table, lengths)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("paged_decode_attention_cuda takes CUDA tensors")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise TypeError("q and the pages must share one dtype (int8/fp8 "
+                        "pages go to paged_decode_attention_quant_cuda)")
+    B, H, K, D, pt = _check(q, k_pages, v_pages, page_table, lengths, 0)
     q = q.contiguous()
     table = page_table.contiguous()
     lengths = lengths.contiguous()
@@ -71,4 +94,45 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths, *,
                    1.0 / math.sqrt(D), float(softcap), build.dtype_code(q),
                    build.stream(q)),
                 "paged_decode_attention")
+    return out
+
+
+PAGE_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}   # csrc page loaders
+
+
+def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scales,
+                                      v_scales, page_table, lengths, *,
+                                      softcap: float = 0.0):
+    """Fused-dequant paged decode on the card: q bf16/f32/f16, pages int8 or
+    float8_e4m3fn, scales f32 ``[n_pages, K]``."""
+    tensors = (q, k_pages, v_pages, k_scales, v_scales, page_table, lengths)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("paged_decode_attention_quant_cuda takes CUDA "
+                         "tensors")
+    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in PAGE_CODES:
+        raise TypeError(f"quantized pages must be int8 or float8_e4m3fn, "
+                        f"got {k_pages.dtype}/{v_pages.dtype}")
+    B, H, K, D, pt = _check(q, k_pages, v_pages, page_table, lengths,
+                            2 * 64 * 4)
+    n_pages = k_pages.shape[0]
+    for s in (k_scales, v_scales):
+        if s.dtype != torch.float32 or s.shape != (n_pages, K):
+            raise ValueError(f"scales must be f32 [{n_pages}, {K}], got "
+                             f"{s.dtype} {tuple(s.shape)}")
+        if not s.is_contiguous():
+            raise ValueError("scales must be contiguous (updated in place)")
+    q = q.contiguous()
+    table = page_table.contiguous()
+    lengths = lengths.contiguous()
+    out = torch.empty_like(q)
+    fn = build.function("rap_paged_decode_attention_quant",
+                        [build.P] * 8 + [build.I] * 6
+                        + [build.F32, build.F32, build.I, build.I, build.P])
+    build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                   k_scales.data_ptr(), v_scales.data_ptr(),
+                   table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                   B, H, K, D, pt, table.shape[1], 1.0 / math.sqrt(D),
+                   float(softcap), build.dtype_code(q),
+                   PAGE_CODES[k_pages.dtype], build.stream(q)),
+                "paged_decode_attention_quant")
     return out

@@ -8,6 +8,12 @@ like the Pallas kernels, keep the probabilities in f32.) In the port every
 attention goes through ``kernels.ops``, whose plain versions —
 ``flash_attention.attention_ref`` and
 ``paged_decode_attention.paged_decode_attention_ref`` — are built on these.
+
+Quantized page pools (int8 / float8_e4m3fn codes with one f32 scale per
+(page, kv head)) are widened by :func:`page_dequant`, the exact function
+the fused-dequant kernel is pinned against; :func:`take_pages` and
+:func:`put_pages` gather and scatter whole pages of any pool, and
+:func:`gather_pages` lays each row's pages out as one contiguous cache.
 """
 from __future__ import annotations
 
@@ -18,6 +24,40 @@ import torch
 from repro_torch.models import layers
 
 NEG_INF = -2.0e38
+
+
+def page_dequant(q, scales):
+    """Pages ``[..., page_tokens, K, Dh]`` of codes with per-(page, head)
+    scales ``[..., K]`` → f32: ``code.float() * scale`` and nothing else."""
+    return q.float() * scales[..., None, :, None]
+
+
+def _raw(t):
+    # one-byte codes go through indexing as uint8: bit-exact, and not every
+    # indexing kernel takes float8
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+def take_pages(pool, idx):
+    """``pool[idx]`` for a page pool of any dtype."""
+    return _raw(pool)[idx].view(pool.dtype)
+
+
+def put_pages(pool, idx, val) -> None:
+    """``pool[idx] = val`` in place, ``val`` cast to the pool's dtype."""
+    _raw(pool)[idx] = _raw(val.to(pool.dtype))
+
+
+def gather_pages(pages, page_table, dtype, scales=None):
+    """Each row's pages ``[n_pages, pt, K, Dh]`` at ``page_table [B,
+    max_pages]`` as one contiguous ``[B, max_pages·pt, K, Dh]`` tensor in
+    ``dtype``; quantized pages are widened with their ``scales [n_pages,
+    K]`` first (:func:`page_dequant`)."""
+    idx = page_table.long()
+    c = take_pages(pages, idx)
+    if scales is not None:
+        c = page_dequant(c, scales[idx])
+    return c.reshape(page_table.shape[0], -1, *pages.shape[2:]).to(dtype)
 
 
 def _sdpa(q, k, v, mask, softcap: float = 0.0):

@@ -1,14 +1,17 @@
 """Serving launcher: RAP-managed inference over a synthetic workload trace.
 
   python -m repro_torch.launch.serve --executor paged --mode masked \
-      --policy rl --episodes 0 --requests 6
+      --policy rl --episodes 0 --requests 6 [--kv-dtype int8] \
+      [--max-prefill-tokens 64]
 
 Boots the model (random weights from ``--seed``), builds the pruning
 policy — ``rl`` is the RAP controller (paper Algorithm 3) with a seeded,
 untrained Q-network; ``dense`` never prunes — and serves an Azure-like
 workload trace of (batch, prompt) requests through the continuous-batching
 engine: one shared KV page pool with admission control, every in-flight
-request decoding together in horizons.
+request decoding together in horizons. ``--kv-dtype`` picks the page
+pool's precision (int8/fp8 pages decode through the fused-dequant kernel)
+and ``--max-prefill-tokens`` turns on chunked prefill.
 
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead (for tests). Without a GPU and without ``--device cpu`` it
@@ -57,6 +60,19 @@ def _parser() -> argparse.ArgumentParser:
                          "pool stores every layer, so a request that fits "
                          "its pages fits its dense peak; only this floor "
                          "makes the policy prune there")
+    ap.add_argument("--kv-dtype", default="model",
+                    choices=("model", "fp32", "bf16", "int8", "fp8", "auto"),
+                    help="KV page precision: 'model' stores at the model "
+                         "dtype; int8/fp8 store quantized pages with one "
+                         "scale per (page, kv head), dequantized inside the "
+                         "decode kernel (about twice the pages of bf16 in "
+                         "the same bytes); 'auto' picks int8 when the pool "
+                         "cannot hold --slots dense batch-1 requests, else "
+                         "the model dtype")
+    ap.add_argument("--max-prefill-tokens", type=int, default=0,
+                    help="chunked prefill: prompts prefill in pow2 chunks of "
+                         "at most this many tokens, one chunk per engine "
+                         "tick between decode horizons (0 = monolithic)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -130,12 +146,24 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
     max_b = max(r.batch for r in reqs)
     budget = (mm.param_bytes(full)
               + args.pool_requests * mm.state_bytes(full, max_b, max_total))
-    executor = PagedExecutor(model, params, max_active=slots)
+    kv_dtype = None if args.kv_dtype == "model" else args.kv_dtype
+    if kv_dtype == "auto":
+        # one pool holds one precision, so it is chosen once, here: quantize
+        # when the pool cannot host the decode slots densely at model width
+        kv_cap = budget - mm.param_bytes(full)
+        dense_req = mm.state_bytes(full, 1, max_total)
+        kv_dtype = "int8" if kv_cap < slots * dense_req else None
+        print(f"--kv-dtype auto → {kv_dtype or 'model precision'} "
+              f"(pool {kv_cap / 1e6:.1f}MB vs {slots} dense requests "
+              f"{slots * dense_req / 1e6:.1f}MB)")
+    executor = PagedExecutor(model, params, max_active=slots,
+                             kv_dtype=kv_dtype)
     engine = RAPEngine(model, params, policy, EngineConfig(
         mode="masked", max_new_tokens=args.max_new, max_active=slots,
-        max_len=max_total, budget_bytes=budget,
+        max_len=max_total, budget_bytes=budget, kv_dtype=kv_dtype,
         decode_horizon=args.decode_horizon,
-        budget_quantum_frac=args.budget_quantum),
+        budget_quantum_frac=args.budget_quantum,
+        max_prefill_tokens=args.max_prefill_tokens),
         scheduler=args.scheduler, executor=executor)
     ereqs = []
     for i, r in enumerate(reqs):
@@ -166,7 +194,9 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
         print(f"latency: ttft p50/p99 {rep.ttft['p50'] * 1e3:.1f}/"
               f"{rep.ttft['p99'] * 1e3:.1f}ms, itl p50/p99 "
               f"{rep.itl['p50'] * 1e3:.2f}/{rep.itl['p99'] * 1e3:.2f}ms")
-    print(f"pool: peak {rep.pool['peak_reserved_bytes'] / 1e6:.2f}MB of "
+    print(f"pool: {int(rep.pool['n_pages'])} pages of "
+          f"{engine.pool.effective_kv_dtype() or cfg.dtype}, peak "
+          f"{rep.pool['peak_reserved_bytes'] / 1e6:.2f}MB of "
           f"{rep.pool['capacity_bytes'] / 1e6:.2f}MB, frag "
           f"{rep.pool['fragmentation']:.2f}, measured frag "
           f"{rep.measured_frag:.2f}, overcommits "

@@ -1,11 +1,16 @@
-"""Multi-head / grouped-query attention with RoPE: prefill and paged decode.
+"""Multi-head / grouped-query attention with RoPE: prefill, chunked
+prefill and paged decode.
 
-The model-dtype part of ``repro/models/attention.py``. Prefill attention
-and the scoring forward go through the flash-attention kernel; one-token
-decode appends the new K/V into its page and goes through the paged decode
-kernel (``repro_torch.kernels.ops``; plain versions on CPU tensors).
-Quantized pages, chunk attention and slot-cache decode are later slices
-(ROADMAP queue 1).
+The port of ``repro/models/attention.py``'s paged serving half. Prefill
+attention and the scoring forward go through the flash-attention kernel;
+one-token decode appends the new K/V into its page and goes through the
+paged decode kernel (``repro_torch.kernels.ops``; plain versions on CPU
+tensors). Page pools are model-dtype or quantized (int8 / float8_e4m3fn
+codes with one f32 scale per (page, kv head), :func:`page_quant`). Chunk
+attention (one prompt chunk against a partly filled cache) is a plain
+gather + masked softmax, as JAX's XLA path is: no kernel runs there.
+Slot-cache decode and the int8 slot cache are later slices (ROADMAP
+queue 1, items 9 and 11).
 """
 from __future__ import annotations
 
@@ -15,7 +20,13 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import (_causal_mask, _sdpa, gather_pages,
+                                     page_dequant, put_pages, take_pages)
 from repro_torch.models import layers
+
+__all__ = ["init_attn_params", "attention", "page_qmax", "page_quant",
+           "page_dequant", "paged_decode_attention", "chunk_attention",
+           "paged_chunk_attention"]
 
 
 def init_attn_params(gen, cfg, n: int, device) -> dict:
@@ -62,17 +73,80 @@ def attention(params, cfg, x, positions, *,
     return y, {"k": k, "v": v}
 
 
+# ------------------------------------------------------- quantized pages
+def page_qmax(dtype) -> float:
+    """Symmetric quantization ceiling of a paged storage dtype: 127 for
+    int8, 448 for float8_e4m3fn (its largest finite value)."""
+    return 127.0 if dtype == torch.int8 else 448.0
+
+
+def page_quant(xf, dtype, scale_floor=None):
+    """Quantize whole pages ``[..., page_tokens, K, Dh]`` (f32) into
+    ``dtype`` with ONE symmetric scale per (page, kv head): returns
+    ``(codes, scales[..., K])``.
+
+    ``scale_floor`` (shaped like the scales) keeps a page's scale monotone:
+    while an append does not raise the page's amax the scale is unchanged
+    and requantizing its tokens reproduces their codes. 1e-8 is a floor,
+    never an addend. int8 rounds half to even; fp8 is clipped to ±448
+    before the cast (torch would saturate, JAX gives NaN)."""
+    amax = xf.abs().amax(dim=(-3, -1))                      # [..., K]
+    qmax = page_qmax(dtype)
+    scale = amax / qmax
+    if scale_floor is not None:
+        scale = torch.maximum(scale, scale_floor)
+    scale = torch.clamp(scale, min=1e-8)
+    y = xf / scale[..., None, :, None]
+    if dtype == torch.int8:
+        y = torch.round(y)
+    return torch.clamp(y, -qmax, qmax).to(dtype), scale.float()
+
+
+def _append_quant(pool, scales, page_ids, offs, new) -> None:
+    """Code-space append of one token per row into its page, in place.
+
+    pool: [n_pages, pt, K, Dh] codes; scales: [n_pages, K]; page_ids/offs:
+    [B] page and slot of each row's token; new: [B, 1, K, Dh]. The page's
+    scale grows to max(token amax / qmax, old scale) (a fresh page, slot 0,
+    forgets its previous occupant's), existing codes rescale by old/new —
+    exactly 1.0 while the scale is stable, so they round-trip — the token
+    quantizes into its slot and slots past it are zeroed. Index tensors
+    only: no host sync."""
+    pt = pool.shape[1]
+    qmax = page_qmax(pool.dtype)
+    slot = torch.arange(pt, device=new.device)[None, :, None, None]
+    off_b = offs[:, None, None, None]
+    fresh = (offs == 0)[:, None]                            # [B, 1]
+    tok = new[:, 0].float()                                 # [B, K, Dh]
+    old_s = scales[page_ids]                                # [B, K]
+    floor = torch.where(fresh, 0.0, old_s)
+    new_s = torch.clamp(torch.maximum(tok.abs().amax(-1) / qmax, floor),
+                        min=1e-8)
+    r = torch.where(fresh, 0.0, old_s / new_s)              # [B, K] <= 1
+    pg = take_pages(pool, page_ids).float() * r[:, None, :, None]
+    tok_q = tok / new_s[..., None]
+    if pool.dtype == torch.int8:
+        pg, tok_q = torch.round(pg), torch.round(tok_q)
+    pg = torch.where(slot == off_b, tok_q[:, None], pg)
+    pg = torch.where(slot <= off_b, pg, 0.0)               # stale slots → 0
+    put_pages(pool, page_ids, torch.clamp(pg, -qmax, qmax))
+    scales[page_ids] = new_s
+
+
+# ---------------------------------------------------------------- decode
 def paged_decode_attention(params, cfg, x, kv: dict, page_table,
                            pos) -> torch.Tensor:
     """One-token decode against a paged KV pool (one layer's slice).
 
     x: [B,1,D]; kv: {"k","v"} page pools [n_pages, page_tokens, K, Dh]
-    shared by every in-flight request; page_table: int32 [B, max_pages];
-    pos: int32 [B] per-row write positions. Returns out [B,1,D].
+    shared by every in-flight request — quantized pools add {"ks","vs"}
+    scales [n_pages, K]; page_table: int32 [B, max_pages]; pos: int32 [B]
+    per-row write positions. Returns out [B,1,D].
 
     The new token's K/V is written into its page IN PLACE (the JAX version
     returns updated pools through a donated jit; here ``kv`` holds views of
-    the pool, which is never copied). Rows own disjoint pages; padded batch
+    the pool, which is never copied); quantized pools take the code-space
+    append (:func:`_append_quant`). Rows own disjoint pages; padded batch
     rows all point at the scratch page, so their writes collide there in
     no fixed order — harmless, the page is never read under a valid
     length. A position past the table width (a request over-generating in
@@ -89,8 +163,104 @@ def paged_decode_attention(params, cfg, x, kv: dict, page_table,
     col = torch.clamp(pos // page_tokens, max=page_table.shape[1] - 1).long()
     page_ids = page_table[rows, col].long()
     offs = (pos % page_tokens).long()
-    kv["k"][page_ids, offs] = k[:, 0].to(kv["k"].dtype)
-    kv["v"][page_ids, offs] = v[:, 0].to(kv["v"].dtype)
+    if "ks" in kv:
+        _append_quant(kv["k"], kv["ks"], page_ids, offs, k)
+        _append_quant(kv["v"], kv["vs"], page_ids, offs, v)
+    else:
+        kv["k"][page_ids, offs] = k[:, 0].to(kv["k"].dtype)
+        kv["v"][page_ids, offs] = v[:, 0].to(kv["v"].dtype)
     out = kops.paged_decode_attention(q, kv["k"], kv["v"], page_table,
-                                      pos + 1, softcap=cfg.logit_softcap)
+                                      pos + 1, k_scales=kv.get("ks"),
+                                      v_scales=kv.get("vs"),
+                                      softcap=cfg.logit_softcap)
     return torch.matmul(out.reshape(B, 1, -1), params["wo"].to(x.dtype))
+
+
+# ------------------------------------------------------- chunked prefill
+def chunk_attention(params, cfg, x, kv: dict,
+                    start: int) -> torch.Tensor:
+    """Prefill one prompt chunk against a partly filled slot cache.
+
+    x: [B, C, D] — C prompt tokens at absolute positions [start,
+    start + C); kv: one layer's cache {"k","v"} [B, S_max, K, Dh], written
+    in place at [start, start + C). The chunk's queries attend the whole
+    cache width under the causal mask ``kpos <= start + qi`` (positions
+    past the write frontier get zero probability). Returns out [B, C, D].
+    """
+    if "ks" in kv:
+        raise NotImplementedError("the int8 slot cache is ROADMAP queue 1, "
+                                  "item 11")
+    B, C = x.shape[:2]
+    q, k, v = _project_qkv(params, cfg, x)
+    positions = start + torch.arange(C, device=x.device)[None, :]
+    if cfg.use_rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    kv["k"][:, start:start + C] = k.to(kv["k"].dtype)
+    kv["v"][:, start:start + C] = v.to(kv["v"].dtype)
+    S = kv["k"].shape[1]
+    mask = _causal_mask(C, S, 0, q_offset=start, device=x.device)
+    out = _sdpa(q, kv["k"].to(q.dtype), kv["v"].to(q.dtype), mask,
+                cfg.logit_softcap)
+    return torch.matmul(out.reshape(B, C, -1), params["wo"].to(x.dtype))
+
+
+def paged_chunk_attention(params, cfg, x, kv: dict, page_table, start: int,
+                          *, scratch_page: int) -> torch.Tensor:
+    """Paged sibling of :func:`chunk_attention`: C prompt tokens written
+    straight into granted pages (in place).
+
+    x: [B, C, D]; kv: one layer's page pools (quantized pools carry
+    {"ks","vs"}); page_table: int32 [B, max_pages]; start: the chunk's
+    first absolute position (every row of a request shares it). Tokens
+    past the table width go to the scratch page. A quantized pool
+    requantizes only the pages the chunk touches: a leading page the chunk
+    straddles keeps its scale as a floor, pages starting at or after
+    ``start`` reset it; settled pages are not rewritten (JAX routes their
+    unchanged write-back to the scratch page — same pool). Attention is
+    the plain gather + masked softmax of JAX's XLA path. Returns out
+    [B, C, D].
+    """
+    B, C = x.shape[:2]
+    dev = x.device
+    pt = kv["k"].shape[1]
+    max_pages = page_table.shape[1]
+    q, k, v = _project_qkv(params, cfg, x)
+    tok_pos = start + torch.arange(C, device=dev)                 # [C]
+    if cfg.use_rope:
+        q = layers.apply_rope(q, tok_pos[None, :], cfg.rope_theta)
+        k = layers.apply_rope(k, tok_pos[None, :], cfg.rope_theta)
+    if "ks" in kv:
+        c0 = start // pt
+        c1 = min((start + C - 1) // pt, max_pages - 1)
+        if c0 <= c1:                      # else the chunk is past the table
+            ids = page_table[:, c0:c1 + 1].long()                 # [B, n]
+            n, base = c1 - c0 + 1, c0 * pt
+            hi = min(start + C, (c1 + 1) * pt) - base
+            fresh = (torch.arange(c0, c1 + 1, device=dev) * pt
+                     >= start)[None, :, None]                     # [1, n, 1]
+            for pk, sk, new in (("k", "ks", k), ("v", "vs", v)):
+                old_s = kv[sk][ids]                               # [B, n, K]
+                view = page_dequant(take_pages(kv[pk], ids), old_s)
+                view = view.reshape(B, n * pt, *view.shape[3:])
+                view[:, start - base:hi] = new[:, :hi - start + base].float()
+                view[:, hi:] = 0.0                 # past the write frontier
+                qp, sp = page_quant(view.reshape(B, n, pt, *view.shape[2:]),
+                                    kv[pk].dtype,
+                                    scale_floor=torch.where(fresh, 0.0,
+                                                            old_s))
+                put_pages(kv[pk], ids, qp)
+                kv[sk][ids] = sp
+    else:
+        cols = tok_pos // pt
+        page_ids = page_table[:, torch.clamp(cols, max=max_pages - 1)].long()
+        page_ids = torch.where((cols < max_pages)[None, :], page_ids,
+                               scratch_page)                      # [B, C]
+        offs = (tok_pos % pt).long().expand(B, C)
+        kv["k"][page_ids, offs] = k.to(kv["k"].dtype)
+        kv["v"][page_ids, offs] = v.to(kv["v"].dtype)
+    ck = gather_pages(kv["k"], page_table, q.dtype, kv.get("ks"))
+    cv = gather_pages(kv["v"], page_table, q.dtype, kv.get("vs"))
+    mask = _causal_mask(C, ck.shape[1], 0, q_offset=start, device=dev)
+    out = _sdpa(q, ck, cv, mask, cfg.logit_softcap)
+    return torch.matmul(out.reshape(B, C, -1), params["wo"].to(x.dtype))

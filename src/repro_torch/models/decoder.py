@@ -179,15 +179,70 @@ def prefill(params, cfg, tokens, max_len: int, *,
     return logits, cache
 
 
+# ------------------------------------------------------------ chunked prefill
+def prefill_chunk(params, cfg, cache: dict, tokens, start: int, *,
+                  gates=None) -> torch.Tensor:
+    """One prompt chunk against a partly filled slot cache.
+
+    cache: {"attn": {"k","v"} [L, B, S_max, K, Dh]}, written in place at
+    [start, start + C); tokens: [B, C] at absolute offset ``start``.
+    Running a prompt chunk by chunk and reading the last chunk's logits
+    gives :func:`prefill`'s logits. Returns last-position logits [B, Vp]
+    and sets ``cache["pos"]``."""
+    _check_uniform(cfg)
+    L = cfg.n_layers
+    gates = gates or _ones_gates(L, tokens.device)
+    h = _embed(params, cfg, tokens)
+    for i in range(L):
+        pm = tree_slice(params["stacks"]["attn"], i)
+        kv = {name: leaf[i] for name, leaf in cache["attn"].items()}
+        out = attention.chunk_attention(
+            pm, cfg, layers.apply_norm(cfg, pm["norm"], h), kv, start)
+        h = _block(params, cfg, i, h, gates, out)
+    cache["pos"] = start + tokens.shape[1]
+    return _unembed(params, cfg, h[:, -1:, :])[:, 0]
+
+
+def paged_prefill_chunk(params, cfg, pools: dict, page_table, tokens,
+                        start: int, *, scratch_page: int,
+                        gates=None) -> torch.Tensor:
+    """Paged sibling of :func:`prefill_chunk`: one prompt chunk written
+    straight into granted pages.
+
+    pools: {"k","v"} [L, n_pages, page_tokens, K, Dh] (quantized pools add
+    {"ks","vs"} [L, n_pages, K]), updated in place; page_table: int32
+    [B, max_pages]; tokens: [B, C] at absolute offset ``start``. Returns
+    last-position logits [B, Vp]."""
+    _check_uniform(cfg)
+    L = cfg.n_layers
+    gates = gates or _ones_gates(L, tokens.device)
+    h = _embed(params, cfg, tokens)
+    for i in range(L):
+        pm = tree_slice(params["stacks"]["attn"], i)
+        out = attention.paged_chunk_attention(
+            pm, cfg, layers.apply_norm(cfg, pm["norm"], h),
+            _pool_layer(pools, i), page_table, start,
+            scratch_page=scratch_page)
+        h = _block(params, cfg, i, h, gates, out)
+    return _unembed(params, cfg, h[:, -1:, :])[:, 0]
+
+
+def _pool_layer(pools: dict, i: int) -> dict:
+    """Layer ``i``'s views of every pool leaf (pages and, for a quantized
+    pool, the per-page scales)."""
+    return {name: leaf[i] for name, leaf in pools.items()}
+
+
 # --------------------------------------------------------------------- decode
 def paged_decode_step(params, cfg, pools: dict, page_table, pos, tokens, *,
                       gates=None) -> torch.Tensor:
     """One autoregressive step against a paged KV pool.
 
-    pools: {"k","v"} page arrays [L, n_pages, page_tokens, K, Dh], updated
-    in place (one new token per row); page_table: int32 [B, max_pages];
-    pos: int32 [B] per-row write positions; tokens: [B, 1]. Gates may be
-    [L] or [L, B]. Returns logits [B, 1, Vp].
+    pools: {"k","v"} page arrays [L, n_pages, page_tokens, K, Dh] —
+    quantized pools add {"ks","vs"} scales [L, n_pages, K] — updated in
+    place (one new token per row); page_table: int32 [B, max_pages]; pos:
+    int32 [B] per-row write positions; tokens: [B, 1]. Gates may be [L] or
+    [L, B]. Returns logits [B, 1, Vp].
     """
     _check_uniform(cfg)
     L = cfg.n_layers
@@ -195,7 +250,7 @@ def paged_decode_step(params, cfg, pools: dict, page_table, pos, tokens, *,
     h = _embed(params, cfg, tokens)
     for i in range(L):
         pm = tree_slice(params["stacks"]["attn"], i)
-        kv = {"k": pools["k"][i], "v": pools["v"][i]}
+        kv = _pool_layer(pools, i)
         out = attention.paged_decode_attention(
             pm, cfg, layers.apply_norm(cfg, pm["norm"], h), kv, page_table,
             pos)

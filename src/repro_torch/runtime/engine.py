@@ -28,9 +28,14 @@ One :meth:`RAPEngine._tick`:
      horizon boundary and over-generated tokens are truncated, so results
      are identical for any horizon.
 
-Budget traces with preemption, ``cancel``, chunked prefill, structural
-mode and ``force`` admission are later slices (ROADMAP queue 1, items 4
-and 7–9) and raise ``NotImplementedError``.
+With ``EngineConfig.max_prefill_tokens > 0`` admission grants only the
+first chunk's pages and every in-flight chunked prefill advances one
+chunk per tick in the host phase, so a long prompt cannot stall running
+decodes for more than one chunk.
+
+Budget traces with preemption, ``cancel``, structural mode and ``force``
+admission are later slices (ROADMAP queue 1, items 7–9) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,8 +47,9 @@ import numpy as np
 
 from repro_torch.core import masks as masks_lib
 from repro_torch.core.policy import Decision, PolicyState, PruningPolicy
-from repro_torch.runtime.executor import ModelExecutor, PagedExecutor
-from repro_torch.runtime.kv_pool import KVPool
+from repro_torch.runtime.executor import (ModelExecutor, PagedExecutor,
+                                          chunk_widths)
+from repro_torch.runtime.kv_pool import KVPool, resolve_kv_dtype
 from repro_torch.runtime.latency import summarize as _lat_summarize
 from repro_torch.runtime.scheduler import Scheduler, make_scheduler
 
@@ -77,7 +83,9 @@ class EngineConfig:
     # tokens per decode horizon (clamped per tick to the group's largest
     # remaining need and, while requests queue, its soonest completion)
     decode_horizon: int = 8
-    max_prefill_tokens: int = 0       # >0 chunked prefill: ROADMAP item 4
+    # >0: prompts prefill in pow2 chunks of at most this many tokens, one
+    # chunk per tick (0 = monolithic prefill)
+    max_prefill_tokens: int = 0
 
     def __post_init__(self):
         if self.mode == "structural":
@@ -91,9 +99,6 @@ class EngineConfig:
                 "queue 1, item 9")
         if self.admission != "strict":
             raise ValueError(f"unknown admission {self.admission!r}")
-        if self.max_prefill_tokens > 0:
-            raise NotImplementedError(
-                "chunked prefill is ROADMAP queue 1, item 4")
         if self.max_prefill_tokens < 0:
             raise ValueError(f"max_prefill_tokens must be >= 0, got "
                              f"{self.max_prefill_tokens!r}")
@@ -194,6 +199,20 @@ class _Running:
     events: List[Tuple[float, int]] = dataclasses.field(default_factory=list)
 
 
+@dataclasses.dataclass
+class _Prefilling:
+    """A request admitted into a chunked prefill: its slots are reserved
+    and it joins decode when the last chunk lands."""
+    req: EngineRequest
+    decision: Decision
+    group: Any
+    slots: List[int]
+    admitted_t: float
+    kv_bytes: float
+    max_new: int
+    task: Any
+
+
 # ------------------------------------------------------------------- engine
 class RAPEngine:
     """Thin orchestration loop: Scheduler × PruningPolicy × ModelExecutor
@@ -222,11 +241,20 @@ class RAPEngine:
             raise NotImplementedError(
                 "the slot-cache executor is ROADMAP queue 1, item 9; the "
                 "engine serves through PagedExecutor")
+        # precision as a policy action: a stack built with a canonical KV
+        # precision stamps it on the policy, so every Decision carries it
+        # and the pool checks it against its pages at admission
+        kv_name = getattr(self.executor, "kv_dtype_name", None)
+        if kv_name is None:
+            kv_name, _, _, _ = resolve_kv_dtype(self.cfg.kv_dtype)
+        if kv_name is not None and getattr(policy, "kv_dtype", None) is None:
+            policy.kv_dtype = kv_name
         self.resident_param_bytes = self.mm.param_bytes(
             masks_lib.full_mask(self.mcfg.n_layers))
         self.pool: Optional[KVPool] = None
         self._pending: List[EngineRequest] = []
         self._running: Dict[str, _Running] = {}
+        self._prefilling: Dict[str, _Prefilling] = {}
         self._results: List[RequestResult] = []
         self._ttft_samples: List[float] = []
         self._itl_samples: List[float] = []
@@ -266,6 +294,7 @@ class RAPEngine:
         self._pending = sorted(requests, key=lambda r: r.arrival_t)
         self.scheduler.clear()
         self._running.clear()
+        self._prefilling.clear()
         self._results = []
         self._ttft_samples, self._itl_samples = [], []
         self._frag_samples = []
@@ -273,7 +302,8 @@ class RAPEngine:
         launch_s0 = self.executor.launch_s
         self._skew = 0.0
         self._t0 = time.perf_counter()
-        while self._pending or len(self.scheduler) or self._running:
+        while (self._pending or len(self.scheduler) or self._running
+               or self._prefilling):
             self._tick()
         makespan = self._now()
         wall = time.perf_counter() - self._t0
@@ -314,7 +344,8 @@ class RAPEngine:
         # ---- host phase (device work in flight from here to finish) ----
         while self._pending and self._pending[0].arrival_t <= now:
             req = self._pending.pop(0)
-            if req.rid in self.scheduler or req.rid in self._running:
+            if (req.rid in self.scheduler or req.rid in self._running
+                    or req.rid in self._prefilling):
                 self._reject(req, f"duplicate request id {req.rid!r} "
                                   f"(already in flight)")
                 continue
@@ -330,13 +361,15 @@ class RAPEngine:
                 deferred = req
                 break
             self.scheduler.remove(req.rid)
-        # a deferral with nothing launched or running can never be
-        # satisfied: no completion will free what it waits on
-        stuck = deferred is not None and not launches and not self._running
+        # a deferral with nothing launched, running or prefilling can never
+        # be satisfied: no completion will free what it waits on
+        stuck = (deferred is not None and not launches and not self._running
+                 and not self._prefilling)
+        self._advance_prefills()
         # ---- finish: the tick's one read-back --------------------------
         if launches:
             self._finish_decode(launches)
-        if not self._running:
+        if not self._running and not self._prefilling:
             if stuck:
                 self.scheduler.remove(deferred.rid)
                 self._reject(deferred, "deferred with idle engine")
@@ -363,7 +396,7 @@ class RAPEngine:
         # prefill always yields one token, so the floor is 1
         max_new = max(max_new, 1)
         total = S + max_new
-        if req.rid in self._running:
+        if req.rid in self._running or req.rid in self._prefilling:
             self._reject(req, f"duplicate request id {req.rid!r} "
                               f"(already in flight)")
             return "rejected"
@@ -400,14 +433,33 @@ class RAPEngine:
             return "defer"
         slots = free[:b]
         admitted_t = self._now()
+        prompt = np.asarray(req.prompt, np.int32)
+        chunked = (self.cfg.max_prefill_tokens > 0
+                   and self.executor.supports_chunked_prefill(group))
+        if chunked:
+            # grant only the first chunk's pages; each later chunk extends
+            # the allocation just before it runs (the commitment covers it)
+            c1 = chunk_widths(S, self.cfg.max_prefill_tokens)[0]
+            rate = kv_bytes / max(total, 1)
+            self.pool.alloc_tokens(req.rid, b, c1, max_tokens=total,
+                                   in_use_bytes=rate * c1,
+                                   in_use_per_token=rate,
+                                   kv_dtype=d.kv_dtype)
+            self._prefilling[req.rid] = _Prefilling(
+                req=req, decision=d, group=group, slots=slots,
+                admitted_t=admitted_t, kv_bytes=kv_bytes, max_new=max_new,
+                task=self.executor.prefill_begin(
+                    group, slots, req.rid, prompt, d.mask,
+                    max_chunk=self.cfg.max_prefill_tokens))
+            return "admitted"
         # grant pages backing the prompt now; commit the decode tail
         prompt_bytes = self.mm.state_bytes(d.mask, b, S)
         rate = max(kv_bytes - prompt_bytes, 0.0) / max(total - S, 1)
         self.pool.alloc_tokens(req.rid, b, S, max_tokens=total,
                                in_use_bytes=prompt_bytes,
                                in_use_per_token=rate, kv_dtype=d.kv_dtype)
-        first = self.executor.prefill_into(
-            group, slots, req.rid, np.asarray(req.prompt, np.int32), d.mask)
+        first = self.executor.prefill_into(group, slots, req.rid, prompt,
+                                           d.mask)
         run = _Running(req=req, decision=d, group=group, slots=slots,
                        admitted_t=admitted_t, kv_bytes=kv_bytes,
                        max_new=max_new, out=[first],
@@ -416,6 +468,24 @@ class RAPEngine:
         if run.max_new <= len(run.out):
             self._complete(run)
         return "admitted"
+
+    def _advance_prefills(self) -> None:
+        """Advance every in-flight chunked prefill by ONE chunk; a prefill
+        that completes seats its request (it joins decode next tick) and
+        stamps its first-token event."""
+        for rid in list(self._prefilling):
+            pf = self._prefilling[rid]
+            first = self.executor.prefill_step(pf.task)
+            if first is None:
+                continue
+            del self._prefilling[rid]
+            run = _Running(req=pf.req, decision=pf.decision, group=pf.group,
+                           slots=pf.slots, admitted_t=pf.admitted_t,
+                           kv_bytes=pf.kv_bytes, max_new=pf.max_new,
+                           out=[first], events=[(self._now(), 1)])
+            self._running[rid] = run
+            if run.max_new <= len(run.out):
+                self._complete(run)
 
     # --------------------------------------------------------------- decode
     def _launch_decode(self, decode_plan: Optional[List[str]],

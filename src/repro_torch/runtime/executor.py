@@ -18,9 +18,14 @@ stream with the argmax token fed back on the device; the host reads the
 counterpart of JAX's async dispatch: the launch returns at once and the
 host schedules while the card works).
 
-Structural mode (compacted stacks), chunked prefill, quantized pages,
-spill/restore and the slot-cache ``LocalExecutor`` are later slices
-(ROADMAP queue 1, items 4 and 6–9).
+Pools are model-dtype or quantized (int8 / float8_e4m3fn pages with
+per-(page, kv head) scales; every write seam quantizes: monolithic prefill,
+chunked prefill and the decode append). Prompts prefill monolithically or
+in pow2 chunks, one chunk per engine tick (:meth:`PagedExecutor.prefill_begin`
+/ :meth:`PagedExecutor.prefill_step`).
+
+Structural mode (compacted stacks), spill/restore and the slot-cache
+``LocalExecutor`` are later slices (ROADMAP queue 1, items 7–9).
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models import decoder
+from repro_torch.kernels.ref import put_pages
+from repro_torch.models import attention, decoder
 from repro_torch.runtime.kv_pool import resolve_kv_dtype
 
 __all__ = ["ModelExecutor", "PagedExecutor", "PagedGroup", "chunk_widths"]
@@ -53,6 +59,26 @@ def chunk_widths(n_tokens: int, max_chunk: int) -> List[int]:
         widths.append(c)
         n -= c
     return widths
+
+
+@dataclasses.dataclass
+class _PrefillTask:
+    """One in-flight chunked prefill (``prefill_begin``/``prefill_step``).
+    The request's slots are *reserved* in its group for the task's lifetime
+    (they pad no decode bucket and admit no other request) and seated when
+    the final chunk completes; chunks write straight into the pool."""
+    group: Any
+    slots: List[int]
+    rid: str
+    prompt: np.ndarray                # int32 [b, S]
+    cols: np.ndarray                  # [2, L] gate columns
+    widths: List[int]                 # pow2 chunk widths, sum == S
+    pos: int = 0                      # prompt tokens processed so far
+    step: int = 0                     # chunks processed so far
+
+    @property
+    def done(self) -> bool:
+        return self.pos >= self.prompt.shape[1]
 
 
 @dataclasses.dataclass
@@ -151,6 +177,8 @@ class PagedGroup:
         self.scratch_page = scratch_page
         self.device = device
         self.occupants: List[Optional[str]] = [None] * n_slots
+        # slots held by an in-flight chunked prefill
+        self.reserved: set = set()
         # padded decode rows write their garbage KV into the scratch page
         self.table = np.full((n_slots, max_row_pages), scratch_page, np.int32)
         self.pos = np.zeros((n_slots,), np.int32)
@@ -164,7 +192,8 @@ class PagedGroup:
         self._iidx_cache: Dict[Tuple[int, ...], torch.Tensor] = {}
 
     def free_slots(self) -> List[int]:
-        return [i for i, o in enumerate(self.occupants) if o is None]
+        return [i for i, o in enumerate(self.occupants)
+                if o is None and i not in self.reserved]
 
     def occupied_slots(self) -> List[int]:
         return [i for i, o in enumerate(self.occupants) if o is not None]
@@ -193,6 +222,7 @@ class PagedGroup:
         full_rows = np.full((len(slots), self.max_row_pages),
                             self.scratch_page, np.int32)
         full_rows[:, :npg] = rows_np
+        self.reserved.difference_update(slots)
         for i, s in enumerate(slots):
             self.occupants[s] = rid
             self.table[s] = full_rows[i]
@@ -217,6 +247,7 @@ class PagedGroup:
             torch.from_numpy(vals.astype(np.int32)).to(self.device)
 
     def evict(self, slots: List[int]) -> None:
+        self.reserved.difference_update(slots)
         for s in slots:
             self.occupants[s] = None
             self.table[s] = self.scratch_page
@@ -250,6 +281,11 @@ class PagedExecutor(ModelExecutor):
     Dynamic decode-batch buckets: occupied slots are stepped in the
     smallest bucket of ``decode_buckets`` that holds them, padded with free
     slots whose page-table rows point at the pool's scratch page.
+
+    ``kv_dtype`` takes the canonical precision names (``fp32``/``bf16``/
+    ``int8``/``fp8``) or a torch dtype: quantized precisions store int8 /
+    float8_e4m3fn pages plus per-(page, kv head) scales, quantize on every
+    write seam, and decode through the fused-dequant kernel.
     """
 
     paged = True
@@ -264,10 +300,6 @@ class PagedExecutor(ModelExecutor):
         if mode != "masked":
             raise ValueError(f"unknown mode {mode!r}")
         name, store, quantized, _ = resolve_kv_dtype(kv_dtype)
-        if quantized:
-            raise NotImplementedError(
-                f"kv_dtype {name!r}: quantized page pools are ROADMAP "
-                f"queue 1, item 6")
         decoder._check_uniform(model.cfg)
         self.model = model
         self.mcfg = model.cfg
@@ -276,6 +308,7 @@ class PagedExecutor(ModelExecutor):
         self.mode = mode
         self.max_active = int(max_active)
         self.kv_dtype_name = name            # canonical, None = model dtype
+        self.kv_quantized = quantized
         self.kv_dtype = store if store is not None else model.cfg.torch_dtype()
         self.decode_buckets = tuple(int(b) for b in decode_buckets or ())
         self.launch_s = 0.0
@@ -285,11 +318,16 @@ class PagedExecutor(ModelExecutor):
 
     # ------------------------------------------------------------- binding
     def page_phys_bytes(self, tokens_per_page: int) -> int:
-        """Exact bytes of one physical page across all layers (K and V)."""
+        """Exact bytes of one physical page across all layers (K and V);
+        a quantized page also carries its per-(layer, kv head) f32 scale
+        rows, so admission and the pool ledger see true bytes."""
         cfg = self.mcfg
         itemsize = torch.empty((), dtype=self.kv_dtype).element_size()
-        return (2 * cfg.n_layers * int(tokens_per_page) * cfg.n_kv_heads
-                * cfg.dh * itemsize)
+        n = (2 * cfg.n_layers * int(tokens_per_page) * cfg.n_kv_heads
+             * cfg.dh * itemsize)
+        if self.kv_quantized:
+            n += 2 * cfg.n_layers * cfg.n_kv_heads * 4    # K + V scale rows
+        return n
 
     def bind_pool(self, pool, max_len: int) -> None:
         """Attach this run's KVPool: allocate its page tensors on the
@@ -306,7 +344,12 @@ class PagedExecutor(ModelExecutor):
         self._groups.clear()
 
     def _pools(self) -> Dict[str, torch.Tensor]:
-        return {"k": self.pool.k_pages, "v": self.pool.v_pages}
+        """The pool's device tensors: pages, plus scales when quantized."""
+        pools = {"k": self.pool.k_pages, "v": self.pool.v_pages}
+        if self.kv_quantized:
+            pools["ks"] = self.pool.k_scales
+            pools["vs"] = self.pool.v_scales
+        return pools
 
     # -------------------------------------------------------------- groups
     def groups(self) -> List[PagedGroup]:
@@ -330,7 +373,9 @@ class PagedExecutor(ModelExecutor):
                      prompt: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """Prefill the request, write its K/V into the pages the pool
         granted at admission, seat its rows in ``slots``, and return the
-        first sampled tokens ``[b]``."""
+        first sampled tokens ``[b]``. A quantized pool prefills at model
+        width and quantizes the whole pages on the write (every granted
+        page is fresh, so no scale floor)."""
         b, S = prompt.shape
         cfg, pt = self.mcfg, self.pool.tokens_per_page
         rows_np = np.asarray(self.pool.row_pages(rid), np.int32)  # [b, npg]
@@ -346,14 +391,69 @@ class PagedExecutor(ModelExecutor):
         shape = (cfg.n_layers, b, npg, pt, cfg.n_kv_heads, cfg.dh)
         rows = torch.from_numpy(rows_np).to(self.device).long()
         # in-place scatter into the pool (positions past S carry zeros)
-        self.pool.k_pages[:, rows] = cache["attn"]["k"].reshape(shape).to(
-            self.pool.k_pages.dtype)
-        self.pool.v_pages[:, rows] = cache["attn"]["v"].reshape(shape).to(
-            self.pool.v_pages.dtype)
+        pools = self._pools()
+        for pk, sk in (("k", "ks"), ("v", "vs")):
+            kv = cache["attn"][pk].reshape(shape)
+            if self.kv_quantized:
+                kv, sc = attention.page_quant(kv.float(), pools[pk].dtype)
+                pools[sk][:, rows] = sc
+            put_pages(pools[pk], (slice(None), rows), kv)
         first_dev = torch.argmax(logits, dim=-1).to(torch.int32)
         first = first_dev.cpu().numpy()
         self.launch_s += time.perf_counter() - t0
         group.place(rid, slots, rows_np, S, first_dev, first, cols)
+        return first
+
+    # ----------------------------------------------------- chunked prefill
+    def supports_chunked_prefill(self, group: PagedGroup) -> bool:
+        # the constructor pins uniform all-attention models: exactly what
+        # the paged chunk path serves, at any pool precision
+        return True
+
+    def prefill_begin(self, group: PagedGroup, slots: List[int], rid: str,
+                      prompt: np.ndarray, mask: np.ndarray, *,
+                      max_chunk: int) -> _PrefillTask:
+        """Open a chunked prefill. The admission allocation covers the
+        first chunk; each later chunk extends the request's pages just
+        before it runs, so a long prompt's pages are granted as it goes."""
+        prompt = np.asarray(prompt, np.int32)
+        group.reserved.update(slots)
+        return _PrefillTask(group=group, slots=list(slots), rid=rid,
+                            prompt=prompt, cols=_gate_cols(mask, None),
+                            widths=chunk_widths(prompt.shape[1], max_chunk))
+
+    def prefill_step(self, task: _PrefillTask) -> Optional[np.ndarray]:
+        """Run the task's next chunk; returns the first sampled tokens
+        ``[b]`` once the last chunk is done (and seats the request), else
+        None."""
+        group, rid = task.group, task.rid
+        b, S = task.prompt.shape
+        c = task.widths[task.step]
+        if task.pos > 0:
+            # the admission alloc covered chunk 0; grant this chunk's pages
+            self.pool.extend(rid, c)
+        rows_np = np.asarray(self.pool.row_pages(rid), np.int32)
+        table = np.full((b, self.max_row_pages), self.pool.scratch_page,
+                        np.int32)
+        table[:, :rows_np.shape[1]] = rows_np
+        t0 = time.perf_counter()
+        logits = decoder.paged_prefill_chunk(
+            self.params, self.mcfg, self._pools(),
+            torch.from_numpy(table).to(self.device),
+            torch.from_numpy(task.prompt[:, task.pos:task.pos + c]).to(
+                self.device), task.pos,
+            scratch_page=self.pool.scratch_page,
+            gates={"mixer": torch.from_numpy(task.cols[0]).to(self.device),
+                   "ffn": torch.from_numpy(task.cols[1]).to(self.device)})
+        task.pos += c
+        task.step += 1
+        if not task.done:
+            self.launch_s += time.perf_counter() - t0
+            return None
+        first_dev = torch.argmax(logits, dim=-1).to(torch.int32)
+        first = first_dev.cpu().numpy()
+        self.launch_s += time.perf_counter() - t0
+        group.place(rid, task.slots, rows_np, S, first_dev, first, task.cols)
         return first
 
     # -------------------------------------------------------------- decode

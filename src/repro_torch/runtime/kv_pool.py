@@ -22,10 +22,12 @@ count) up front, so a mid-decode :meth:`extend` can never fail:
 ``free pages − outstanding commitments`` is what :meth:`can_alloc_tokens`
 admits against.
 
+Quantized pools (``kv_dtype`` ``"int8"``/``"fp8"``) store int8 or
+float8_e4m3fn pages plus per-(layer, page, kv head) f32 scales.
+
 The byte-granular allocations of the slot-cache path (ROADMAP queue 1,
-item 9), spilling a preempted request's pages to the host
-(``spill``/``restore``, item 7) and quantized page pools (item 6) are
-later slices.
+item 9) and spilling a preempted request's pages and scale rows to the
+host (``spill``/``restore``, item 7) are later slices.
 """
 from __future__ import annotations
 
@@ -127,7 +129,11 @@ class KVPool:
         # physical page arrays (allocate_physical): [L, n_pages+1, pt, K, D]
         self.k_pages = None
         self.v_pages = None
+        # quantized pools: canonical dtype name + per-page scales
+        # ([L, n_pages+1, K] f32; row n_pages scales the scratch page)
         self.kv_dtype: Optional[str] = None
+        self.k_scales = None
+        self.v_scales = None
 
     # ---------------------------------------------------------- physical
     @property
@@ -142,22 +148,29 @@ class KVPool:
         """Materialize the page pools on ``device``: one K and one V tensor
         per attention layer (stacked on a leading layer axis), sized once
         at capacity plus one scratch page.
+
         ``kv_dtype`` ``None`` keeps ``dtype``; ``"fp32"``/``"bf16"``
-        override the width. Quantized pages (``"int8"``/``"fp8"``) are
-        ROADMAP queue 1, item 6."""
+        override the width; ``"int8"``/``"fp8"`` store quantized pages plus
+        per-(page, kv head) f32 scale tensors ``[n_layers, n_pages+1, K]``
+        (the scratch page has a scale row too: padded decode rows
+        requantize it harmlessly). The ledger's ``in_use_scale`` turns the
+        analytical model-width charges into physical bytes."""
         name, store_dtype, quantized, _ = resolve_kv_dtype(kv_dtype)
-        if quantized:
-            raise NotImplementedError(
-                f"kv_dtype {name!r}: quantized page pools are ROADMAP "
-                f"queue 1, item 6")
         self.kv_dtype = name
         phys = store_dtype if store_dtype is not None else dtype
         shape = (n_layers, self.n_pages + 1, self.tokens_per_page,
                  n_kv_heads, head_dim)
         self.k_pages = torch.zeros(shape, dtype=phys, device=device)
         self.v_pages = torch.zeros(shape, dtype=phys, device=device)
+        self.k_scales = self.v_scales = None
+        if quantized:
+            sshape = (n_layers, self.n_pages + 1, n_kv_heads)
+            self.k_scales = torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)
+            self.v_scales = torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)
         # analytical ledger charges arrive in model-dtype bytes; physical
-        # truth per token is page_bytes / tokens_per_page
+        # truth per token is page_bytes / tokens_per_page (scales included)
         model_tok = (2 * n_kv_heads * head_dim
                      * torch.empty((), dtype=dtype).element_size() * n_layers)
         if model_tok > 0:

@@ -9,9 +9,12 @@ package, so it runs on a GPU machine that has only PyTorch:
 Tolerances: 1e-4 in f32 (TF32 off), 2e-2 in bf16 for attention — the plain
 versions round the softmax probabilities to bf16 before the P·V product,
 as the JAX reference does, while the kernels keep them in f32 — and
-1e-5 / 8e-3 (one bf16 rounding) for the fused GLU. The case lists are
-shared with ``tests/test_torch_kernels.py``, which holds the plain
-versions against the JAX kernels on the CPU.
+1e-5 / 8e-3 (one bf16 rounding) for the fused GLU. The fused-dequant paged
+decode kernel (int8 and fp8 pages) is also held bitwise against the
+model-dtype kernel run on ``page_dequant``-ed pages, with f32 q. The case
+lists are shared with ``tests/test_torch_kernels.py`` and
+``tests/test_torch_quant.py``, which hold the plain versions against the
+JAX kernels on the CPU.
 """
 import numpy as np
 import pytest
@@ -21,7 +24,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode_attention as pdec
 from repro_torch.kernels import swiglu
-from repro_torch.models import decoder, registry
+from repro_torch.models import attention, decoder, registry
 
 torch.set_num_threads(1)
 
@@ -100,6 +103,101 @@ def test_paged_decode_kernel_matches_plain(cuda, B, H, K, D, pt, S, cap,
     want = pdec.paged_decode_attention_ref(q, kp, vp, table, lengths,
                                            softcap=cap)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _quant_inputs(seed, B, H, K, D, pt, S, page_dtype, device):
+    q, kp, vp, table, lengths = (torch.from_numpy(a).to(device) for a in
+                                 _paged_inputs(seed, B, H, K, D, pt, S))
+    kq, ks = attention.page_quant(kp, page_dtype)
+    vq, vs = attention.page_quant(vp, page_dtype)
+    return q, kq, vq, ks, vs, table, lengths
+
+
+PAGE_DTYPES = pytest.mark.parametrize(
+    "page_dtype", [torch.int8, torch.float8_e4m3fn], ids=["int8", "fp8"])
+
+
+@pytest.mark.cuda
+@PAGE_DTYPES
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,K,D,pt,S,cap", PAGED_CASES)
+def test_paged_decode_quant_kernel_matches_plain(cuda, B, H, K, D, pt, S, cap,
+                                                 dtype, tol, page_dtype):
+    q, kq, vq, ks, vs, table, lengths = _quant_inputs(
+        11, B, H, K, D, pt, S, page_dtype, cuda)
+    q = q.to(dtype)
+    got = pdec.paged_decode_attention_quant_cuda(q, kq, vq, ks, vs, table,
+                                                 lengths, softcap=cap)
+    want = pdec.paged_decode_attention_quant_ref(q, kq, vq, ks, vs, table,
+                                                 lengths, softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@PAGE_DTYPES
+@pytest.mark.parametrize("B,H,K,D,pt,S,cap", PAGED_CASES)
+def test_paged_decode_quant_kernel_equals_kernel_on_dequantized_pages(
+        cuda, B, H, K, D, pt, S, cap, page_dtype):
+    """Fused dequant runs the model-dtype kernel's f32 op sequence: with f32
+    q the two kernels agree bitwise."""
+    q, kq, vq, ks, vs, table, lengths = _quant_inputs(
+        13, B, H, K, D, pt, S, page_dtype, cuda)
+    got = pdec.paged_decode_attention_quant_cuda(q, kq, vq, ks, vs, table,
+                                                 lengths, softcap=cap)
+    want = pdec.paged_decode_attention_cuda(
+        q, attention.page_dequant(kq, ks), attention.page_dequant(vq, vs),
+        table, lengths, softcap=cap)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_horizon_card_matches_cpu(cuda):
+    """A 4-layer f32 model on an int8 page pool: the card (kernels) and the
+    CPU (plain versions) emit the same greedy tokens, and a warmed
+    quantized horizon makes no host sync."""
+    cfg = get_smoke_config("llama2-7b").replace(n_layers=4)
+    params = registry.build(cfg).init(0, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 21)).astype(np.int32))
+    B, pt, npg = 2, 8, 5
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        logits, cache = decoder.prefill(p, cfg, toks.to(dev), npg * pt)
+        table = torch.arange(B * npg, dtype=torch.int32,
+                             device=dev).reshape(B, npg)
+        pools = {}
+        for pk, sk in (("k", "ks"), ("v", "vs")):
+            codes, sc = attention.page_quant(
+                cache["attn"][pk].reshape(cfg.n_layers, B, npg, pt,
+                                          cfg.n_kv_heads, cfg.dh).float(),
+                torch.int8)
+            pools[pk] = torch.zeros(cfg.n_layers, B * npg + 1, pt,
+                                    cfg.n_kv_heads, cfg.dh,
+                                    dtype=torch.int8, device=dev)
+            pools[sk] = torch.zeros(cfg.n_layers, B * npg + 1,
+                                    cfg.n_kv_heads, device=dev)
+            pools[pk][:, table.long()] = codes
+            pools[sk][:, table.long()] = sc
+        pos = torch.full((B,), 21, dtype=torch.int32, device=dev)
+        first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        h, _, _ = decoder.paged_decode_horizon(p, cfg, pools, table, pos,
+                                               first, 8)
+        out[str(dev)] = h.cpu()
+    assert torch.equal(out["cpu"], out[str(cuda)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decoder.paged_decode_horizon(p, cfg, pools, table, pos, first, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 @pytest.mark.cuda
