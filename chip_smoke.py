@@ -17,13 +17,19 @@ Phases, each fatal on failure:
                 with f32 q); time kernel, plain version and (flash
                 attention) the ``scaled_dot_product_attention`` yardstick,
                 and work out each kernel's bound from its bytes and
-                operations;
+                operations. The dense decode kernel (the slot path's) is held against
+                its plain version with per-row ``[B, S]`` and shared ``[S]``
+                masks, GQA, softcap, a ring mask and a ragged cache length,
+                bitwise against the paged kernel on pages holding the same
+                tokens (f32 q, prefix mask), and timed beside
+                ``scaled_dot_product_attention`` with a boolean mask;
   3. reference — a small model through the kernels on the card against the
-                same model through the plain versions on the CPU, with a
-                model-dtype and with an int8 page pool, and warmed decode
-                horizons (both pools) under
-                ``torch.cuda.set_sync_debug_mode("error")`` (no host sync
-                inside the horizon);
+                same model through the plain versions on the CPU: paged
+                with a model-dtype and an int8 page pool, and the slot path
+                (``[B]`` positions, ``[L, B]`` gates) with a model-dtype and
+                an int8 slot cache; warmed decode horizons of both paths
+                under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+                sync inside the horizon);
   4. serve    — ``repro_torch.launch.serve`` with llama2-7b at full width
                 (bf16, random weights from the seed, all 32 layers), paged
                 executor, masked mode, RL policy with an untrained Q-net:
@@ -33,7 +39,13 @@ Phases, each fatal on failure:
   5. serve 2  — the same serve with ``--kv-dtype int8
                 --max-prefill-tokens 64``: the same checks, an int8 pool of
                 at least 1.8x serve 1's pages, and every decode launch on
-                the fused-dequant kernel.
+                the fused-dequant kernel;
+  6. serve 3  — the same serve with ``--executor local`` (dense slot
+                caches): serve 1's checks, every decode launch on the dense
+                decode kernel and none on the paged ones;
+  7. serve 4  — ``--executor local --serial``: two one-shot ``RAPServer``
+                serves (force admission, pow2 slot groups), each returning
+                8 tokens in range through the dense decode kernel.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a GPU, or without the rest of
@@ -52,12 +64,16 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
             "torch.float32": 67e12}  # dense tensor bf16 / non-tensor f32
-SERVE_ARGV = ["--arch", "llama2-7b", "--executor", "paged", "--mode",
-              "masked", "--policy", "rl", "--episodes", "0", "--requests",
-              "6", "--decode-horizon", "8", "--max-new", "8", "--seed", "0",
-              "--budget-quantum", "0.3"]
+BASE_ARGV = ["--arch", "llama2-7b", "--mode", "masked", "--policy", "rl",
+             "--episodes", "0", "--max-new", "8", "--seed", "0"]
+SERVE_ARGV = BASE_ARGV + ["--executor", "paged", "--requests", "6",
+                          "--decode-horizon", "8", "--budget-quantum", "0.3"]
 SERVE2_ARGV = SERVE_ARGV + ["--kv-dtype", "int8", "--max-prefill-tokens",
                             "64"]
+SERVE3_ARGV = BASE_ARGV + ["--executor", "local", "--requests", "6",
+                           "--decode-horizon", "8", "--budget-quantum", "0.3"]
+SERVE4_ARGV = BASE_ARGV + ["--executor", "local", "--serial", "--requests",
+                           "2"]
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 
 
@@ -301,6 +317,90 @@ def flash_cases(torch, ops, fa):
             "shape": f"B={B} S={S} H=K={H} D={D} causal {dt}"}
 
 
+def decode_cases(torch, ops, dec, pdec):
+    """The dense decode kernel: per-row ``[B, S]`` prefix masks from the
+    paged timing case's ragged lengths and a shared ``[S]`` mask at
+    llama2-7b's shape, GQA, softcap, a wrapped ring mask and a cache length
+    that is not a multiple of the 64-token tile, in f32 and bf16; bitwise
+    against the paged kernel (f32); timed beside the plain version and
+    ``scaled_dot_product_attention`` with a boolean mask."""
+    errs = {}
+    g = torch.Generator(device="cpu").manual_seed(21)
+    B, H, K, D, pt, S = 8, 32, 32, 128, 16, 512
+    _, _, _, _, lengths = paged_inputs(torch, B, H, K, D, pt, S,
+                                       torch.float32, 12)
+    kpos = torch.arange(S, device="cuda")
+    rows = kpos[None, :] < lengths[:, None]                  # [B, S]
+    ring_pos = (S + 7 + 11 * torch.arange(4, device="cuda"))[:, None]
+    # S=512: serve 4's pow2 cache for prompts of 256; S=264: serve 3's
+    cases = [(B, H, K, D, S, 0.0, rows, "rows"),
+             (B, H, K, D, S, 0.0, rows[1], "one"),
+             (B, H, K, D, 264, 0.0, None, "rows"),
+             (4, 32, 8, 128, 200, 0.0, None, "rows"),           # GQA G=4
+             (3, 8, 2, 64, 96, 30.0, None, "rows"),             # softcap
+             (4, 32, 32, 128, 256, 0.0,
+              torch.remainder(ring_pos - kpos[None, :256], 256) < 100,
+              "ring"),                                          # ring mask
+             (2, 32, 32, 128, 300, 0.0, None, "rows")]          # S % 64 != 0
+    for i, (b, h, k, d, s, cap, valid, kind) in enumerate(cases):
+        if valid is None:
+            lens = torch.randint(1, s + 1, (b,), generator=g).cuda()
+            lens[0] = s
+            valid = kpos[None, :s] < lens[:, None]
+        q = torch.randn(b, 1, h, d, generator=g).cuda()
+        kc = torch.randn(b, s, k, d, generator=g).cuda()
+        vc = torch.randn(b, s, k, d, generator=g).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            args = [t.to(dt) for t in (q, kc, vc)] + [valid]
+            errs[(i, str(dt))] = check(
+                f"decode B={b} H={h} K={k} D={d} S={s} cap={cap} mask "
+                f"{kind} {tuple(valid.shape)} {dt}",
+                ops.decode_attention(*args, softcap=cap),
+                dec.decode_attention_ref(*args, softcap=cap), dt)
+    # the paged kernel's twin: the same tokens laid out in its pages
+    for i, (b, h, k, d, s, cap, seed) in enumerate(
+            [(8, 32, 32, 128, 512, 0.0, 12), (4, 32, 8, 128, 200, 0.0, 31),
+             (3, 8, 2, 64, 96, 30.0, 32)]):
+        q, kp, vp, table, lens = paged_inputs(torch, b, h, k, d, pt, s,
+                                              torch.float32, seed)
+        n = table.shape[1] * pt
+        kd = kp[table.long()].reshape(b, n, k, d)
+        vd = vp[table.long()].reshape(b, n, k, d)
+        valid = torch.arange(n, device="cuda")[None, :] < lens[:, None]
+        bit = torch.equal(
+            dec.decode_attention_cuda(q, kd, vd, valid, softcap=cap),
+            pdec.paged_decode_attention_cuda(q, kp, vp, table, lens,
+                                             softcap=cap))
+        print(f"  decode B={b} H={h} K={k} D={d} len<={s} cap={cap}: f32 "
+              f"equals the paged kernel on the same tokens bitwise: {bit}")
+        if not bit:
+            raise AssertionError("the dense decode kernel is not bitwise "
+                                 "equal to the paged kernel")
+    # the serve's decode: llama2-7b, 8 slots of 512, ragged prefix masks
+    dt = torch.bfloat16
+    q = torch.randn(B, 1, H, D, generator=g).cuda().to(dt)
+    kc = torch.randn(B, S, K, D, generator=g).cuda().to(dt)
+    vc = torch.randn(B, S, K, D, generator=g).cuda().to(dt)
+    toks = int(lengths.sum())
+    es = q.element_size()
+    nbytes = 2 * q.numel() * es + 2 * toks * K * D * es + rows.numel()
+    bms, by = bound_ms(nbytes, 4 * toks * H * D, dt)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kc, vc))
+    mask = rows[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:72",
+            "max_abs_err": errs[(0, str(dt))],
+            "ms": time_ms(lambda: dec.decode_attention_cuda(q, kc, vc, rows)),
+            "plain_ms": time_ms(lambda: dec.decode_attention_ref(q, kc, vc,
+                                                                 rows)),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask)),
+            "shape": f"B={B} H=K={H} D={D} S={S} per-row prefix masks "
+                     f"({toks} valid tokens) {dt}"}
+
+
 # ---------------------------------------------------------------- phases
 def _paged_pools(torch, attention, put_pages, cfg, cache, table, n_pages,
                  kv_dtype):
@@ -373,6 +473,48 @@ def reference_phase(torch) -> None:
         torch.cuda.synchronize()
         print(f"  warmed decode horizon ({kv_dtype or 'model-dtype'} pool) "
               f"ran with sync debug mode 'error': no host sync")
+    slot_reference(torch, decoder, cfg, cpu_params, gpu_params)
+
+
+def slot_reference(torch, decoder, cfg, cpu_params, gpu_params) -> None:
+    """The slot path: 3 rows prefilled into a 64-token slot cache, moved to
+    ragged ``[B]`` positions, decoded 8 tokens with ``[L, B]`` gates (one
+    row runs past its cache and drops its writes), card against CPU, for a
+    model-dtype and an int8 cache; then a warmed horizon with host syncs
+    turned into errors."""
+    toks = torch.randint(0, cfg.vocab_size, (3, 40),
+                         generator=torch.Generator().manual_seed(6))
+    for kv_dtype in (None, torch.int8):
+        outs = {}
+        for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
+            logits, cache = decoder.prefill(p, cfg, toks.to(dev), 64,
+                                            kv_dtype=kv_dtype)
+            cache["pos"] = torch.tensor([40, 25, 60], dtype=torch.int32,
+                                        device=dev)
+            gates = torch.ones(2, cfg.n_layers, 3, device=dev)
+            gates[0, 1, 0] = gates[1, 2, 1] = gates[0, 3, 2] = 0.0
+            g = {"mixer": gates[0], "ffn": gates[1]}
+            first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            h_toks, cache = decoder.decode_horizon(p, cfg, cache, first, 8,
+                                                   gates=g)
+            outs[dev] = (logits.cpu(), h_toks.cpu())
+        err = max_err(outs["cuda"][0], outs["cpu"][0])
+        same = bool(torch.equal(outs["cuda"][1], outs["cpu"][1]))
+        print(f"  reference (slot cache {kv_dtype or 'model-dtype'}): prefill "
+              f"logits max|Δ| card vs CPU {err:.2e}; horizon tokens equal: "
+              f"{same}")
+        if err > 1e-3 or not same:
+            raise AssertionError("the card's slot path disagrees with the "
+                                 "CPU reference")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decoder.decode_horizon(gpu_params, cfg, cache, first, 4, gates=g)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print(f"  warmed slot horizon ({kv_dtype or 'model-dtype'} cache) "
+              f"ran with sync debug mode 'error': no host sync")
 
 
 def _tree_to(tree, device):
@@ -405,11 +547,15 @@ def serve_phase(torch, ops, card: str, argv) -> dict:
                                           & (r.tokens < cfg.vocab_padded)).all():
             raise AssertionError(f"{r.rid}: bad tokens {r.tokens}")
     pool = rep.pool
+    ex = engine.executor
+    kv_dtype = (engine.pool.effective_kv_dtype() if ex.paged
+                else str(ex.kv_dtype).replace("torch.", ""))
     print(f"  depth {cfg.n_layers} layers; done {len(done)}/"
           f"{len(rep.results)}; pruned requests {len(pruned)} "
           f"(blocks kept: {[int(r.mask.sum()) for r in done]}); overcommits "
           f"{int(pool['overcommit_events'])}; pool {int(pool['n_pages'])} "
-          f"pages of {engine.pool.effective_kv_dtype()}, peak "
+          f"{'physical' if ex.paged else 'accounting'} pages, KV in "
+          f"{kv_dtype}, peak "
           f"{pool['peak_reserved_bytes'] / 1e9:.3f} of "
           f"{pool['capacity_bytes'] / 1e9:.3f} GB")
     print(f"  launches during serve: {counts}")
@@ -419,7 +565,8 @@ def serve_phase(torch, ops, card: str, argv) -> dict:
         raise AssertionError("serve phase failed its checks")
     decides = [r.decide_s * 1e3 for r in done if not r.cached_decision]
     summary = {"card": card, "layers": cfg.n_layers, "requests": len(done),
-               "kv_dtype": engine.pool.effective_kv_dtype(),
+               "executor": "paged" if ex.paged else "local",
+               "kv_dtype": kv_dtype,
                "n_pages": int(pool["n_pages"]),
                "in_use_scale": pool["in_use_scale"],
                "max_prefill_tokens": engine.cfg.max_prefill_tokens,
@@ -441,7 +588,44 @@ def serve_phase(torch, ops, card: str, argv) -> dict:
           f"read-backs {rep.launch_s:.1f} s")
     print("serve: " + json.dumps(summary))
     # free the 7B model before the next serve
-    del engine, rep
+    del engine, rep, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def serial_phase(torch, ops, card: str, argv) -> dict:
+    """One-shot serving (``--serial``): every request returns 8 tokens in
+    range; returns the launch counts and a summary."""
+    import gc
+    from repro_torch.launch import serve
+    print(f"  serve argv: {' '.join(argv)}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    server, results = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    cfg = server.cfg
+    if (cfg.d_model, cfg.n_layers, cfg.vocab_size) != (4096, 32, 32000):
+        raise AssertionError(f"not llama2-7b at full width: {cfg}")
+    for i, r in enumerate(results):
+        if r.tokens.shape[1] != 8 or not ((r.tokens >= 0)
+                                          & (r.tokens < cfg.vocab_padded)).all():
+            raise AssertionError(f"serial request {i}: bad tokens {r.tokens}")
+    summary = {"card": card, "requests": len(results),
+               "shapes": [list(r.tokens.shape) for r in results],
+               "blocks_kept": [int(r.mask.sum()) for r in results],
+               "fits": [bool(r.fits) for r in results],
+               "decide_ms": [r.decide_s * 1e3 for r in results],
+               "infer_s": [r.infer_s for r in results],
+               "wall_s": wall, "launches": counts,
+               "stats": server.stats()}
+    print(f"  launches during serve: {counts}")
+    print("serve: " + json.dumps(summary))
+    if len(results) < 1 or counts["decode_attention"] < 1:
+        raise AssertionError("serve 4 did not decode through the kernel")
+    del server, results
     gc.collect()
     torch.cuda.empty_cache()
     return summary
@@ -457,6 +641,7 @@ def main() -> None:
                  "(src/repro_torch not found beside this file)")
     sys.path.insert(0, str(src))
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pdec
     from repro_torch.kernels import swiglu
@@ -474,7 +659,8 @@ def main() -> None:
     print("kernels vs plain versions:")
     entries = [paged_cases(torch, ops, pdec),
                paged_quant_cases(torch, ops, pdec, attention),
-               glu_cases(torch, ops, swiglu), flash_cases(torch, ops, fa)]
+               glu_cases(torch, ops, swiglu), flash_cases(torch, ops, fa),
+               decode_cases(torch, ops, dec, pdec)]
     for e in entries:
         print(f"  {e['name']} @ {e['shape']} [{card}]: kernel "
               f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
@@ -486,7 +672,8 @@ def main() -> None:
     s1 = serve_phase(torch, ops, card, SERVE_ARGV)
     c1 = s1["launches"]
     if (min(c1["paged_decode_attention"], c1["fused_glu"],
-            c1["flash_attention"]) < 1 or c1["paged_decode_attention_quant"]):
+            c1["flash_attention"]) < 1 or c1["paged_decode_attention_quant"]
+            or c1["decode_attention"]):
         raise AssertionError("serve 1 did not run the model-dtype kernels")
     print("serve 2:")
     s2 = serve_phase(torch, ops, card, SERVE2_ARGV)
@@ -500,11 +687,22 @@ def main() -> None:
             or c2["paged_decode_attention"] != 0
             or min(c2["fused_glu"], c2["flash_attention"]) < 1):
         raise AssertionError("serve 2 failed its int8 checks")
+    print("serve 3:")
+    s3 = serve_phase(torch, ops, card, SERVE3_ARGV)
+    c3 = s3["launches"]
+    if (min(c3["decode_attention"], c3["fused_glu"],
+            c3["flash_attention"]) < 1 or c3["paged_decode_attention"]
+            or c3["paged_decode_attention_quant"]):
+        raise AssertionError("serve 3 did not decode through the dense "
+                             "decode kernel alone")
+    print("serve 4:")
+    c4 = serial_phase(torch, ops, card, SERVE4_ARGV)["launches"]
     # each kernel's launches come from the serve whose path runs it
+    home = {"paged_decode_attention_quant": c2, "decode_attention": c3}
     for e in entries:
-        src = s2 if e["name"] == "paged_decode_attention_quant" else s1
-        e["launches"] = src["launches"][e["name"]]
-        e["launches_serve2"] = c2[e["name"]]
+        e["launches"] = home.get(e["name"], c1)[e["name"]]
+        for i, c in ((1, c1), (2, c2), (3, c3), (4, c4)):
+            e[f"launches_serve{i}"] = c[e["name"]]
     print(f"device: {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,8 @@ from typing import List, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("swiglu", "paged_decode_attention", "flash_attention")
+SOURCES = ("swiglu", "paged_decode_attention", "flash_attention",
+           "decode_attention")
 # src/repro_torch/kernels/build.py -> <repo>/build/kernels
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]

@@ -19,7 +19,9 @@
 // which are exact no-ops). The online softmax state (m, l, acc) stays in
 // f32 in shared memory. Within a tile a warp reduces each (head, token) dot
 // product over D with coalesced loads, then every thread owns (head, d)
-// accumulator entries for the P.V update.
+// accumulator entries for the P.V update. That tile loop lives in
+// flash_decode.cuh and is shared with the dense decode kernel
+// (decode_attention.cu): for the same tokens in order the two agree bitwise.
 //
 // The two bodies are one template over the page loader. Quantized pages
 // read their (page, g) scales once per tile while the tile's offsets are
@@ -27,12 +29,12 @@
 // float(code) * scale before the same f32 op sequence: with f32 q the
 // quantized kernel equals the model-dtype kernel run on page_dequant-ed
 // pages bitwise.
-#include "common.cuh"
+#include "flash_decode.cuh"
 
 #include <cuda_fp8.h>
 
-constexpr int kTile = 64;     // tokens per tile
-constexpr int kThreads = 128;
+using rap_decode::kThreads;
+using rap_decode::kTile;
 
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 __device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
@@ -47,6 +49,42 @@ __device__ __forceinline__ float load_page(const P* p, long long i, float s) {
   else return to_f32(p[i]);
 }
 
+// Token loader of rap_decode::attend: chases row b's page-table row for
+// each tile and, for quantized pages, reads the (page, g) scales once per
+// tile beside the offsets. Every token up to the row's length is attended.
+template <typename P, bool kQuant>
+struct PagedLoader {
+  const P* kp;
+  const P* vp;
+  const float* ks;
+  const float* vs;
+  const int* table_row;   // [max_pages]
+  long long tok_stride;   // K * D
+  int pt, K, g, D;
+  long long* off_s;       // [kTile] element offset of each token's head g
+  float* ks_s;            // [kTile] K scale per token (quant)
+  float* vs_s;            // [kTile] V scale per token (quant)
+
+  __device__ void tile(int t0, int nt, int tid) {
+    for (int j = tid; j < nt; j += kThreads) {
+      const int t = t0 + j;
+      const long long page = table_row[t / pt];
+      off_s[j] = (page * pt + t % pt) * tok_stride + (long long)g * D;
+      if constexpr (kQuant) {
+        ks_s[j] = ks[page * K + g];
+        vs_s[j] = vs[page * K + g];
+      }
+    }
+  }
+  __device__ bool valid(int) const { return true; }
+  __device__ float k(int j, int d) const {
+    return load_page<kQuant>(kp, off_s[j] + d, kQuant ? ks_s[j] : 1.f);
+  }
+  __device__ float v(int j, int d) const {
+    return load_page<kQuant>(vp, off_s[j] + d, kQuant ? vs_s[j] : 1.f);
+  }
+};
+
 // T: q/out dtype; P: page dtype; kQuant: pages carry [n_pages, K] scales.
 template <typename T, typename P, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
@@ -60,106 +98,25 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ kp,
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / K;
   long long* off_s = reinterpret_cast<long long*>(smem);        // [kTile]
-  float* q_s = reinterpret_cast<float*>(off_s + kTile);          // [G*D]
-  float* acc = q_s + G * D;                                      // [G*D]
-  float* s_s = acc + G * D;                                      // [G*kTile]
-  float* m_s = s_s + G * kTile;                                  // [G]
-  float* l_s = m_s + G;                                          // [G]
-  float* a_s = l_s + G;                                          // [G]
-  float* ks_s = a_s + G;              // [kTile] K scale per token (quant)
-  float* vs_s = ks_s + kTile;         // [kTile] V scale per token (quant)
-
+  float* loop_s = reinterpret_cast<float*>(off_s + kTile);
+  float* ks_s = loop_s + rap_decode::loop_floats(G, D);          // [kTile]
+  float* vs_s = ks_s + kTile;                                    // [kTile]
   const int b = blockIdx.x, g = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = kThreads / 32;
-  const T* qb = q + ((long long)b * H + (long long)g * G) * D;   // q [B,1,H,D]
-  for (int i = tid; i < G * D; i += kThreads) {
-    q_s[i] = to_f32(qb[i]);
-    acc[i] = 0.f;
-  }
-  if (tid < G) {
-    m_s[tid] = RAP_NEG_INF;
-    l_s[tid] = 0.f;
-  }
+  PagedLoader<P, kQuant> ld{kp, vp, ks, vs,
+                            table + (long long)b * max_pages,
+                            (long long)K * D, pt, K, g, D, off_s, ks_s,
+                            vs_s};
   // tokens past the table width are never attended (as on the TPU, whose
   // grid covers max_pages pages)
   const int len = min(lengths[b], max_pages * pt);
-  const long long tok_stride = (long long)K * D;
-
-  for (int t0 = 0; t0 < len; t0 += kTile) {
-    const int nt = min(kTile, len - t0);
-    __syncthreads();  // previous tile fully consumed
-    for (int j = tid; j < nt; j += kThreads) {
-      const int t = t0 + j;
-      const long long page = table[(long long)b * max_pages + t / pt];
-      off_s[j] = (page * pt + t % pt) * tok_stride + (long long)g * D;
-      if constexpr (kQuant) {
-        ks_s[j] = ks[page * K + g];
-        vs_s[j] = vs[page * K + g];
-      }
-    }
-    __syncthreads();
-    // scores s[h, j] = scale * q_h . k_j (one warp per (h, j) pair)
-    for (int p = warp; p < G * nt; p += nwarps) {
-      const int h = p / nt, j = p - h * nt;
-      const P* kr = kp + off_s[j];
-      const float* qh = q_s + h * D;
-      const float sj = kQuant ? ks_s[j] : 1.f;
-      float dot = 0.f;
-      for (int d = lane; d < D; d += 32)
-        dot += qh[d] * load_page<kQuant>(kr, d, sj);
-      dot = warp_sum(dot);
-      if (lane == 0) {
-        float s = dot * scale;
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        s_s[h * kTile + j] = s;
-      }
-    }
-    __syncthreads();
-    // online softmax update, one warp per head
-    for (int h = warp; h < G; h += nwarps) {
-      float mx = RAP_NEG_INF;
-      for (int j = lane; j < nt; j += 32) mx = fmaxf(mx, s_s[h * kTile + j]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[h];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < nt; j += 32) {
-        const float pj = expf(s_s[h * kTile + j] - m_new);
-        s_s[h * kTile + j] = pj;
-        sum += pj;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[h] = alpha;
-        l_s[h] = alpha * l_s[h] + sum;
-        m_s[h] = m_new;
-      }
-    }
-    __syncthreads();
-    // acc[h, d] = alpha_h * acc[h, d] + sum_j p[h, j] * v[j, d]
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int h = i / D, d = i - h * D;
-      const float* ph = s_s + h * kTile;
-      float a = acc[i] * a_s[h];
-      for (int j = 0; j < nt; ++j)
-        a += ph[j] * load_page<kQuant>(vp, off_s[j] + d,
-                                       kQuant ? vs_s[j] : 1.f);
-      acc[i] = a;
-    }
-  }
-  __syncthreads();
-  T* ob = out + ((long long)b * H + (long long)g * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int h = i / D;
-    ob[i] = from_f32<T>(acc[i] / fmaxf(l_s[h], 1e-30f));
-  }
+  const long long head0 = ((long long)b * H + (long long)g * G) * D;
+  rap_decode::attend(q + head0, out + head0, G, D, len, scale, softcap, ld,
+                     loop_s);
 }
 
 static size_t smem_bytes(int G, int D, bool quant) {
   return kTile * sizeof(long long)
-      + (size_t)(2 * G * D + G * kTile + 3 * G + (quant ? 2 * kTile : 0))
+      + (size_t)(rap_decode::loop_floats(G, D) + (quant ? 2 * kTile : 0))
         * sizeof(float);
 }
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_decode_attention as _pdec
 from repro_torch.kernels import swiglu as _glu
@@ -60,6 +61,15 @@ def paged_decode_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
         softcap=softcap)
 
 
+def decode_attention(q, k, v, valid, *, softcap: float = 0.0):
+    """q: [B,1,H,D]; k/v: [B,S,K,D] contiguous cache; valid: bool [S] (one
+    mask for all rows) or [B,S] (one per row) → [B,1,H,D]."""
+    if q.is_cuda:
+        decode_attention.launches += 1
+        return _dec.decode_attention_cuda(q, k, v, valid, softcap=softcap)
+    return _dec.decode_attention_ref(q, k, v, valid, softcap=softcap)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """q: [B,Sq,H,D]; k/v: [B,Skv,K,D] → [B,Sq,H,D] (q.dtype)."""
@@ -72,7 +82,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 KERNELS = (fused_glu, paged_decode_attention,
-           paged_decode_attention_quant, flash_attention)
+           paged_decode_attention_quant, flash_attention, decode_attention)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -1,23 +1,31 @@
 """Serving launcher: RAP-managed inference over a synthetic workload trace.
 
-  python -m repro_torch.launch.serve --executor paged --mode masked \
+  python -m repro_torch.launch.serve --executor {local,paged} --mode masked \
       --policy rl --episodes 0 --requests 6 [--kv-dtype int8] \
       [--max-prefill-tokens 64]
+  python -m repro_torch.launch.serve --serial --mode masked --requests 2
 
 Boots the model (random weights from ``--seed``), builds the pruning
 policy — ``rl`` is the RAP controller (paper Algorithm 3) with a seeded,
 untrained Q-network; ``dense`` never prunes — and serves an Azure-like
-workload trace of (batch, prompt) requests through the continuous-batching
-engine: one shared KV page pool with admission control, every in-flight
-request decoding together in horizons. ``--kv-dtype`` picks the page
-pool's precision (int8/fp8 pages decode through the fused-dequant kernel)
-and ``--max-prefill-tokens`` turns on chunked prefill.
+workload trace of (batch, prompt) requests. Two serving paths:
+
+  * default — continuous batching through ``RAPEngine``: one shared KV
+    pool with admission control, every in-flight request decoding together
+    in horizons. ``--executor local`` (the default) keeps dense slot caches
+    and decodes through the dense decode kernel; ``--executor paged`` keeps
+    a page pool and decodes through the paged decode kernel.
+    ``--kv-dtype`` picks the KV precision (int8 slot caches are dequantized
+    before the kernel; int8/fp8 pages decode through the fused-dequant
+    kernel) and ``--max-prefill-tokens`` turns on chunked prefill;
+  * ``--serial`` — the one-shot ``RAPServer`` replay: each request alone,
+    against its own budget from the trace, executed whether it fits or not.
 
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead (for tests). Without a GPU and without ``--device cpu`` it
 raises. Training the controller (``--episodes > 0``), structural mode, the
-slot and sharded executors and the static baselines are later slices
-(ROADMAP queue 1).
+sharded executor and the static baselines are later slices (ROADMAP
+queue 1).
 """
 from __future__ import annotations
 
@@ -37,7 +45,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--scheduler", choices=("fifo", "sjf", "priority"),
                     default="fifo")
     ap.add_argument("--executor", choices=("local", "paged", "sharded"),
-                    default="paged")
+                    default="local",
+                    help="local = dense slot caches (dense decode kernel); "
+                         "paged = a KV page pool with per-request page "
+                         "tables (paged decode kernel)")
+    ap.add_argument("--serial", action="store_true",
+                    help="one-shot RAPServer replay instead of the engine")
     ap.add_argument("--episodes", type=int, default=0,
                     help="DQN training episodes (training is a later slice: "
                          "only 0 is served)")
@@ -83,10 +96,13 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
     """Parse ``argv``, serve, print the report; returns (engine, report)."""
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.executor != "paged":
+    if args.executor == "sharded":
         raise NotImplementedError(
-            f"--executor {args.executor}: the slot and sharded executors are "
-            f"ROADMAP queue 1, items 9 and 16")
+            "--executor sharded: multi-GPU serving is ROADMAP queue 1, "
+            "item 16")
+    if args.serial and args.executor != "local":
+        ap.error(f"--executor {args.executor} drives the batching engine; "
+                 f"drop --serial")
     if args.mode != "masked":
         raise NotImplementedError("--mode structural is ROADMAP queue 1, "
                                   "item 8")
@@ -113,7 +129,7 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
     from repro_torch.data import SyntheticCorpus
     from repro_torch.models import registry
     from repro_torch.runtime import (EngineConfig, EngineRequest,
-                                     PagedExecutor, RAPEngine)
+                                     LocalExecutor, PagedExecutor, RAPEngine)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -140,6 +156,9 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
                                  long_frac=0.3)
     reqs = workload.generate(wl)[: args.requests]
     rng = np.random.default_rng(args.seed)
+    if args.serial:
+        return _serve_serial(args, model, params, policy, mm, corpus, reqs,
+                             rng)
     max_total = args.max_prompt + args.max_new
     full = masks.full_mask(cfg.n_layers)
     slots = max(args.slots, *(r.batch for r in reqs))
@@ -156,8 +175,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
         print(f"--kv-dtype auto → {kv_dtype or 'model precision'} "
               f"(pool {kv_cap / 1e6:.1f}MB vs {slots} dense requests "
               f"{slots * dense_req / 1e6:.1f}MB)")
-    executor = PagedExecutor(model, params, max_active=slots,
-                             kv_dtype=kv_dtype)
+    make = PagedExecutor if args.executor == "paged" else LocalExecutor
+    executor = make(model, params, max_active=slots, kv_dtype=kv_dtype)
     engine = RAPEngine(model, params, policy, EngineConfig(
         mode="masked", max_new_tokens=args.max_new, max_active=slots,
         max_len=max_total, budget_bytes=budget, kv_dtype=kv_dtype,
@@ -172,7 +191,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
         ereqs.append(EngineRequest(rid=f"req{i}", prompt=prompt,
                                    arrival_t=r.t - reqs[0].t,
                                    priority=0 if sql <= 128 else 1))
-    print(f"engine[{policy.name}/{args.scheduler}/paged]: {len(ereqs)} "
+    print(f"engine[{policy.name}/{args.scheduler}/{args.executor}]: "
+          f"{len(ereqs)} "
           f"requests (batch {min(r.batch for r in reqs)}–{max_b}), {slots} "
           f"slots, budget {budget / 1e9:.3f} GB (params "
           f"{mm.param_bytes(full) / 1e9:.3f} GB)")
@@ -194,14 +214,42 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
         print(f"latency: ttft p50/p99 {rep.ttft['p50'] * 1e3:.1f}/"
               f"{rep.ttft['p99'] * 1e3:.1f}ms, itl p50/p99 "
               f"{rep.itl['p50'] * 1e3:.2f}/{rep.itl['p99'] * 1e3:.2f}ms")
-    print(f"pool: {int(rep.pool['n_pages'])} pages of "
-          f"{engine.pool.effective_kv_dtype() or cfg.dtype}, peak "
+    kv_name = (engine.pool.effective_kv_dtype() if executor.paged
+               else str(executor.kv_dtype).replace("torch.", ""))
+    print(f"pool: {int(rep.pool['n_pages'])} pages "
+          f"({'physical' if executor.paged else 'accounting'}), KV in "
+          f"{kv_name or cfg.dtype}, peak "
           f"{rep.pool['peak_reserved_bytes'] / 1e6:.2f}MB of "
           f"{rep.pool['capacity_bytes'] / 1e6:.2f}MB, frag "
           f"{rep.pool['fragmentation']:.2f}, measured frag "
           f"{rep.measured_frag:.2f}, overcommits "
           f"{int(rep.pool['overcommit_events'])}")
     return engine, rep
+
+
+def _serve_serial(args, model, params, policy, mm, corpus, reqs, rng):
+    """One request at a time through ``RAPServer``, each against its own
+    budget (the trace's fraction of its dense peak); returns (server,
+    [ServeResult])."""
+    from repro_torch.runtime import RAPServer
+    server = RAPServer(model, params, policy, mode=args.mode,
+                        max_new_tokens=args.max_new,
+                        kv_dtype=None if args.kv_dtype == "model"
+                        else args.kv_dtype)
+    results = []
+    for i, r in enumerate(reqs):
+        sql = min(r.seq_len, args.max_prompt)
+        prompt = corpus.sample_tokens(rng, r.batch, sql)
+        budget = r.budget_frac * mm.dense_peak(r.batch, sql + args.max_new)
+        res = server.serve(prompt, budget)
+        results.append(res)
+        print(f"req {i}: bs={r.batch} sql={sql} budget={r.budget_frac:.2f} "
+              f"→ kept {int(res.mask.sum())}/{len(res.mask)} blocks, peak "
+              f"{res.peak_bytes / 1e6:.1f}MB fits={res.fits} decide "
+              f"{res.decide_s * 1e3:.0f}ms infer {res.infer_s:.2f}s"
+              f"{' (new slot group)' if res.compiled_new else ''}")
+    print("server stats:", server.stats())
+    return server, results
 
 
 if __name__ == "__main__":

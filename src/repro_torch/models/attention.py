@@ -1,16 +1,22 @@
 """Multi-head / grouped-query attention with RoPE: prefill, chunked
-prefill and paged decode.
+prefill, and one-token decode against a slot cache or a page pool.
 
-The port of ``repro/models/attention.py``'s paged serving half. Prefill
+The port of ``repro/models/attention.py``'s serving half. Prefill
 attention and the scoring forward go through the flash-attention kernel;
-one-token decode appends the new K/V into its page and goes through the
-paged decode kernel (``repro_torch.kernels.ops``; plain versions on CPU
-tensors). Page pools are model-dtype or quantized (int8 / float8_e4m3fn
-codes with one f32 scale per (page, kv head), :func:`page_quant`). Chunk
-attention (one prompt chunk against a partly filled cache) is a plain
-gather + masked softmax, as JAX's XLA path is: no kernel runs there.
-Slot-cache decode and the int8 slot cache are later slices (ROADMAP
-queue 1, items 9 and 11).
+one-token decode writes the new K/V into its slot (slot cache) or page
+(page pool) and goes through the dense or the paged decode kernel
+(``repro_torch.kernels.ops``; plain versions on CPU tensors). On the card
+the slot path's decode runs the dense decode kernel for both forms of
+position — a scalar (one mask ``[S]`` for the batch, where JAX's
+``impl="pallas"`` reaches its Pallas kernel) and a per-row ``[B]`` vector
+(a mask ``[B, S]``, which JAX computes with ``_sdpa``).
+
+Slot caches are model-dtype or int8 with one f32 scale per (token, kv
+head) (:func:`kv_quant`); page pools are model-dtype or int8 /
+float8_e4m3fn with one f32 scale per (page, kv head) (:func:`page_quant`).
+Chunk attention (one prompt chunk against a partly filled cache) is a
+plain masked softmax over the cache, as JAX's XLA path is: no kernel runs
+there.
 """
 from __future__ import annotations
 
@@ -24,9 +30,10 @@ from repro_torch.kernels.ref import (_causal_mask, _sdpa, gather_pages,
                                      page_dequant, put_pages, take_pages)
 from repro_torch.models import layers
 
-__all__ = ["init_attn_params", "attention", "page_qmax", "page_quant",
-           "page_dequant", "paged_decode_attention", "chunk_attention",
-           "paged_chunk_attention"]
+__all__ = ["init_attn_params", "attention", "kv_quant", "init_kv_cache",
+           "store_kv", "load_kv", "decode_attention", "page_qmax",
+           "page_quant", "page_dequant", "paged_decode_attention",
+           "chunk_attention", "paged_chunk_attention"]
 
 
 def init_attn_params(gen, cfg, n: int, device) -> dict:
@@ -71,6 +78,103 @@ def attention(params, cfg, x, positions, *,
     y = torch.matmul(out.reshape(*out.shape[:2], -1),
                      params["wo"].to(x.dtype))
     return y, {"k": k, "v": v}
+
+
+# ------------------------------------------------------------ slot cache
+def kv_quant(x):
+    """Per-(token, head) symmetric int8 quantization of ``x [..., Dh]``:
+    returns (codes int8, scales f32 [..., 1]). 1e-8 is ADDED to the scale
+    (``page_quant`` uses it as a floor instead), as in JAX."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, n_layers: int, dtype=None,
+                  device=None) -> dict:
+    """Zeroed slot cache {"k","v"} [n_layers, batch, max_len, K, Dh]; an
+    int8 cache adds per-(token, head) scales {"ks","vs"} [..., 1] f32."""
+    dt = dtype or cfg.torch_dtype()
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.dh)
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if dt == torch.int8:
+        sshape = shape[:-1] + (1,)
+        cache["ks"] = torch.zeros(sshape, device=device)
+        cache["vs"] = torch.zeros(sshape, device=device)
+    return cache
+
+
+def store_kv(entry: dict, k, v) -> dict:
+    """(k, v) ``[..., K, Dh]`` encoded in the entry's storage dtype: the
+    leaves of :func:`init_kv_cache` without the layer axis."""
+    if "ks" in entry:
+        kq, ks = kv_quant(k)
+        vq, vs = kv_quant(v)
+        return {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    return {"k": k.to(entry["k"].dtype), "v": v.to(entry["v"].dtype)}
+
+
+def load_kv(entry: dict, dtype):
+    """The entry's K and V in ``dtype`` (an int8 cache dequantized first)."""
+    if "ks" in entry:
+        return ((entry["k"].float() * entry["ks"]).to(dtype),
+                (entry["v"].float() * entry["vs"]).to(dtype))
+    return entry["k"].to(dtype), entry["v"].to(dtype)
+
+
+def decode_attention(params, cfg, x, kv: dict, pos, *,
+                     window: int = 0) -> torch.Tensor:
+    """One-token decode against a slot cache (one layer's entry, leaves
+    ``[B, S_max, K, Dh]`` + scales), written IN PLACE. Returns out [B,1,D].
+
+    ``pos`` is a scalar (the whole batch at one position: the one-shot
+    path; a Python int or a 0-d tensor) or an int32 ``[B]`` tensor (each
+    slot at its own position). A scalar write clamps its slot into the
+    cache, as JAX's ``dynamic_update_slice`` does; a row whose vector
+    position is past the cache (a slot that finished inside a horizon)
+    drops its write, as JAX's ``.at[].set`` does — on the device, by
+    writing the old value back, with no host sync. ``window > 0`` makes the
+    cache a ring buffer: the token lands at ``pos % S`` and the last
+    ``window`` tokens are valid.
+    """
+    B = x.shape[0]
+    dev = x.device
+    batched = torch.is_tensor(pos) and pos.ndim > 0
+    q, k, v = _project_qkv(params, cfg, x)
+    if cfg.use_rope:
+        rp = (pos.reshape(-1, 1) if torch.is_tensor(pos)
+              else torch.full((1, 1), int(pos), device=dev))
+        q = layers.apply_rope(q, rp, cfg.rope_theta)
+        k = layers.apply_rope(k, rp, cfg.rope_theta)
+    S = kv["k"].shape[1]
+    slot = pos % S if window > 0 else pos
+    new = store_kv(kv, k, v)
+    if batched:
+        rows = torch.arange(B, device=dev)
+        keep = (slot < S)[:, None, None]                   # [B, 1, 1]
+        idx = torch.clamp(slot, max=S - 1).long()
+        for key, val in new.items():
+            old = kv[key][rows, idx]
+            kv[key][rows, idx] = torch.where(keep, val[:, 0], old)
+    else:
+        idx = (torch.clamp(slot, 0, S - 1).long() if torch.is_tensor(slot)
+               else min(max(int(slot), 0), S - 1))
+        for key, val in new.items():
+            kv[key][:, idx] = val[:, 0]
+    kpos = torch.arange(S, device=dev)[None, :]
+    posc = (pos.reshape(-1, 1) if torch.is_tensor(pos)
+            else torch.full((1, 1), int(pos), device=dev))
+    if window > 0:
+        age = torch.remainder(posc - kpos, S)
+        valid = age < torch.clamp(posc + 1, max=window)    # [B or 1, S]
+    else:
+        valid = kpos <= posc                                # [B or 1, S]
+    ck, cv = load_kv(kv, q.dtype)
+    out = kops.decode_attention(q, ck, cv, valid if batched else valid[0],
+                                softcap=cfg.logit_softcap)
+    return torch.matmul(out.reshape(B, 1, -1), params["wo"].to(x.dtype))
 
 
 # ------------------------------------------------------- quantized pages
@@ -182,26 +286,24 @@ def chunk_attention(params, cfg, x, kv: dict,
     """Prefill one prompt chunk against a partly filled slot cache.
 
     x: [B, C, D] — C prompt tokens at absolute positions [start,
-    start + C); kv: one layer's cache {"k","v"} [B, S_max, K, Dh], written
-    in place at [start, start + C). The chunk's queries attend the whole
-    cache width under the causal mask ``kpos <= start + qi`` (positions
-    past the write frontier get zero probability). Returns out [B, C, D].
+    start + C); kv: one layer's cache {"k","v"} [B, S_max, K, Dh] (an int8
+    cache adds {"ks","vs"}), written in place at [start, start + C) through
+    :func:`store_kv` and read back through :func:`load_kv`. The chunk's
+    queries attend the whole cache width under the causal mask
+    ``kpos <= start + qi`` (positions past the write frontier get zero
+    probability). Returns out [B, C, D].
     """
-    if "ks" in kv:
-        raise NotImplementedError("the int8 slot cache is ROADMAP queue 1, "
-                                  "item 11")
     B, C = x.shape[:2]
     q, k, v = _project_qkv(params, cfg, x)
     positions = start + torch.arange(C, device=x.device)[None, :]
     if cfg.use_rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    kv["k"][:, start:start + C] = k.to(kv["k"].dtype)
-    kv["v"][:, start:start + C] = v.to(kv["v"].dtype)
-    S = kv["k"].shape[1]
-    mask = _causal_mask(C, S, 0, q_offset=start, device=x.device)
-    out = _sdpa(q, kv["k"].to(q.dtype), kv["v"].to(q.dtype), mask,
-                cfg.logit_softcap)
+    for key, val in store_kv(kv, k, v).items():
+        kv[key][:, start:start + C] = val
+    ck, cv = load_kv(kv, q.dtype)
+    mask = _causal_mask(C, ck.shape[1], 0, q_offset=start, device=x.device)
+    out = _sdpa(q, ck, cv, mask, cfg.logit_softcap)
     return torch.matmul(out.reshape(B, C, -1), params["wo"].to(x.dtype))
 
 

@@ -7,8 +7,13 @@ branch by a 0/1 gate: ``gates`` = {"mixer": [L] or [L, B], "ffn": ...}; the
 [L, B] form gives every batch row its own keep-mask (continuous batching,
 and the batched GSI scoring forward).
 
+Decode runs against a slot cache (:func:`init_cache`: one dense
+``[L, B, S_max, K, Dh]`` cache per attention leaf, model-dtype or int8 with
+per-(token, head) scales; :func:`decode_step`, :func:`decode_horizon`) or a
+page pool (:func:`paged_decode_step`, :func:`paged_decode_horizon`).
+
 Heterogeneous layouts (recurrent, SSD, MoE, local attention) are later
-slices (ROADMAP queue 1, items 11-14) and raise ``NotImplementedError``.
+slices (ROADMAP queue 1, items 11-13) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -60,7 +65,7 @@ def _check_uniform(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name!r} mixes {sorted(set(cfg.layer_specs()))}; only "
             f"uniform attention + dense-FFN decoders are ported so far "
-            f"(other architectures: ROADMAP queue 1, items 11-14)")
+            f"(other architectures: ROADMAP queue 1, items 11-13)")
 
 
 # --------------------------------------------------------------------- params
@@ -153,28 +158,40 @@ def forward(params, cfg, tokens, *, gates=None, unembed: bool = True):
     return _unembed(params, cfg, h), None
 
 
-def prefill(params, cfg, tokens, max_len: int, *,
-            gates=None) -> Tuple[torch.Tensor, dict]:
+# ---------------------------------------------------------------------- cache
+def init_cache(cfg, batch: int, max_len: int, kv_dtype=None,
+               device=None) -> dict:
+    """Zeroed decode state of a uniform attention decoder: {"pos": 0,
+    "attn": {"k","v"} [L, batch, max_len, K, Dh]} in ``kv_dtype`` (default
+    the model dtype; ``torch.int8`` adds per-(token, head) scales)."""
+    _check_uniform(cfg)
+    return {"pos": 0,
+            "attn": attention.init_kv_cache(cfg, batch, max_len,
+                                            cfg.n_layers, kv_dtype, device)}
+
+
+def prefill(params, cfg, tokens, max_len: int, *, gates=None,
+            kv_dtype=None) -> Tuple[torch.Tensor, dict]:
     """Process the prompt; return (last-position logits [B,Vp], cache) with
-    cache {"attn": {"k","v"} [L, B, max_len, K, Dh], "pos"}: the prompt's
-    K/V in positions [0, S), zeros after."""
+    cache :func:`init_cache` ``(B, max_len, kv_dtype)`` holding the
+    prompt's K/V in positions [0, S) (encoded by ``store_kv``), zeros
+    after, and ``"pos"`` = S."""
     _check_uniform(cfg)
     B, S = tokens.shape
     L = cfg.n_layers
     gates = gates or _ones_gates(L, tokens.device)
     h = _embed(params, cfg, tokens)
     positions = torch.arange(S, device=h.device)[None, :]
-    shape = (L, B, max_len, cfg.n_kv_heads, cfg.dh)
-    cache = {"attn": {"k": torch.zeros(shape, dtype=h.dtype, device=h.device),
-                      "v": torch.zeros(shape, dtype=h.dtype, device=h.device)},
-             "pos": S}
+    cache = init_cache(cfg, B, max_len, kv_dtype or h.dtype, h.device)
     for i in range(L):
         pm = tree_slice(params["stacks"]["attn"], i)
         out, kv = attention.attention(pm, cfg, layers.apply_norm(
             cfg, pm["norm"], h), positions)
-        cache["attn"]["k"][i, :, :S] = kv["k"]
-        cache["attn"]["v"][i, :, :S] = kv["v"]
+        for key, val in attention.store_kv(cache["attn"], kv["k"],
+                                           kv["v"]).items():
+            cache["attn"][key][i, :, :S] = val
         h = _block(params, cfg, i, h, gates, out)
+    cache["pos"] = S
     logits = _unembed(params, cfg, h[:, -1:, :])[:, 0]
     return logits, cache
 
@@ -184,8 +201,9 @@ def prefill_chunk(params, cfg, cache: dict, tokens, start: int, *,
                   gates=None) -> torch.Tensor:
     """One prompt chunk against a partly filled slot cache.
 
-    cache: {"attn": {"k","v"} [L, B, S_max, K, Dh]}, written in place at
-    [start, start + C); tokens: [B, C] at absolute offset ``start``.
+    cache: {"attn": {"k","v"} [L, B, S_max, K, Dh]} (an int8 cache adds
+    {"ks","vs"}), written in place at [start, start + C); tokens: [B, C] at
+    absolute offset ``start``.
     Running a prompt chunk by chunk and reading the last chunk's logits
     gives :func:`prefill`'s logits. Returns last-position logits [B, Vp]
     and sets ``cache["pos"]``."""
@@ -234,6 +252,48 @@ def _pool_layer(pools: dict, i: int) -> dict:
 
 
 # --------------------------------------------------------------------- decode
+def decode_step(params, cfg, cache: dict, tokens, *,
+                gates=None) -> Tuple[torch.Tensor, dict]:
+    """One autoregressive step against a slot cache (updated in place).
+
+    ``cache["pos"]`` is a scalar (the one-shot path: the whole batch at one
+    position) or an int32 [B] tensor (continuous batching: each slot at its
+    own offset); gates may be [L] or [L, B]. tokens: [B, 1]. Returns
+    (logits [B, 1, Vp], cache) with ``cache["pos"]`` advanced by one."""
+    _check_uniform(cfg)
+    L = cfg.n_layers
+    gates = gates or _ones_gates(L, tokens.device)
+    pos = cache["pos"]
+    h = _embed(params, cfg, tokens)
+    for i in range(L):
+        pm = tree_slice(params["stacks"]["attn"], i)
+        out = attention.decode_attention(
+            pm, cfg, layers.apply_norm(cfg, pm["norm"], h),
+            _pool_layer(cache["attn"], i), pos)
+        h = _block(params, cfg, i, h, gates, out)
+    cache["pos"] = pos + 1
+    return _unembed(params, cfg, h), cache
+
+
+def decode_horizon(params, cfg, cache: dict, tokens, horizon: int, *,
+                   gates=None) -> Tuple[torch.Tensor, dict]:
+    """``horizon`` greedy :func:`decode_step` s with the argmax token fed
+    back on the device (the loop form of JAX's ``lax.scan``): nothing is
+    read back to the host inside the loop. tokens: int32 [B, 1] seed.
+    Returns (toks int32 [B, horizon], cache)."""
+    horizon = int(horizon)
+    if horizon < 1:
+        raise ValueError(f"horizon must be >= 1, got {horizon}")
+    tok = tokens
+    toks = []
+    for _ in range(horizon):
+        logits, cache = decode_step(params, cfg, cache, tok, gates=gates)
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        toks.append(nxt)
+        tok = nxt[:, None]
+    return torch.stack(toks, dim=1), cache
+
+
 def paged_decode_step(params, cfg, pools: dict, page_table, pos, tokens, *,
                       gates=None) -> torch.Tensor:
     """One autoregressive step against a paged KV pool.

@@ -4,7 +4,9 @@
   init(seed, device)                 → params
   loss(params, batch, gates=None)    → (scalar loss, aux)  [teacher-forced LM]
   logits(params, batch, gates=None)  → [B, S, Vp] f32
-  prefill(params, batch, max_len)    → (last_logits, cache)
+  prefill(params, batch, max_len, gates=None, kv_dtype=None)
+                                     → (last_logits, slot cache)
+  decode(params, cache, tokens, gates=None) → (logits [B,1,Vp], cache)
 
 Batches are dicts of tensors with ``tokens`` / ``labels``.
 """
@@ -23,6 +25,7 @@ class Model(NamedTuple):
     loss: Callable
     logits: Callable
     prefill: Callable
+    decode: Callable
 
 
 def _nll_terms(logits, labels, vocab_size: int):
@@ -68,11 +71,15 @@ def _lm_build(cfg) -> Model:
         l = cross_entropy(lg, labels[:, 1:], cfg.vocab_size, mask)
         return l, {"loss": l, "ppl": torch.exp(l)}
 
-    def prefill(params, batch, max_len, gates=None):
+    def prefill(params, batch, max_len, gates=None, kv_dtype=None):
         return decoder.prefill(params, cfg, batch["tokens"], max_len,
-                               gates=gates)
+                               gates=gates, kv_dtype=kv_dtype)
 
-    return Model(cfg, init, loss, logits, prefill)
+    def decode(params, cache, tokens, gates=None):
+        """One step; ``cache["pos"]`` scalar (one-shot) or [B] (slots)."""
+        return decoder.decode_step(params, cfg, cache, tokens, gates=gates)
+
+    return Model(cfg, init, loss, logits, prefill, decode)
 
 
 def build(cfg) -> Model:

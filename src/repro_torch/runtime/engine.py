@@ -10,10 +10,14 @@ engine is a thin loop over four seams:
   * :class:`~repro_torch.core.policy.PruningPolicy` — what shape they run
     in: ``observe(PolicyState) → Decision`` against the remaining budget;
   * :class:`~repro_torch.runtime.executor.ModelExecutor` — how the mask
-    executes (``PagedExecutor``: prefill into granted pages, horizon
-    decode over the shared page pool);
+    executes (``LocalExecutor``, the default: dense slot caches per cache
+    length; ``PagedExecutor``: prefill into granted pages, horizon decode
+    over the shared page pool);
   * :class:`~repro_torch.runtime.kv_pool.KVPool` — whether the bytes exist:
-    page-granular admission against ``budget − resident params``.
+    admission against ``budget − resident params``, byte-granular on the
+    slot path (the request's analytical state bytes, quantized bytes for an
+    int8 cache) and page-granular on the paged path (its worst-case page
+    commitment).
 
 One :meth:`RAPEngine._tick`:
 
@@ -33,9 +37,13 @@ first chunk's pages and every in-flight chunked prefill advances one
 chunk per tick in the host phase, so a long prompt cannot stall running
 decodes for more than one chunk.
 
-Budget traces with preemption, ``cancel``, structural mode and ``force``
-admission are later slices (ROADMAP queue 1, items 7–9) and raise
-``NotImplementedError``.
+``admission="force"`` (the one-shot ``RAPServer``, slot path only) runs
+every request against the budget exactly as given, grows capacity for an
+oversize request when nothing runs, and records an overcommit instead of
+queueing.
+
+Budget traces with preemption, ``cancel`` and structural mode are later
+slices (ROADMAP queue 1, items 7–8) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,10 +54,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import masks as masks_lib
+from repro_torch.core.memory import dtype_bytes
 from repro_torch.core.policy import Decision, PolicyState, PruningPolicy
-from repro_torch.runtime.executor import (ModelExecutor, PagedExecutor,
+from repro_torch.runtime.executor import (LocalExecutor, ModelExecutor,
                                           chunk_widths)
-from repro_torch.runtime.kv_pool import KVPool, resolve_kv_dtype
+from repro_torch.runtime.kv_pool import (KVPool, default_page_bytes,
+                                         resolve_kv_dtype)
 from repro_torch.runtime.latency import summarize as _lat_summarize
 from repro_torch.runtime.scheduler import Scheduler, make_scheduler
 
@@ -59,6 +69,17 @@ __all__ = ["EngineConfig", "EngineRequest", "RequestResult", "EngineReport",
 
 def _next_pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _kv_byte_ratio(kv_dtype, mcfg) -> float:
+    """Stored-vs-model KV bytes of a slot cache: an int8/fp8 cache holds
+    1-byte elements plus one f32 scale per (token, kv head), while the
+    analytical memory model charges at the model's KV width."""
+    _, _, quantized, _ = resolve_kv_dtype(kv_dtype)
+    if not quantized:
+        return 1.0
+    dh = max(int(mcfg.dh), 1)
+    return (dh * 1.0 + 4.0) / (dh * dtype_bytes(mcfg.dtype))
 
 
 # ------------------------------------------------------------------- config
@@ -71,12 +92,17 @@ class EngineConfig:
     budget_bytes: float = 0.0         # TOTAL device budget (params + states)
     tokens_per_page: int = 16
     kv_dtype: Any = None
-    admission: str = "strict"         # strict (force: ROADMAP item 9)
+    admission: str = "strict"         # strict (queue) | force (overcommit)
     # Admission quantizes the effective budget DOWN to this fraction of the
     # request's dense peak before calling the policy, so steady-state
     # admissions hit the policy's memo table. The page allocator, not the
     # decision, enforces the byte budget.
     budget_quantum_frac: float = 0.05
+    # slot path: "max" gives one max_len cache per group family (requests of
+    # every length share one decode batch); "pow2" mints one group per
+    # power-of-two cache length, so a long request does not invalidate the
+    # short groups (RAPServer's setting)
+    len_buckets: str = "max"
     # decode batch buckets: occupied slots step in the smallest bucket that
     # holds them; () = always full width
     decode_buckets: Tuple[int, ...] = (1, 2, 4, 8)
@@ -93,12 +119,11 @@ class EngineConfig:
                 "structural mode is ROADMAP queue 1, item 8")
         if self.mode != "masked":
             raise ValueError(f"unknown mode {self.mode!r}")
-        if self.admission == "force":
-            raise NotImplementedError(
-                "force admission (the one-shot slot path) is ROADMAP "
-                "queue 1, item 9")
-        if self.admission != "strict":
+        if self.admission not in ("strict", "force"):
             raise ValueError(f"unknown admission {self.admission!r}")
+        if self.len_buckets not in ("max", "pow2"):
+            raise ValueError(f"unknown len_buckets {self.len_buckets!r}; "
+                             f"expected max|pow2")
         if self.max_prefill_tokens < 0:
             raise ValueError(f"max_prefill_tokens must be >= 0, got "
                              f"{self.max_prefill_tokens!r}")
@@ -233,14 +258,15 @@ class RAPEngine:
                                        else EngineConfig())
         self.mm = policy.mm
         self.scheduler = make_scheduler(scheduler)
-        self.executor = executor if executor is not None else PagedExecutor(
-            model, params, max_active=self.cfg.max_active,
-            kv_dtype=self.cfg.kv_dtype,
+        self.executor = executor if executor is not None else LocalExecutor(
+            model, params, mode=self.cfg.mode,
+            max_active=self.cfg.max_active, kv_dtype=self.cfg.kv_dtype,
             decode_buckets=self.cfg.decode_buckets)
-        if not getattr(self.executor, "paged", False):
-            raise NotImplementedError(
-                "the slot-cache executor is ROADMAP queue 1, item 9; the "
-                "engine serves through PagedExecutor")
+        self._paged = bool(getattr(self.executor, "paged", False))
+        if self._paged and self.cfg.admission != "strict":
+            raise ValueError(
+                "a paged executor requires strict admission: overflow pages "
+                "have no physical backing to write KV into")
         # precision as a policy action: a stack built with a canonical KV
         # precision stamps it on the policy, so every Decision carries it
         # and the pool checks it against its pages at admission
@@ -267,16 +293,42 @@ class RAPEngine:
     def _now(self) -> float:
         return (time.perf_counter() - self._t0) + self._skew
 
+    # ------------------------------------------------------------ capacity
+    def ensure_capacity(self, batch: int, total_len: int) -> None:
+        """Grow the slot count / cache-length cap (slot path). Slot growth
+        drops every group (the slot axis changes); length growth is
+        quantized to powers of two and drops the groups only under
+        ``len_buckets="max"``, whose caches are ``max_len`` long."""
+        if total_len > self.cfg.max_len:
+            self.cfg.max_len = _next_pow2(total_len)
+            if self.cfg.len_buckets == "max":
+                self.executor.drop_groups()
+        if batch > self.cfg.max_active:
+            self.cfg.max_active = int(batch)
+            self.executor.set_max_active(self.cfg.max_active)
+
+    def _cache_len(self, total: int) -> int:
+        """Cache length of the group hosting a (prompt + gen)-token request.
+        pow2 buckets ignore ``max_len`` (admission already checked it), so a
+        request shape keeps its bucket after capacity growth."""
+        if self.cfg.len_buckets == "pow2":
+            return max(_next_pow2(total), 16)
+        return self.cfg.max_len
+
     def _make_pool(self, budget_bytes: float) -> KVPool:
-        # the physical page size is dictated by the model's KV geometry
-        page = self.executor.page_phys_bytes(self.cfg.tokens_per_page)
+        if self._paged:
+            # the physical page size is dictated by the model's KV geometry
+            page = self.executor.page_phys_bytes(self.cfg.tokens_per_page)
+        else:
+            page = default_page_bytes(self.mm, self.cfg.tokens_per_page)
         cap = budget_bytes - self.resident_param_bytes
-        if cap < page:
+        if cap < page and self.cfg.admission == "strict":
             raise ValueError(
                 f"budget {budget_bytes:.0f}B leaves no KV pool after "
                 f"resident params ({self.resident_param_bytes:.0f}B)")
-        return KVPool(cap, page_bytes=page,
-                      tokens_per_page=self.cfg.tokens_per_page)
+        return KVPool(max(cap, 0.0), page_bytes=page,
+                      tokens_per_page=(self.cfg.tokens_per_page
+                                       if self._paged else None))
 
     # ------------------------------------------------------------- serving
     def run(self, requests: List[EngineRequest], *,
@@ -289,7 +341,9 @@ class RAPEngine:
                 "item 7")
         budget = self.cfg.budget_bytes if budget_bytes is None else budget_bytes
         self.pool = self._make_pool(budget)
-        self.executor.bind_pool(self.pool, self.cfg.max_len)
+        if self._paged:
+            self.executor.bind_pool(self.pool, self.cfg.max_len)
+        self.executor.evict_all()             # a previous run's occupants
         self._budget = budget
         self._pending = sorted(requests, key=lambda r: r.arrival_t)
         self.scheduler.clear()
@@ -400,34 +454,56 @@ class RAPEngine:
             self._reject(req, f"duplicate request id {req.rid!r} "
                               f"(already in flight)")
             return "rejected"
+        force = self.cfg.admission == "force"
         if total > self.cfg.max_len or b > self.cfg.max_active:
-            self._reject(req, f"shape (b={b}, prompt+gen={total}) exceeds "
-                              f"engine capacity ({self.cfg.max_active} "
-                              f"slots × {self.cfg.max_len})")
-            return "rejected"
+            if not force:
+                self._reject(req, f"shape (b={b}, prompt+gen={total}) "
+                                  f"exceeds engine capacity "
+                                  f"({self.cfg.max_active} slots × "
+                                  f"{self.cfg.max_len})")
+                return "rejected"
+            if self._running:
+                return "defer"   # growth drops live caches; wait for drain
+            self.ensure_capacity(b, total)
         # keep-mask against the REMAINING shared budget, quantized down so
-        # steady-state admissions hit the policy's memo table
+        # steady-state admissions hit the policy's memo table (force mode
+        # passes the budget through exactly: the one-shot contract)
         eff = self._budget - self.pool.bytes_reserved
         quantum = self.cfg.budget_quantum_frac * self.mm.dense_peak(b, total)
-        if quantum > 0:
+        if quantum > 0 and not force:
             eff = np.floor(eff / quantum + 1e-9) * quantum
+        cache_len = self._cache_len(total)
         d = self.policy.observe(PolicyState(
             batch=b, total_len=total, budget_bytes=eff,
             reserved_bytes=self.pool.bytes_reserved,
             capacity_bytes=self.pool.acct.capacity_bytes,
             n_running=len(self._running), now=self._now()))
         kv_bytes = self.mm.state_bytes(d.mask, b, total)
-        # page-granular admission: masked mode stores every layer's KV
-        # whatever the mask says, so the charge is the worst-case PAGE
-        # commitment, not the analytical byte count
-        if not self.pool.fits_capacity_tokens(b, total):
-            self._reject(req, f"{self.pool.pages_for_tokens(b, total)} pages "
-                              f"({b}×{total} tokens) can never fit pool "
-                              f"capacity of {self.pool.n_pages} pages")
-            return "rejected"
-        if not self.pool.can_alloc_tokens(b, total):
-            return "defer"
-        group = self.executor.group_for(d.mask)
+        if self._paged:
+            # page-granular admission: masked mode stores every layer's KV
+            # whatever the mask says, so the charge is the worst-case PAGE
+            # commitment, not the analytical byte count
+            if not self.pool.fits_capacity_tokens(b, total):
+                self._reject(req, f"{self.pool.pages_for_tokens(b, total)} "
+                                  f"pages ({b}×{total} tokens) can never fit "
+                                  f"pool capacity of {self.pool.n_pages} "
+                                  f"pages")
+                return "rejected"
+            if not self.pool.can_alloc_tokens(b, total):
+                return "defer"
+        else:
+            # the slot path charges the bytes its cache stores: an int8
+            # cache holds 1-byte elements plus a scale per (token, head)
+            kv_bytes *= _kv_byte_ratio(d.kv_dtype, self.mcfg)
+            if not force:
+                if not self.pool.fits_capacity(kv_bytes):
+                    self._reject(req, f"state {kv_bytes:.0f}B can never fit "
+                                      f"pool capacity "
+                                      f"{self.pool.acct.capacity_bytes:.0f}B")
+                    return "rejected"
+                if not self.pool.can_alloc(kv_bytes):
+                    return "defer"
+        group = self.executor.group_for(d.mask, cache_len)
         free = group.free_slots()
         if len(free) < b:
             return "defer"
@@ -436,15 +512,19 @@ class RAPEngine:
         prompt = np.asarray(req.prompt, np.int32)
         chunked = (self.cfg.max_prefill_tokens > 0
                    and self.executor.supports_chunked_prefill(group))
+        if not self._paged:
+            self.pool.alloc(req.rid, kv_bytes, allow_overcommit=force)
         if chunked:
-            # grant only the first chunk's pages; each later chunk extends
-            # the allocation just before it runs (the commitment covers it)
-            c1 = chunk_widths(S, self.cfg.max_prefill_tokens)[0]
-            rate = kv_bytes / max(total, 1)
-            self.pool.alloc_tokens(req.rid, b, c1, max_tokens=total,
-                                   in_use_bytes=rate * c1,
-                                   in_use_per_token=rate,
-                                   kv_dtype=d.kv_dtype)
+            if self._paged:
+                # grant only the first chunk's pages; each later chunk
+                # extends the allocation just before it runs (the
+                # commitment covers it)
+                c1 = chunk_widths(S, self.cfg.max_prefill_tokens)[0]
+                rate = kv_bytes / max(total, 1)
+                self.pool.alloc_tokens(req.rid, b, c1, max_tokens=total,
+                                       in_use_bytes=rate * c1,
+                                       in_use_per_token=rate,
+                                       kv_dtype=d.kv_dtype)
             self._prefilling[req.rid] = _Prefilling(
                 req=req, decision=d, group=group, slots=slots,
                 admitted_t=admitted_t, kv_bytes=kv_bytes, max_new=max_new,
@@ -452,12 +532,13 @@ class RAPEngine:
                     group, slots, req.rid, prompt, d.mask,
                     max_chunk=self.cfg.max_prefill_tokens))
             return "admitted"
-        # grant pages backing the prompt now; commit the decode tail
-        prompt_bytes = self.mm.state_bytes(d.mask, b, S)
-        rate = max(kv_bytes - prompt_bytes, 0.0) / max(total - S, 1)
-        self.pool.alloc_tokens(req.rid, b, S, max_tokens=total,
-                               in_use_bytes=prompt_bytes,
-                               in_use_per_token=rate, kv_dtype=d.kv_dtype)
+        if self._paged:
+            # grant pages backing the prompt now; commit the decode tail
+            prompt_bytes = self.mm.state_bytes(d.mask, b, S)
+            rate = max(kv_bytes - prompt_bytes, 0.0) / max(total - S, 1)
+            self.pool.alloc_tokens(req.rid, b, S, max_tokens=total,
+                                   in_use_bytes=prompt_bytes,
+                                   in_use_per_token=rate, kv_dtype=d.kv_dtype)
         first = self.executor.prefill_into(group, slots, req.rid, prompt,
                                            d.mask)
         run = _Running(req=req, decision=d, group=group, slots=slots,

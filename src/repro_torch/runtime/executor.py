@@ -2,21 +2,30 @@
 
 The engine decides *who* runs (scheduler) and *what shape* they run in
 (pruning policy); a :class:`ModelExecutor` owns *how* the chosen masks
-execute. The port has one backend so far, :class:`PagedExecutor`:
-physically paged KV execution in masked mode. Requests own *pages* of a
-global KV pool (``repro_torch.runtime.kv_pool.KVPool`` holds the page
-tensors on the device), prefill writes KV straight into granted pages, and
-one decode horizon advances any mix of cache lengths through a per-request
-page table.
+execute. Two backends, both in masked mode:
 
-Decode state is device-resident: a group keeps page-table rows, positions,
-seed tokens and ``[2, L, n_slots]`` gates as device tensors, updated in
-place at placement, eviction and page grants. A horizon of H greedy tokens
-is a loop of H decode steps launched back to back on the current CUDA
-stream with the argmax token fed back on the device; the host reads the
-``[B, H]`` tokens once, in :meth:`PagedExecutor.decode_finish` (the
-counterpart of JAX's async dispatch: the launch returns at once and the
-host schedules while the card works).
+  * :class:`LocalExecutor` — slot-batched caches. A :class:`SlotGroup`
+    holds one dense ``[L, n_slots, cache_len, K, Dh]`` cache per K/V leaf
+    (model dtype, or int8 with per-(token, head) scales); groups are keyed
+    by cache length, so ``len_buckets="pow2"`` mints one group per
+    power-of-two length. Decode steps the occupied slots in the smallest
+    batch bucket of ``decode_buckets`` that holds them (gathered from and
+    scattered back into the resident cache on the device), through the
+    dense decode kernel.
+  * :class:`PagedExecutor` — physically paged KV execution. Requests own
+    *pages* of a global KV pool (``repro_torch.runtime.kv_pool.KVPool``
+    holds the page tensors on the device), prefill writes KV straight into
+    granted pages, and one decode horizon advances any mix of cache lengths
+    through a per-request page table and the paged decode kernel.
+
+Decode state is device-resident: a group keeps its cache (or page-table
+rows), positions, seed tokens and ``[2, L, n_slots]`` gates as device
+tensors, updated in place at placement, eviction and page grants. A horizon
+of H greedy tokens is a loop of H decode steps launched back to back on the
+current CUDA stream with the argmax token fed back on the device; the host
+reads the ``[B, H]`` tokens once, in ``decode_finish`` (the counterpart of
+JAX's async dispatch: the launch returns at once and the host schedules
+while the card works).
 
 Pools are model-dtype or quantized (int8 / float8_e4m3fn pages with
 per-(page, kv head) scales; every write seam quantizes: monolithic prefill,
@@ -24,8 +33,8 @@ chunked prefill and the decode append). Prompts prefill monolithically or
 in pow2 chunks, one chunk per engine tick (:meth:`PagedExecutor.prefill_begin`
 / :meth:`PagedExecutor.prefill_step`).
 
-Structural mode (compacted stacks), spill/restore and the slot-cache
-``LocalExecutor`` are later slices (ROADMAP queue 1, items 7–9).
+Structural mode (compacted stacks, item 8) and spill/restore (item 7) are
+later slices (ROADMAP queue 1) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,7 +49,8 @@ from repro_torch.kernels.ref import put_pages
 from repro_torch.models import attention, decoder
 from repro_torch.runtime.kv_pool import resolve_kv_dtype
 
-__all__ = ["ModelExecutor", "PagedExecutor", "PagedGroup", "chunk_widths"]
+__all__ = ["ModelExecutor", "SlotGroup", "LocalExecutor", "PagedExecutor",
+           "PagedGroup", "chunk_widths"]
 
 
 def chunk_widths(n_tokens: int, max_chunk: int) -> List[int]:
@@ -66,7 +76,9 @@ class _PrefillTask:
     """One in-flight chunked prefill (``prefill_begin``/``prefill_step``).
     The request's slots are *reserved* in its group for the task's lifetime
     (they pad no decode bucket and admit no other request) and seated when
-    the final chunk completes; chunks write straight into the pool."""
+    the final chunk completes. ``state`` is the backend's partial cache
+    (Local: the request-sized slot cache the chunks accumulate into; Paged:
+    None, chunks write straight into the pool)."""
     group: Any
     slots: List[int]
     rid: str
@@ -75,6 +87,7 @@ class _PrefillTask:
     widths: List[int]                 # pow2 chunk widths, sum == S
     pos: int = 0                      # prompt tokens processed so far
     step: int = 0                     # chunks processed so far
+    state: Any = None
 
     @property
     def done(self) -> bool:
@@ -90,7 +103,7 @@ class _InFlightHorizon:
     group: Any
     horizon: int
     toks_dev: Any                     # device [width, horizon] tokens
-    idx: List[int]                    # stepped slots
+    idx: Optional[List[int]]          # stepped slots (Local: None = all)
     occupants: List[Optional[str]]    # per stepped slot, at launch time
 
 
@@ -105,6 +118,12 @@ def _gate_cols(mask, gate_rows: Optional[np.ndarray]) -> np.ndarray:
     return np.stack([gm, gf])
 
 
+def _gate_tensors(cols: np.ndarray, device) -> dict:
+    """Gate columns [2, L] as the decoder's {"mixer", "ffn"} gate dict."""
+    return {"mixer": torch.from_numpy(cols[0]).to(device),
+            "ffn": torch.from_numpy(cols[1]).to(device)}
+
+
 def _bucket_batch(occ: List[int], free: List[int], n_slots: int,
                   buckets: Sequence[int]) -> Optional[List[int]]:
     """Slot indices to step this iteration: the occupied slots padded with
@@ -116,6 +135,23 @@ def _bucket_batch(occ: List[int], free: List[int], n_slots: int,
         if n <= b < n_slots:
             return occ + free[: b - n]
     return None
+
+
+_IIDX_CACHE_CAP = 256     # occupancy patterns a group keeps index tensors for
+
+
+def _cached_iidx(cache: Dict[Tuple[int, ...], torch.Tensor], idx: List[int],
+                 device) -> torch.Tensor:
+    """Device copy of a slot-index vector, cached by its pattern, so a
+    steady-state horizon launch uploads nothing. FIFO past the cap: a long
+    adaptive serve cycles through unboundedly many patterns."""
+    key = tuple(idx)
+    dev = cache.get(key)
+    if dev is None:
+        if len(cache) >= _IIDX_CACHE_CAP:
+            cache.pop(next(iter(cache)))
+        dev = cache[key] = torch.tensor(idx, dtype=torch.long, device=device)
+    return dev
 
 
 # ---------------------------------------------------------------- protocol
@@ -133,7 +169,7 @@ class ModelExecutor:
     launch_s: float = 0.0
     paged: bool = False
 
-    def group_for(self, mask: np.ndarray):
+    def group_for(self, mask: np.ndarray, cache_len: Optional[int] = None):
         raise NotImplementedError
 
     def prefill_into(self, group, slots: List[int], rid: str,
@@ -152,12 +188,304 @@ class ModelExecutor:
     def groups(self) -> list:
         raise NotImplementedError
 
+    def evict_all(self) -> None:
+        for g in self.groups():
+            g.evict(list(range(g.n_slots)))
+
+    def spill_state(self, group, slots: List[int]) -> dict:
+        raise NotImplementedError("spill/restore of a preempted request is "
+                                  "ROADMAP queue 1, item 7")
+
+    def restore_state(self, group, slots: List[int], rid: str, state: dict,
+                      mask, rows=None) -> None:
+        raise NotImplementedError("spill/restore of a preempted request is "
+                                  "ROADMAP queue 1, item 7")
+
     def kv_utilization(self) -> Tuple[float, float]:
         """(used_bytes, physical_bytes) of live KV storage."""
         return 0.0, 0.0
 
     def stats(self) -> Dict[str, int]:
         return {}
+
+
+# ------------------------------------------------------------------- local
+class SlotGroup:
+    """One slot-batched decode family sharing a dense cache: the full
+    params with per-slot gates (masked mode), minted per cache length.
+
+    All decode state — the cache (``cache["attn"]`` leaves
+    ``[L, n_slots, cache_len, K, Dh]``, ``cache["pos"]`` int32
+    ``[n_slots]``), the per-slot seed tokens ``[n_slots, 1]`` and the
+    ``[2, L, n_slots]`` gates — lives on the device. Placement writes only
+    the placed slots' rows and gate columns; a horizon reads the resident
+    tensors directly, so the per-token path uploads nothing. ``pos`` is a
+    host mirror of the positions for the engine's bookkeeping."""
+
+    def __init__(self, params, cfg_model, n_slots: int, cache_len: int,
+                 kv_dtype, device):
+        self.params = params
+        self.n_slots = n_slots
+        self.cache_len = cache_len
+        self.device = device
+        self.occupants: List[Optional[str]] = [None] * n_slots
+        # slots held by an in-flight chunked prefill
+        self.reserved: set = set()
+        self.cache = decoder.init_cache(cfg_model, n_slots, cache_len,
+                                        kv_dtype, device)
+        self.cache["pos"] = torch.zeros(n_slots, dtype=torch.int32,
+                                        device=device)
+        self.tokens = torch.zeros(n_slots, 1, dtype=torch.int32,
+                                  device=device)
+        self.gates_dev = torch.ones(2, cfg_model.n_layers, n_slots,
+                                    device=device)
+        self.pos = np.zeros(n_slots, np.int64)
+        self._mcfg = cfg_model
+        self._iidx_cache: Dict[Tuple[int, ...], torch.Tensor] = {}
+
+    def free_slots(self) -> List[int]:
+        return [i for i, o in enumerate(self.occupants)
+                if o is None and i not in self.reserved]
+
+    def occupied_slots(self) -> List[int]:
+        return [i for i, o in enumerate(self.occupants) if o is not None]
+
+    def occupied(self) -> bool:
+        return any(o is not None for o in self.occupants)
+
+    def iidx(self, idx: List[int]) -> torch.Tensor:
+        return _cached_iidx(self._iidx_cache, idx, self.device)
+
+    def place(self, rid: str, slots: List[int], req_attn: dict,
+              cols: np.ndarray, prompt_len: int,
+              first_dev: torch.Tensor) -> None:
+        """Seat a prefilled request: its cache rows ``req_attn`` (leaves
+        ``[L, len(slots), cache_len, ...]``), positions, seed tokens and
+        gate columns ``cols [2, L]``, written in place at ``slots``."""
+        self.reserved.difference_update(slots)
+        for s in slots:
+            self.occupants[s] = rid
+            self.pos[s] = prompt_len
+        sidx = self.iidx(slots)
+        for key, leaf in self.cache["attn"].items():
+            leaf[:, sidx] = req_attn[key]
+        self.cache["pos"][sidx] = int(prompt_len)
+        self.tokens[sidx, 0] = first_dev
+        self.gates_dev[:, :, sidx] = torch.from_numpy(cols).to(
+            self.device)[:, :, None]
+
+    def evict(self, slots: List[int]) -> None:
+        self.reserved.difference_update(slots)
+        for s in slots:
+            self.occupants[s] = None
+
+    def launch_horizon(self, horizon: int, buckets: Sequence[int] = ()
+                       ) -> Tuple[torch.Tensor, Optional[List[int]]]:
+        """Enqueue ``horizon`` greedy decode steps for the occupied slots
+        with no host read: the full width in place, or (when a batch
+        bucket of ``buckets`` holds the occupied slots) a gather of the
+        bucket's rows, H steps on them and a scatter back, all on the
+        device. Returns (device toks [width, H], stepped slots or None for
+        the full width)."""
+        idx = (_bucket_batch(self.occupied_slots(), self.free_slots(),
+                             self.n_slots, buckets) if buckets else None)
+        g = self.gates_dev
+        if idx is None:
+            toks, self.cache = decoder.decode_horizon(
+                self.params, self._mcfg, self.cache, self.tokens, horizon,
+                gates={"mixer": g[0], "ffn": g[1]})
+            self.tokens = toks[:, -1:].contiguous()
+            return toks, None
+        iidx = self.iidx(idx)
+        sub = {"attn": {k: v[:, iidx] for k, v in self.cache["attn"].items()},
+               "pos": self.cache["pos"][iidx]}
+        gs = g[:, :, iidx]
+        toks, sub = decoder.decode_horizon(
+            self.params, self._mcfg, sub, self.tokens[iidx], horizon,
+            gates={"mixer": gs[0], "ffn": gs[1]})
+        for k, v in sub["attn"].items():
+            self.cache["attn"][k][:, iidx] = v
+        self.cache["pos"][iidx] = sub["pos"]
+        self.tokens[iidx] = toks[:, -1:]
+        return toks, idx
+
+
+class LocalExecutor(ModelExecutor):
+    """Slot-batched execution, masked mode: one :class:`SlotGroup` per
+    cache length, each with ``max_active`` slots.
+
+    ``kv_dtype`` takes the canonical precision names (``fp32``/``bf16``/
+    ``int8``) or a torch dtype: an int8 slot cache stores per-(token, kv
+    head) scales (``attention.kv_quant``) and is dequantized to the model
+    dtype before the decode kernel, as in JAX. Decode steps the occupied
+    slots in the smallest bucket of ``decode_buckets`` that holds them.
+    ``groups_minted`` counts the groups (dense caches) created."""
+
+    def __init__(self, model, params, *, mode: str = "masked",
+                 max_active: int = 8, kv_dtype=None,
+                 decode_buckets: Sequence[int] = (1, 2, 4, 8)):
+        if mode == "structural":
+            raise NotImplementedError(
+                "structural mode (compacted layer stacks) is ROADMAP "
+                "queue 1, item 8")
+        if mode != "masked":
+            raise ValueError(f"unknown mode {mode!r}")
+        decoder._check_uniform(model.cfg)
+        _, store, _, _ = resolve_kv_dtype(kv_dtype)
+        if store == torch.float8_e4m3fn:
+            raise NotImplementedError(
+                "an fp8 slot cache is ROADMAP queue 1, item 11; fp8 KV is "
+                "served by PagedExecutor")
+        self.mcfg = model.cfg
+        self.params = params
+        self.device = params["embed"].device
+        self.max_active = int(max_active)
+        self.kv_dtype = store if store is not None else model.cfg.torch_dtype()
+        self.decode_buckets = tuple(int(b) for b in decode_buckets or ())
+        self.launch_s = 0.0
+        self.groups_minted = 0
+        self._groups: Dict[int, SlotGroup] = {}     # by cache length
+
+    # ------------------------------------------------------------ capacity
+    def set_max_active(self, n_slots: int) -> None:
+        """A new slot count changes every cache's slot axis: every group
+        drops."""
+        if int(n_slots) == self.max_active:
+            return
+        self.max_active = int(n_slots)
+        self._groups.clear()
+
+    def drop_groups(self) -> None:
+        self._groups.clear()
+
+    # -------------------------------------------------------------- groups
+    def groups(self) -> List[SlotGroup]:
+        return list(self._groups.values())
+
+    def group_for(self, mask: np.ndarray,
+                  cache_len: Optional[int] = None) -> SlotGroup:
+        """The masked group of ``cache_len`` tokens (masks ride per-slot
+        gates), minted on first use."""
+        group = self._groups.get(int(cache_len))
+        if group is None:
+            group = self._groups[int(cache_len)] = SlotGroup(
+                self.params, self.mcfg, self.max_active,
+                int(cache_len), self.kv_dtype, self.device)
+            self.groups_minted += 1
+        return group
+
+    # ------------------------------------------------------------- prefill
+    def prefill_into(self, group: SlotGroup, slots: List[int], rid: str,
+                     prompt: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """Prefill the request into a request-sized cache, seat it in
+        ``slots`` and return the first sampled tokens ``[b]``."""
+        b, S = prompt.shape
+        cols = _gate_cols(mask, None)
+        t0 = time.perf_counter()
+        logits, cache = decoder.prefill(
+            self.params, self.mcfg, torch.from_numpy(
+                np.asarray(prompt, np.int32)).to(self.device),
+            group.cache_len, gates=_gate_tensors(cols, self.device),
+            kv_dtype=self.kv_dtype)
+        first_dev = torch.argmax(logits, dim=-1).to(torch.int32)
+        first = first_dev.cpu().numpy()
+        self.launch_s += time.perf_counter() - t0
+        group.place(rid, slots, cache["attn"], cols, S, first_dev)
+        return first
+
+    # ----------------------------------------------------- chunked prefill
+    def supports_chunked_prefill(self, group: SlotGroup) -> bool:
+        # the constructor pins uniform all-attention models
+        return True
+
+    def prefill_begin(self, group: SlotGroup, slots: List[int], rid: str,
+                      prompt: np.ndarray, mask: np.ndarray, *,
+                      max_chunk: int) -> _PrefillTask:
+        """Reserve the slots and mint the request-sized cache the chunks
+        accumulate into (placed into the group when the last chunk lands)."""
+        prompt = np.asarray(prompt, np.int32)
+        group.reserved.update(slots)
+        return _PrefillTask(
+            group=group, slots=list(slots), rid=rid, prompt=prompt,
+            cols=_gate_cols(mask, None),
+            widths=chunk_widths(prompt.shape[1], max_chunk),
+            state=decoder.init_cache(self.mcfg, prompt.shape[0],
+                                     group.cache_len, self.kv_dtype,
+                                     self.device))
+
+    def prefill_step(self, task: _PrefillTask) -> Optional[np.ndarray]:
+        """Run the task's next chunk; returns the first sampled tokens
+        ``[b]`` once the last chunk is done (and seats the request), else
+        None."""
+        S = task.prompt.shape[1]
+        c = task.widths[task.step]
+        t0 = time.perf_counter()
+        logits = decoder.prefill_chunk(
+            self.params, self.mcfg, task.state,
+            torch.from_numpy(task.prompt[:, task.pos:task.pos + c]).to(
+                self.device), task.pos,
+            gates=_gate_tensors(task.cols, self.device))
+        task.pos += c
+        task.step += 1
+        if not task.done:
+            self.launch_s += time.perf_counter() - t0
+            return None
+        first_dev = torch.argmax(logits, dim=-1).to(torch.int32)
+        first = first_dev.cpu().numpy()
+        self.launch_s += time.perf_counter() - t0
+        task.group.place(task.rid, task.slots, task.state["attn"], task.cols,
+                         S, first_dev)
+        task.state = None
+        return first
+
+    # -------------------------------------------------------------- decode
+    def decode_launch(self, group: SlotGroup,
+                      horizon: int) -> _InFlightHorizon:
+        """One horizon launch, no host read: the host is free to schedule
+        and admit while the card decodes."""
+        t0 = time.perf_counter()
+        toks_dev, idx = group.launch_horizon(horizon, self.decode_buckets)
+        self.launch_s += time.perf_counter() - t0
+        stepped = range(group.n_slots) if idx is None else idx
+        return _InFlightHorizon(group=group, horizon=int(horizon),
+                                toks_dev=toks_dev, idx=idx,
+                                occupants=[group.occupants[s]
+                                           for s in stepped])
+
+    def decode_finish(self, launch: _InFlightHorizon) -> np.ndarray:
+        group, h = launch.group, launch.horizon
+        t0 = time.perf_counter()
+        nxt = launch.toks_dev.cpu().numpy()   # the single device→host read
+        self.launch_s += time.perf_counter() - t0
+        out = np.zeros((group.n_slots, h), np.int32)
+        stepped = range(group.n_slots) if launch.idx is None else launch.idx
+        for j, s in enumerate(stepped):
+            # fold back only slots whose occupant is unchanged since launch
+            if (launch.occupants[j] is not None
+                    and group.occupants[s] == launch.occupants[j]):
+                out[s] = nxt[j]
+                group.pos[s] += h
+        return out
+
+    # ---------------------------------------------------------- utilization
+    def kv_utilization(self) -> Tuple[float, float]:
+        """Slot caches are dense: physical bytes exist for every minted
+        group, and an occupied slot uses only its current position's tokens
+        (a slot that over-advanced in its final horizon dropped the writes
+        past ``cache_len``)."""
+        used = phys = 0.0
+        for g in self._groups.values():
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in g.cache["attn"].values())
+            phys += nbytes
+            per_tok = nbytes / (g.n_slots * g.cache_len)
+            used += sum(min(int(g.pos[s]), g.cache_len)
+                        for s in g.occupied_slots()) * per_tok
+        return used, phys
+
+    def stats(self) -> Dict[str, int]:
+        return {"groups": len(self._groups),
+                "groups_minted": self.groups_minted}
 
 
 # ------------------------------------------------------------------- paged
@@ -202,16 +530,7 @@ class PagedGroup:
         return any(o is not None for o in self.occupants)
 
     def iidx(self, idx: List[int]) -> torch.Tensor:
-        """Device copy of a slot-index vector, cached by its pattern, so a
-        steady-state horizon launch uploads nothing."""
-        key = tuple(idx)
-        dev = self._iidx_cache.get(key)
-        if dev is None:
-            if len(self._iidx_cache) >= 256:     # bound the pattern cache
-                self._iidx_cache.pop(next(iter(self._iidx_cache)))
-            dev = self._iidx_cache[key] = torch.tensor(
-                idx, dtype=torch.long, device=self.device)
-        return dev
+        return _cached_iidx(self._iidx_cache, idx, self.device)
 
     def place(self, rid: str, slots: List[int], rows_np: np.ndarray,
               prompt_len: int, first_dev: torch.Tensor,
@@ -355,9 +674,11 @@ class PagedExecutor(ModelExecutor):
     def groups(self) -> List[PagedGroup]:
         return list(self._groups.values())
 
-    def group_for(self, mask: np.ndarray) -> PagedGroup:
+    def group_for(self, mask: np.ndarray,
+                  cache_len: Optional[int] = None) -> PagedGroup:
         """ONE group hosts every request: pages make cache length a
-        per-slot property, and masks ride per-slot gates."""
+        per-slot property (``cache_len`` is ignored), and masks ride
+        per-slot gates."""
         if self.pool is None:
             raise RuntimeError("PagedExecutor has no bound pool — the "
                                "engine calls bind_pool() per run")
@@ -382,12 +703,10 @@ class PagedExecutor(ModelExecutor):
         npg = rows_np.shape[1]
         cols = _gate_cols(mask, None)
         t0 = time.perf_counter()
-        gates = {"mixer": torch.from_numpy(cols[0]).to(self.device),
-                 "ffn": torch.from_numpy(cols[1]).to(self.device)}
         logits, cache = decoder.prefill(
             self.params, cfg, torch.from_numpy(
                 np.asarray(prompt, np.int32)).to(self.device),
-            npg * pt, gates=gates)
+            npg * pt, gates=_gate_tensors(cols, self.device))
         shape = (cfg.n_layers, b, npg, pt, cfg.n_kv_heads, cfg.dh)
         rows = torch.from_numpy(rows_np).to(self.device).long()
         # in-place scatter into the pool (positions past S carry zeros)
@@ -443,8 +762,7 @@ class PagedExecutor(ModelExecutor):
             torch.from_numpy(task.prompt[:, task.pos:task.pos + c]).to(
                 self.device), task.pos,
             scratch_page=self.pool.scratch_page,
-            gates={"mixer": torch.from_numpy(task.cols[0]).to(self.device),
-                   "ffn": torch.from_numpy(task.cols[1]).to(self.device)})
+            gates=_gate_tensors(task.cols, self.device))
         task.pos += c
         task.step += 1
         if not task.done:

@@ -11,8 +11,17 @@ Eq. (3)–(4) ``state_bytes`` term) from ONE device pool:
   * a :class:`repro_torch.core.memory.PoolAccounting` ledger tracks reserved
     (page-rounded) vs in-use (exact analytical) bytes.
 
-Allocations are **token allocations** (:meth:`alloc_tokens` /
-:meth:`extend`), the physically paged contract behind ``PagedExecutor``:
+Two kinds of allocation:
+
+  * **byte allocations** (:meth:`alloc`), the slot-cache path's
+    accounting: ``LocalExecutor`` keeps dense slot caches of its own, and
+    the pool only charges each request's analytical state bytes, rounded
+    up to pages (``default_page_bytes``). ``allow_overcommit`` (force
+    admission, the one-shot ``RAPServer``) takes what pages remain and
+    books the rest as overflow pages past capacity, recorded as an
+    overcommit;
+  * **token allocations** (:meth:`alloc_tokens` / :meth:`extend`), the
+    physically paged contract behind ``PagedExecutor``:
 the pool owns the page arrays themselves
 (:meth:`allocate_physical`; one K and one V pool per attention layer,
 allocated once at capacity as torch tensors on the pool's device), grants
@@ -25,9 +34,8 @@ admits against.
 Quantized pools (``kv_dtype`` ``"int8"``/``"fp8"``) store int8 or
 float8_e4m3fn pages plus per-(layer, page, kv head) f32 scales.
 
-The byte-granular allocations of the slot-cache path (ROADMAP queue 1,
-item 9) and spilling a preempted request's pages and scale rows to the
-host (``spill``/``restore``, item 7) are later slices.
+Spilling a preempted request's pages and scale rows to the host
+(``spill``/``restore``) is a later slice (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -36,10 +44,10 @@ from typing import Dict, List, Optional
 
 import torch
 
-from repro_torch.core.memory import PoolAccounting, PoolExhausted
+from repro_torch.core.memory import MemoryModel, PoolAccounting, PoolExhausted
 
-__all__ = ["KVPool", "TokenAllocation", "PoolExhausted", "resolve_kv_dtype",
-           "KV_DTYPE_NAMES"]
+__all__ = ["KVPool", "PageAllocation", "TokenAllocation", "PoolExhausted",
+           "resolve_kv_dtype", "default_page_bytes", "KV_DTYPE_NAMES"]
 
 # user-facing kv-dtype names accepted by --kv-dtype and Decision.kv_dtype
 KV_DTYPE_NAMES = ("fp32", "bf16", "int8", "fp8")
@@ -79,6 +87,31 @@ def resolve_kv_dtype(kv_dtype):
         f"unknown kv_dtype {kv_dtype!r}; expected one of {KV_DTYPE_NAMES}")
 
 
+def default_page_bytes(mm: MemoryModel, tokens_per_page: int = 16,
+                       batch: int = 1) -> int:
+    """Bytes of a page holding ``tokens_per_page`` tokens of dense
+    per-token state (all layers kept). A model with only fixed-size state
+    has no per-token term: one page then holds one request's state."""
+    full = [True] * (2 * mm.n_layers)
+    per_tok = mm.state_bytes(full, batch, 1) - mm.state_bytes(full, batch, 0)
+    if per_tok <= 0:
+        return int(max(mm.state_bytes(full, batch, 0), 1.0))
+    return max(int(per_tok * tokens_per_page), 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PageAllocation:
+    """A byte-granular (accounting-only) allocation of the slot path."""
+    rid: str
+    pages: tuple            # page ids granted (ids >= n_pages: overflow)
+    requested_bytes: float  # exact analytical state bytes
+    page_bytes: int
+
+    @property
+    def reserved_bytes(self) -> float:
+        return float(len(self.pages) * self.page_bytes)
+
+
 @dataclasses.dataclass
 class TokenAllocation:
     """A physically paged allocation: per-row page id lists that grow one
@@ -109,22 +142,25 @@ class TokenAllocation:
 
 
 class KVPool:
-    """Page-based KV-cache pool over a global byte budget."""
+    """Slot/page-based KV-cache pool over a global byte budget.
+    ``tokens_per_page`` is needed by the token-granular (paged) API only."""
 
     def __init__(self, capacity_bytes: float, *, page_bytes: int,
-                 tokens_per_page: int):
+                 tokens_per_page: Optional[int] = None):
         if page_bytes <= 0:
             raise ValueError("page_bytes must be positive")
-        if tokens_per_page < 1:
+        if tokens_per_page is not None and tokens_per_page < 1:
             raise ValueError("tokens_per_page must be >= 1")
         self.page_bytes = int(page_bytes)
         self.n_pages = max(int(capacity_bytes // self.page_bytes), 0)
-        self.tokens_per_page = int(tokens_per_page)
+        self.tokens_per_page = tokens_per_page
         # capacity is page-quantized: a partial tail page is unusable
         self.acct = PoolAccounting(
             capacity_bytes=float(self.n_pages * self.page_bytes))
         self._free: List[int] = list(range(self.n_pages))
+        self._live: Dict[str, PageAllocation] = {}
         self._tok: Dict[str, TokenAllocation] = {}
+        self._next_overflow_page = self.n_pages  # ids of overcommitted pages
         self._committed_extra = 0   # Σ token allocs (committed − held) pages
         # physical page arrays (allocate_physical): [L, n_pages+1, pt, K, D]
         self.k_pages = None
@@ -154,7 +190,10 @@ class KVPool:
         per-(page, kv head) f32 scale tensors ``[n_layers, n_pages+1, K]``
         (the scratch page has a scale row too: padded decode rows
         requantize it harmlessly). The ledger's ``in_use_scale`` turns the
-        analytical model-width charges into physical bytes."""
+        analytical model-width charges into physical bytes. Requires
+        ``tokens_per_page``."""
+        if self.tokens_per_page is None:
+            raise ValueError("allocate_physical requires tokens_per_page")
         name, store_dtype, quantized, _ = resolve_kv_dtype(kv_dtype)
         self.kv_dtype = name
         phys = store_dtype if store_dtype is not None else dtype
@@ -178,7 +217,20 @@ class KVPool:
                 self.page_bytes / self.tokens_per_page) / model_tok
 
     # ------------------------------------------------------------- queries
+    def pages_needed(self, nbytes: float) -> int:
+        nbytes = max(float(nbytes), 0.0)
+        return max(int(-(-nbytes // self.page_bytes)), 1)  # ceil, min 1 page
+
+    def can_alloc(self, nbytes: float) -> bool:
+        return self.pages_needed(nbytes) <= len(self._free)
+
+    def fits_capacity(self, nbytes: float) -> bool:
+        """Could this request EVER fit (empty pool)?"""
+        return self.pages_needed(nbytes) <= self.n_pages
+
     def pages_per_row(self, n_tokens: int) -> int:
+        if self.tokens_per_page is None:
+            raise ValueError("token-granular API requires tokens_per_page")
         return -(-max(int(n_tokens), 1) // self.tokens_per_page)
 
     def pages_for_tokens(self, batch: int, n_tokens: int) -> int:
@@ -210,7 +262,47 @@ class KVPool:
     def bytes_reserved(self) -> float:
         return self.acct.reserved_bytes
 
+    @property
+    def available_bytes(self) -> float:
+        return float(len(self._free) * self.page_bytes)
+
     # ----------------------------------------------------------- lifecycle
+    def alloc(self, rid: str, nbytes: float, *,
+              allow_overcommit: bool = False) -> PageAllocation:
+        """Byte-granular (accounting-only) allocation of the slot path.
+
+        Under ``allow_overcommit`` the pool pops whatever real pages remain
+        and books ids past capacity for the rest: overflow ids have no
+        backing and evaporate on ``free`` (they never enter the free list),
+        and the ledger records the overcommit."""
+        if rid in self._live or rid in self._tok:
+            raise ValueError(f"request {rid!r} already holds an allocation")
+        need = self.pages_needed(nbytes)
+        if not allow_overcommit:
+            if need > len(self._free):
+                raise PoolExhausted(
+                    f"request {rid!r} needs {need} pages ({nbytes:.0f}B), "
+                    f"{len(self._free)} free of {self.n_pages} total")
+            # ledger check BEFORE popping pages: an overcommit can hold the
+            # ledger at capacity while real pages sit free
+            if not self.acct.can_reserve(need * self.page_bytes):
+                raise PoolExhausted(
+                    f"request {rid!r} needs {need * self.page_bytes}B but "
+                    f"the ledger has {self.acct.available_bytes:.0f}B "
+                    f"headroom (an overcommitted allocation holds the "
+                    f"budget past capacity)")
+        pages = [self._free.pop() for _ in range(min(need, len(self._free)))]
+        while len(pages) < need:
+            pages.append(self._next_overflow_page)
+            self._next_overflow_page += 1
+        alloc = PageAllocation(rid=rid, pages=tuple(pages),
+                               requested_bytes=float(max(nbytes, 0.0)),
+                               page_bytes=self.page_bytes)
+        self.acct.reserve(alloc.reserved_bytes, alloc.requested_bytes,
+                          allow_overcommit=allow_overcommit)
+        self._live[rid] = alloc
+        return alloc
+
     def effective_kv_dtype(self) -> Optional[str]:
         """Canonical storage dtype name of the physical pools, or ``None``
         when unquantized pages simply mirror the model dtype."""
@@ -257,7 +349,7 @@ class KVPool:
         against the physical reservation). ``kv_dtype`` is the request's
         precision ask (``Decision.kv_dtype``): it must match the precision
         the physical pools were allocated in (:meth:`check_kv_dtype`)."""
-        if rid in self._tok:
+        if rid in self._tok or rid in self._live:
             raise ValueError(f"request {rid!r} already holds an allocation")
         self.check_kv_dtype(rid, kv_dtype)
         batch = max(int(batch), 1)
@@ -349,15 +441,26 @@ class KVPool:
         return [list(r) for r in st.rows]
 
     def free(self, rid: str) -> float:
-        """Release a request's pages; returns the reserved bytes returned.
-        Unknown ids raise a ``ValueError`` naming the id and the live set."""
-        st = self._tok_state(rid, "free")
-        del self._tok[rid]
-        for row in st.rows:
-            self._free.extend(row)
-        self._committed_extra -= st.committed_pages - st.held_pages
-        self.acct.release(st.reserved_bytes, st.in_use_bytes)
-        return st.reserved_bytes
+        """Release a request's pages (either kind of allocation); returns
+        the reserved bytes returned. Unknown ids raise a ``ValueError``
+        naming the id and the live set."""
+        if rid in self._tok:
+            st = self._tok.pop(rid)
+            for row in st.rows:
+                self._free.extend(row)
+            self._committed_extra -= st.committed_pages - st.held_pages
+            self.acct.release(st.reserved_bytes, st.in_use_bytes)
+            return st.reserved_bytes
+        alloc = self._live.pop(rid, None)
+        if alloc is None:
+            raise ValueError(
+                f"free({rid!r}): unknown request id; live allocations: "
+                f"{sorted([*self._live, *self._tok])}")
+        for p in alloc.pages:
+            if p < self.n_pages:         # overflow pages evaporate
+                self._free.append(p)
+        self.acct.release(alloc.reserved_bytes, alloc.requested_bytes)
+        return alloc.reserved_bytes
 
     # ---------------------------------------------------------------- stats
     def stats(self) -> Dict[str, float]:
@@ -367,7 +470,7 @@ class KVPool:
             "n_pages": float(self.n_pages),
             "free_pages": float(len(self._free)),
             "committed_pages": float(self._committed_extra),
-            "live_requests": float(len(self._tok)),
+            "live_requests": float(len(self._live) + len(self._tok)),
             "reserved_bytes": self.acct.reserved_bytes,
             "in_use_bytes": self.acct.in_use_bytes,
             "peak_reserved_bytes": self.acct.peak_reserved_bytes,

@@ -11,16 +11,18 @@ versions round the softmax probabilities to bf16 before the P·V product,
 as the JAX reference does, while the kernels keep them in f32 — and
 1e-5 / 8e-3 (one bf16 rounding) for the fused GLU. The fused-dequant paged
 decode kernel (int8 and fp8 pages) is also held bitwise against the
-model-dtype kernel run on ``page_dequant``-ed pages, with f32 q. The case
-lists are shared with ``tests/test_torch_kernels.py`` and
-``tests/test_torch_quant.py``, which hold the plain versions against the
-JAX kernels on the CPU.
+model-dtype kernel run on ``page_dequant``-ed pages, with f32 q, and the
+dense decode kernel bitwise against the paged kernel on pages holding the
+same tokens in order (f32 q, prefix mask). The case lists are shared with
+``tests/test_torch_kernels.py`` and ``tests/test_torch_quant.py``, which
+hold the plain versions against the JAX kernels on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode_attention as pdec
 from repro_torch.kernels import swiglu
@@ -246,3 +248,132 @@ def test_paged_decode_kernel_stops_at_table_width(cuda):
         pdec.paged_decode_attention_cuda(q, kp, vp, table, lengths),
         pdec.paged_decode_attention_ref(q, kp, vp, table, lengths),
         atol=1e-4, rtol=1e-4)
+
+
+DECODE_CASES = [
+    # B, H, K, D, S, softcap, mask: "rows" prefix per row [B,S], "one"
+    # prefix [S], "ring" wrapped ring buffer per row
+    (3, 4, 4, 32, 128, 0.0, "rows"),   # G = 1, S a multiple of the tile
+    (3, 4, 4, 32, 128, 0.0, "one"),
+    (2, 8, 2, 32, 100, 0.0, "rows"),   # G = 4, S not a multiple of 64
+    (2, 8, 2, 16, 70, 30.0, "rows"),   # softcap
+    (2, 4, 2, 32, 96, 0.0, "ring"),    # non-prefix mask
+]
+
+
+def _decode_inputs(seed, B, H, K, D, S, mask):
+    """q, k, v and a mask; prefix masks come from ragged lengths (row 0
+    full)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, K, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, K, D)).astype(np.float32)
+    lengths = rng.integers(1, S + 1, size=B)
+    lengths[0] = S
+    kpos = np.arange(S)
+    if mask == "one":
+        valid = kpos < lengths[1]
+    elif mask == "rows":
+        valid = kpos[None, :] < lengths[:, None]
+    else:
+        pos = S + 7 + 11 * np.arange(B)[:, None]
+        valid = np.mod(pos - kpos[None, :], S) < 40
+    return q, k, v, valid, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,K,D,S,cap,mask", DECODE_CASES)
+def test_decode_kernel_matches_plain(cuda, B, H, K, D, S, cap, mask, dtype,
+                                     tol):
+    q, k, v, valid, _ = _decode_inputs(17, B, H, K, D, S, mask)
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (q, k, v))
+    valid = torch.from_numpy(valid).to(cuda)
+    got = dec.decode_attention_cuda(q, k, v, valid, softcap=cap)
+    want = dec.decode_attention_ref(q, k, v, valid, softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,D,pt,S,cap", PAGED_CASES)
+def test_decode_kernel_equals_paged_kernel(cuda, B, H, K, D, pt, S, cap):
+    """The two kernels share one tile loop: with f32 q, a prefix mask and
+    pages holding the same tokens in order they agree bitwise."""
+    q, kp, vp, table, lengths = _paged_inputs(19, B, H, K, D, pt, S)
+    P = table.shape[1]
+    kd = kp[table].reshape(B, P * pt, K, D)
+    vd = vp[table].reshape(B, P * pt, K, D)
+    valid = np.arange(P * pt)[None, :] < lengths[:, None]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    got = dec.decode_attention_cuda(t(q), t(kd), t(vd), t(valid),
+                                    softcap=cap)
+    want = pdec.paged_decode_attention_cuda(t(q), t(kp), t(vp), t(table),
+                                            t(lengths), softcap=cap)
+    assert torch.equal(got, want)
+
+
+def _slot_cache_run(p, cfg, dev, kv_dtype, toks, H):
+    """Prefill 3 rows into a 32-token slot cache, move them to ragged
+    positions and decode H tokens with [L, B] gates."""
+    logits, cache = decoder.prefill(p, cfg, toks.to(dev), 32,
+                                    kv_dtype=kv_dtype)
+    cache["pos"] = torch.tensor([21, 15, 9], dtype=torch.int32, device=dev)
+    gates = torch.ones(2, cfg.n_layers, 3, device=dev)
+    gates[0, 1, 0] = gates[1, 2, 2] = 0.0
+    first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    toks_h, cache = decoder.decode_horizon(
+        p, cfg, cache, first, H, gates={"mixer": gates[0], "ffn": gates[1]})
+    return logits, toks_h, cache, first, gates
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, torch.int8], ids=["model",
+                                                              "int8"])
+def test_slot_horizon_card_matches_cpu(cuda, kv_dtype):
+    """A 4-layer f32 model on a slot cache: the card (decode kernel) and
+    the CPU (plain version) emit the same greedy tokens, and a warmed
+    horizon makes no host sync."""
+    cfg = get_smoke_config("llama2-7b").replace(n_layers=4)
+    params = registry.build(cfg).init(0, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (3, 21)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        logits, h, cache, first, gates = _slot_cache_run(p, cfg, dev,
+                                                         kv_dtype, toks, 8)
+        out[str(dev)] = (logits.cpu(), h.cpu())
+    torch.testing.assert_close(out[str(cuda)][0], out["cpu"][0], atol=1e-3,
+                               rtol=0)
+    assert torch.equal(out["cpu"][1], out[str(cuda)][1])
+    g = {"mixer": gates[0], "ffn": gates[1]}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decoder.decode_horizon(p, cfg, cache, first, 4, gates=g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_slot_group_bucketed_horizon_makes_no_host_sync(cuda):
+    """A slot group stepping 2 of 4 slots gathers, decodes and scatters
+    back on the device: once warm, with host syncs turned into errors."""
+    from repro_torch.runtime import LocalExecutor
+    cfg = get_smoke_config("llama2-7b")
+    model = registry.build(cfg)
+    params = model.init(0, cuda)
+    ex = LocalExecutor(model, params, max_active=4)
+    group = ex.group_for(None, 32)
+    prompt = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    ex.prefill_into(group, [0, 2], "r0", prompt, np.ones(2 * cfg.n_layers))
+    ex.decode_finish(ex.decode_launch(group, 4))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, idx = group.launch_horizon(4, ex.decode_buckets)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert idx == [0, 2] and toks.shape == (2, 4)

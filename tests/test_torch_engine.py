@@ -41,7 +41,8 @@ from repro_torch.core import controller, masks, memory
 from repro_torch.core.policy import DensePolicy, RLPolicy, make_policy
 from repro_torch.models import registry
 from repro_torch.runtime import (EngineConfig, EngineRequest, KVPool,
-                                 PagedExecutor, RAPEngine, chunk_widths)
+                                 PagedExecutor, RAPEngine, RAPServer,
+                                 chunk_widths)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -180,8 +181,8 @@ def test_later_slices_raise(served):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match="item 8"):
         EngineConfig(mode="structural")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        EngineConfig(admission="force")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        RAPServer(s["tm"], s["tp"], DensePolicy(s["mm"]), mode="structural")
     with pytest.raises(NotImplementedError, match="item 10"):
         make_policy("shortgpt", mm=s["mm"])
     eng = RAPEngine(s["tm"], s["tp"], DensePolicy(s["mm"]),
@@ -190,7 +191,7 @@ def test_later_slices_raise(served):
         eng.run([], budget_trace=[(0.0, 1.0)])
     with pytest.raises(NotImplementedError, match="item 7"):
         eng.cancel("r0")
-    for argv in (["--episodes", "2"], ["--executor", "local"],
+    for argv in (["--episodes", "2"], ["--executor", "sharded"],
                  ["--mode", "structural"]):
         with pytest.raises(NotImplementedError):
             serve.main(["--smoke", "--device", "cpu"] + argv)
