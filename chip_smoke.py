@@ -10,26 +10,30 @@ Phases, each fatal on failure:
                 per source, in parallel, then one link) and print the
                 card's name and power limit;
   2. kernels  — hold each kernel against its plain PyTorch version on the
-                card at llama2-7b's shapes plus GQA, softcap and band cases,
+                card at the serves' shapes plus GQA, softcap and band cases,
                 in f32 (TF32 off) and bf16, each with its stated tolerance
                 (the fused-dequant paged decode on int8 and fp8 pages, and
                 bitwise against the model-dtype kernel on dequantized pages
-                with f32 q); time kernel, plain version and (flash
-                attention) the ``scaled_dot_product_attention`` yardstick,
-                and work out each kernel's bound from its bytes and
-                operations. The dense decode kernel (the slot path's) is held against
-                its plain version with per-row ``[B, S]`` and shared ``[S]``
-                masks, GQA, softcap, a ring mask and a ragged cache length,
-                bitwise against the paged kernel on pages holding the same
-                tokens (f32 q, prefix mask), and timed beside
-                ``scaled_dot_product_attention`` with a boolean mask;
+                with f32 q); time kernel, plain version and (attention) the
+                ``scaled_dot_product_attention`` yardstick, and work out
+                each kernel's bound from its bytes and operations. The dense
+                decode kernel (the slot path's) is held against its plain
+                version with per-row ``[B, S]`` and shared ``[S]`` masks,
+                GQA, softcap, ring masks (recurrentgemma's G=16, D=256 among
+                them) and a ragged cache length, and bitwise against the
+                paged kernel on pages holding the same tokens (f32 q, prefix
+                mask). The scan kernels ``ssd`` (mamba2: its prefill shape, a
+                ragged three-chunk sequence, the scoring shape, batch 1) and
+                ``rglru`` (recurrentgemma: its prefill shape, a ragged
+                length, batch 1) are held in f32 at 3e-4 and 2e-5;
   3. reference — a small model through the kernels on the card against the
                 same model through the plain versions on the CPU: paged
-                with a model-dtype and an int8 page pool, and the slot path
+                with a model-dtype and an int8 page pool, the slot path
                 (``[B]`` positions, ``[L, B]`` gates) with a model-dtype and
-                an int8 slot cache; warmed decode horizons of both paths
-                under ``torch.cuda.set_sync_debug_mode("error")`` (no host
-                sync inside the horizon);
+                an int8 slot cache, and small mamba2 and recurrentgemma
+                models past their chunk and window; warmed decode horizons
+                of every path under ``torch.cuda.set_sync_debug_mode("error")``
+                (no host sync inside the horizon);
   4. serve    — ``repro_torch.launch.serve`` with llama2-7b at full width
                 (bf16, random weights from the seed, all 32 layers), paged
                 executor, masked mode, RL policy with an untrained Q-net:
@@ -45,7 +49,16 @@ Phases, each fatal on failure:
                 decode kernel and none on the paged ones;
   7. serve 4  — ``--executor local --serial``: two one-shot ``RAPServer``
                 serves (force admission, pow2 slot groups), each returning
-                8 tokens in range through the dense decode kernel.
+                8 tokens in range through the dense decode kernel;
+  8. serve 5  — serve 3 with ``--arch mamba2-370m`` (48 layers, d_model
+                1024, state 128) and a pool of one batch-8 request: serve
+                1's checks, and every launch an ``ssd`` launch, 48 per
+                forward;
+  9. serve 6  — serve 3 with ``--arch recurrentgemma-9b`` (38 layers,
+                d_model 4096, vocab 256000, 8.6B parameters): serve 1's
+                checks, and the launches the layout implies (26 ``rglru``,
+                12 flash and 38 GLU per forward; 12 dense decode and 38 GLU
+                per decode step), none paged.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a GPU, or without the rest of
@@ -74,6 +87,14 @@ SERVE3_ARGV = BASE_ARGV + ["--executor", "local", "--requests", "6",
                            "--decode-horizon", "8", "--budget-quantum", "0.3"]
 SERVE4_ARGV = BASE_ARGV + ["--executor", "local", "--serial", "--requests",
                            "2"]
+# serve 3's arguments on the two recurrent architectures. mamba2-370m's
+# fixed SSM state is a third of its dense peak at batch 8 (0.41 of 1.15 GB),
+# so a pool of 2.5 such requests lets every request fit unpruned: a pool of
+# one makes the batch-8 request prune even with nothing else reserved
+SERVE5_ARGV = ([a if a != "llama2-7b" else "mamba2-370m" for a in SERVE3_ARGV]
+               + ["--pool-requests", "1.0"])
+SERVE6_ARGV = [a if a != "llama2-7b" else "recurrentgemma-9b"
+               for a in SERVE3_ARGV]
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 
 
@@ -285,7 +306,14 @@ def flash_cases(torch, ops, fa):
              (2, 64, 32, 8, 128, 0, 0.0, torch.bfloat16),      # GQA G=4
              (1, 200, 8, 2, 64, 48, 0.0, torch.float32),       # band
              (1, 96, 8, 4, 64, 0, 30.0, torch.float32),        # softcap
-             (1, 130, 4, 4, 256, 0, 0.0, torch.bfloat16)]      # D=256
+             (1, 130, 4, 4, 256, 0, 0.0, torch.bfloat16),      # D=256
+             # recurrentgemma-9b: 16 heads on one kv head of 256; its
+             # serve's prompts (<= 264) sit inside the 2048 window, and a
+             # band narrower than the sequence runs too
+             (1, 264, 16, 1, 256, 0, 0.0, torch.float32),
+             (2, 264, 16, 1, 256, 0, 0.0, torch.bfloat16),
+             (1, 600, 16, 1, 256, 256, 0.0, torch.float32),
+             (1, 600, 16, 1, 256, 256, 0.0, torch.bfloat16)]
     for i, (B, S, H, K, D, w, cap, dt) in enumerate(cases):
         q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
         k = torch.randn(B, S, K, D, generator=g, device="cuda").to(dt)
@@ -341,7 +369,13 @@ def decode_cases(torch, ops, dec, pdec):
              (4, 32, 32, 128, 256, 0.0,
               torch.remainder(ring_pos - kpos[None, :256], 256) < 100,
               "ring"),                                          # ring mask
-             (2, 32, 32, 128, 300, 0.0, None, "rows")]          # S % 64 != 0
+             (2, 32, 32, 128, 300, 0.0, None, "rows"),          # S % 64 != 0
+             # recurrentgemma-9b's local-attention ring of 264 slots
+             # (serve 6's cache), G=16 on one kv head of 256, wrapped
+             (8, 16, 1, 256, 264, 0.0,
+              torch.remainder((264 + 7 + 11 * torch.arange(8, device="cuda"))
+                              [:, None] - kpos[None, :264], 264) < 200,
+              "ring")]
     for i, (b, h, k, d, s, cap, valid, kind) in enumerate(cases):
         if valid is None:
             lens = torch.randint(1, s + 1, (b,), generator=g).cuda()
@@ -399,6 +433,101 @@ def decode_cases(torch, ops, dec, pdec):
             "library_ms": time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask)),
             "shape": f"B={B} H=K={H} D={D} S={S} per-row prefix masks "
                      f"({toks} valid tokens) {dt}"}
+
+
+SCAN_TOL = {"ssd": 3e-4, "rglru": 2e-5}
+
+
+def check_scan(name: str, out, ref, tol: float) -> float:
+    """The scan kernels against their plain versions in f32. ssd: 3e-4,
+    the JAX suite's tolerance for two f32 chunked sums taken in another
+    order; rglru: 2e-5, one FMA against a rounded multiply and add per step
+    of a decaying recurrence."""
+    import torch
+    err = max_err(out, ref)
+    ok = (torch.allclose(out, ref, atol=tol, rtol=tol)
+          and bool(torch.isfinite(out).all()))
+    print(f"  {name}: max|Δ| {err:.3e} (atol=rtol={tol}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max|Δ| {err})")
+    return err
+
+
+def scan_inputs(torch, B=8, T=256, H=32, P=64, N=128, W=4096, seed=41):
+    """Inputs of both scans (the recipe of tests/test_kernels.py), at
+    mamba2-370m's and recurrentgemma-9b's prefill shapes by default:
+    (xh, log_a, Bm, Cm, a, b), f32 on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s, scale=1.0: torch.randn(*s, generator=g,
+                                            device="cuda") * scale
+    return (rnd(B, T, H, P, scale=0.5), -rnd(B, T, H, scale=0.1).abs(),
+            rnd(B, T, N, scale=0.3), rnd(B, T, N, scale=0.3),
+            torch.exp(-rnd(B, T, W, scale=0.5).abs()),
+            rnd(B, T, W, scale=0.5))
+
+
+def ssd_cases(torch, ops, ssd):
+    """mamba2-370m's SSD at its prefill shape (one 256-token chunk), a
+    ragged three-chunk sequence, the GSI scoring shape (2 × 64 calibration
+    tokens × 8 candidates: one 64-token chunk), batch 1, and small odd
+    shapes; y and the final state each held to the plain version."""
+    errs = []
+    cases = [(8, 256, 32, 64, 128, 256), (2, 600, 32, 64, 128, 256),
+             (16, 64, 32, 64, 128, 256), (1, 256, 32, 64, 128, 256),
+             (2, 100, 4, 32, 64, 32), (1, 48, 3, 16, 32, 16)]
+    for i, (B, T, H, P, N, Q) in enumerate(cases):
+        xh, log_a, Bm, Cm, _, _ = scan_inputs(torch, B, T, H, P, N, 1,
+                                              seed=50 + i)
+        y, fin = ops.ssd(xh, log_a, Bm, Cm, Q)
+        y_ref, fin_ref = ssd.ssd_ref(xh, log_a, Bm, Cm, Q)
+        name = f"ssd B={B} T={T} H={H} P={P} N={N} chunk={min(Q, T)}"
+        errs.append(max(check_scan(name + " y", y, y_ref, SCAN_TOL["ssd"]),
+                        check_scan(name + " state", fin, fin_ref,
+                                   SCAN_TOL["ssd"])))
+    B, T, H, P, N, Q = cases[0]
+    xh, log_a, Bm, Cm, _, _ = scan_inputs(torch, B, T, H, P, N, 1)
+    # causal pairs only: the kernel never computes the upper triangle.
+    # C·Bᵀ is one product per (batch, chunk), shared by every head (one
+    # group); (C·Bᵀ ⊙ L)·x, C·stateᵀ and the state update are per head
+    pairs = sum(q * (q + 1) // 2 for q in
+                [min(Q, T - c) for c in range(0, T, Q)])
+    ops_ = B * 2 * pairs * N + B * H * (2 * pairs * P + 4 * T * N * P)
+    nbytes = 4 * (2 * xh.numel() + log_a.numel() + 2 * Bm.numel()
+                  + B * H * P * N)
+    bms, by = bound_ms(nbytes, ops_, torch.float32)
+    return {"name": "ssd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd.py:76",
+            "max_abs_err": errs[0],
+            "ms": time_ms(lambda: ssd.ssd_cuda(xh, log_a, Bm, Cm, Q)),
+            "plain_ms": time_ms(lambda: ssd.ssd_ref(xh, log_a, Bm, Cm, Q)),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": f"B={B} T={T} H={H} P={P} N={N} chunk={Q} f32"}
+
+
+def rglru_cases(torch, ops, rglru):
+    """recurrentgemma-9b's RG-LRU recurrence at its prefill shape, a
+    length that is no multiple of the kernel's 8-step unroll, batch 1 and a
+    small odd width."""
+    errs = []
+    for i, (B, T, W) in enumerate([(8, 256, 4096), (2, 301, 4096),
+                                   (1, 256, 4096), (3, 33, 96)]):
+        _, _, _, _, a, b = scan_inputs(torch, B, T, 1, 1, 1, W, seed=60 + i)
+        errs.append(check_scan(f"rglru B={B} T={T} W={W}", ops.rglru(a, b),
+                               rglru.rglru_ref(a, b), SCAN_TOL["rglru"]))
+    _, _, _, _, a, b = scan_inputs(torch)
+    B, T, W = a.shape
+    bms, by = bound_ms(3 * 4 * a.numel(), 2 * a.numel(), torch.float32)
+    return {"name": "rglru", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru.cu",
+            "replaces": "src/repro/kernels/rglru.py:49",
+            "max_abs_err": errs[0],
+            "ms": time_ms(lambda: rglru.rglru_cuda(a, b)),
+            "plain_ms": time_ms(lambda: rglru.rglru_ref(a, b)),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": f"B={B} T={T} W={W} f32"}
 
 
 # ---------------------------------------------------------------- phases
@@ -517,6 +646,50 @@ def slot_reference(torch, decoder, cfg, cpu_params, gpu_params) -> None:
               f"ran with sync debug mode 'error': no host sync")
 
 
+def recurrent_reference(torch) -> None:
+    """mamba2 (4 layers, chunk 8) and recurrentgemma (6 layers, window 16)
+    at f32: a 37-token prefill of 3 rows (five SSD chunks, the last one
+    ragged; a rolled window-16 ring) and an 8-token slot horizon with
+    ``[B]`` positions and ``[L, B]`` gates, card against CPU; then a
+    warmed horizon with host syncs turned into errors."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decoder, registry
+    for arch, layers in (("mamba2-370m", 4), ("recurrentgemma-9b", 6)):
+        cfg = get_smoke_config(arch).replace(n_layers=layers)
+        cpu_params = registry.build(cfg).init(0, "cpu")
+        gpu_params = _tree_to(cpu_params, "cuda")
+        toks = torch.randint(0, cfg.vocab_size, (3, 37),
+                             generator=torch.Generator().manual_seed(7))
+        outs = {}
+        for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
+            logits, cache = decoder.prefill(p, cfg, toks.to(dev), 64)
+            cache["pos"] = torch.full((3,), 37, dtype=torch.int32,
+                                      device=dev)
+            gates = torch.ones(2, cfg.n_layers, 3, device=dev)
+            gates[0, 1, 0] = gates[1, 2, 1] = gates[0, 3, 2] = 0.0
+            g = {"mixer": gates[0], "ffn": gates[1]}
+            first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            h_toks, cache = decoder.decode_horizon(p, cfg, cache, first, 8,
+                                                   gates=g)
+            outs[dev] = (logits.cpu(), h_toks.cpu())
+        err = max_err(outs["cuda"][0], outs["cpu"][0])
+        same = bool(torch.equal(outs["cuda"][1], outs["cpu"][1]))
+        print(f"  reference ({arch}, {layers} layers): prefill logits "
+              f"max|Δ| card vs CPU {err:.2e}; horizon tokens equal: {same}")
+        if err > 1e-3 or not same:
+            raise AssertionError(f"the card's {arch} path disagrees with the "
+                                 f"CPU reference")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decoder.decode_horizon(gpu_params, cfg, cache, first, 4, gates=g)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print(f"  warmed slot horizon ({arch}) ran with sync debug mode "
+              f"'error': no host sync")
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -524,11 +697,13 @@ def _tree_to(tree, device):
 
 
 def serve_phase(torch, ops, card: str, argv) -> dict:
-    """Serve llama2-7b at full width through ``launch.serve`` and check the
-    report; returns the launch counts and a summary of the run."""
+    """Serve ``--arch`` at its full width and depth through
+    ``launch.serve`` and check the report; returns the launch counts and a
+    summary of the run."""
     import gc
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    L = 32
+    arch = argv[argv.index("--arch") + 1]
     print(f"  serve argv: {' '.join(argv)}")
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -537,9 +712,9 @@ def serve_phase(torch, ops, card: str, argv) -> dict:
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     cfg = engine.mcfg
-    if (cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size) != (
-            4096, 32, 11008, 32000) or cfg.n_layers != L:
-        raise AssertionError(f"not llama2-7b at full width: {cfg}")
+    if cfg != get_config(arch):
+        raise AssertionError(f"not {arch} at full width and depth: {cfg}")
+    L = cfg.n_layers
     done = [r for r in rep.results if r.status == "done"]
     pruned = [r for r in done if r.mask.sum() < 2 * L]
     for r in done:
@@ -564,7 +739,8 @@ def serve_phase(torch, ops, card: str, argv) -> dict:
             or pool["peak_reserved_bytes"] > pool["capacity_bytes"]):
         raise AssertionError("serve phase failed its checks")
     decides = [r.decide_s * 1e3 for r in done if not r.cached_decision]
-    summary = {"card": card, "layers": cfg.n_layers, "requests": len(done),
+    summary = {"card": card, "arch": arch, "layers": cfg.n_layers,
+               "requests": len(done),
                "executor": "paged" if ex.paged else "local",
                "kv_dtype": kv_dtype,
                "n_pages": int(pool["n_pages"]),
@@ -587,7 +763,7 @@ def serve_phase(torch, ops, card: str, argv) -> dict:
           f"{summary['decide_s_total']:.1f} s, prefill + decode launches and "
           f"read-backs {rep.launch_s:.1f} s")
     print("serve: " + json.dumps(summary))
-    # free the 7B model before the next serve
+    # free the model before the next serve
     del engine, rep, ex
     gc.collect()
     torch.cuda.empty_cache()
@@ -631,6 +807,38 @@ def serial_phase(torch, ops, card: str, argv) -> dict:
     return summary
 
 
+def check_recurrent_launches(what: str, arch: str, counts: dict) -> None:
+    """Hold a recurrent serve's launch counts to what its layout implies.
+    A forward (prefill or GSI scoring) launches ssd or rglru once per such
+    layer, flash once per local-attention layer and the GLU once per FFN;
+    a decode step launches the dense decode kernel once per local-attention
+    layer and the GLU once per FFN (the recurrent decode steps are plain
+    torch, as in JAX). mamba2 has 48 SSD layers and no FFN;
+    recurrentgemma 26 RG-LRU and 12 local-attention layers, 38 FFNs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder
+    layout = decoder.default_layout(get_config(arch))
+    n = {k: sum(s.mixer == k for s in layout)
+         for k in ("ssd", "rglru", "local_attn")}
+    n_ffn = sum(s.ffn is not None for s in layout)
+    scan = "ssd" if n["ssd"] else "rglru"
+    fwd = counts[scan] / n[scan]
+    steps = counts["decode_attention"] / max(n["local_attn"], 1)
+    want = {"ssd": n["ssd"] * fwd, "rglru": n["rglru"] * fwd,
+            "flash_attention": n["local_attn"] * fwd,
+            "decode_attention": n["local_attn"] * steps,
+            "fused_glu": n_ffn * (fwd + steps),
+            "paged_decode_attention": 0, "paged_decode_attention_quant": 0}
+    seen = (f"{steps:g} decode steps" if n["local_attn"]
+            else "decode steps launch no kernel")
+    print(f"  {what}: {fwd:g} forwards, {seen}; launches {counts}")
+    if (fwd < 1 or fwd != int(fwd) or steps != int(steps)
+            or any(counts[k] != v for k, v in want.items())
+            or (n["local_attn"] and steps < 1)):
+        raise AssertionError(f"{what}'s launches do not match {arch}'s "
+                             f"layout: {counts} against {want}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -644,14 +852,14 @@ def main() -> None:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pdec
-    from repro_torch.kernels import swiglu
+    from repro_torch.kernels import rglru, ssd, swiglu
     from repro_torch.models import attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib = build.build()
     print(f"build: {len(build.SOURCES)} kernel sources with nvcc in "
           f"{time.perf_counter() - t0:.1f} s -> {lib}")
@@ -660,7 +868,8 @@ def main() -> None:
     entries = [paged_cases(torch, ops, pdec),
                paged_quant_cases(torch, ops, pdec, attention),
                glu_cases(torch, ops, swiglu), flash_cases(torch, ops, fa),
-               decode_cases(torch, ops, dec, pdec)]
+               decode_cases(torch, ops, dec, pdec),
+               ssd_cases(torch, ops, ssd), rglru_cases(torch, ops, rglru)]
     for e in entries:
         print(f"  {e['name']} @ {e['shape']} [{card}]: kernel "
               f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
@@ -668,6 +877,7 @@ def main() -> None:
               f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms")
     print("reference:")
     reference_phase(torch)
+    recurrent_reference(torch)
     print("serve:")
     s1 = serve_phase(torch, ops, card, SERVE_ARGV)
     c1 = s1["launches"]
@@ -697,12 +907,21 @@ def main() -> None:
                              "decode kernel alone")
     print("serve 4:")
     c4 = serial_phase(torch, ops, card, SERVE4_ARGV)["launches"]
+    print("serve 5:")
+    c5 = serve_phase(torch, ops, card, SERVE5_ARGV)["launches"]
+    check_recurrent_launches("serve 5", "mamba2-370m", c5)
+    print("serve 6:")
+    c6 = serve_phase(torch, ops, card, SERVE6_ARGV)["launches"]
+    check_recurrent_launches("serve 6", "recurrentgemma-9b", c6)
     # each kernel's launches come from the serve whose path runs it
-    home = {"paged_decode_attention_quant": c2, "decode_attention": c3}
+    home = {"paged_decode_attention_quant": c2, "decode_attention": c3,
+            "ssd": c5, "rglru": c6}
     for e in entries:
         e["launches"] = home.get(e["name"], c1)[e["name"]]
-        for i, c in ((1, c1), (2, c2), (3, c3), (4, c4)):
+        for i, c in enumerate((c1, c2, c3, c4, c5, c6), start=1):
             e[f"launches_serve{i}"] = c[e["name"]]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(f"device: {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,13 @@
 
 ``params_from_numpy`` takes the parameter pytree that ``repro``'s
 ``decoder.init_params`` returns, converted leaf by leaf with
-``np.asarray`` (``embed``, ``final_norm.scale``, ``lm_head``,
-``stacks.attn.{norm.scale,wq,wk,wv,wo}``, ``stacks.dense.{norm.scale,wi,wo}``,
-stacked over layers), and returns the same nested dict of torch tensors —
-the port keeps the JAX layout, so no leaf is transposed or renamed.
+``np.asarray`` (``embed``, ``final_norm.scale``, ``lm_head``, and per
+kind, stacked over that kind's layers: ``stacks.attn.{norm.scale, wq, wk,
+wv, wo}``, ``stacks.dense.{norm.scale, wi, wo}``, ``stacks.ssd.{norm.scale,
+in_proj, conv_w, conv_b, A_log, D, dt_bias, norm_scale, out_proj}``,
+``stacks.rglru.{norm.scale, wx, w_gate, conv_w, conv_b, wa, ba, wi, bi,
+lam, wo}``), and returns the same nested dict of torch tensors — the port
+keeps the JAX layout, so no leaf is transposed or renamed.
 ``qnet_from_numpy`` does the same for the DQN's ``w1/b1/w2/b2``.
 Only arrays cross: this module needs no import of the JAX package.
 """

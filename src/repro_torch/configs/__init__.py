@@ -1,8 +1,8 @@
 """Config registry: ``get_config(name)``, ``get_smoke_config(name)``.
 
-Only llama2-7b is registered so far; the other architectures of the JAX
-package arrive with the slices that port their layers (ROADMAP.md,
-queue 1, slice C).
+llama2-7b, mamba2-370m and recurrentgemma-9b are registered; the other
+architectures of the JAX package arrive with the slices that port their
+layers (ROADMAP.md, queue 1, slice C).
 """
 from __future__ import annotations
 
@@ -12,12 +12,13 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "llama2-7b": "repro_torch.configs.llama2_7b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 # the JAX package's other architectures, ported with their layers
-_LATER = ("internvl2-1b", "recurrentgemma-9b", "glm4-9b", "qwen1.5-32b",
-          "gemma-2b", "qwen3-14b", "mamba2-370m", "olmoe-1b-7b",
-          "dbrx-132b", "whisper-medium")
+_LATER = ("internvl2-1b", "glm4-9b", "qwen1.5-32b", "gemma-2b",
+          "qwen3-14b", "olmoe-1b-7b", "dbrx-132b", "whisper-medium")
 
 
 def _module(name: str):

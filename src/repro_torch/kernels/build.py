@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("swiglu", "paged_decode_attention", "flash_attention",
-           "decode_attention")
+           "decode_attention", "ssd", "rglru")
 # src/repro_torch/kernels/build.py -> <repo>/build/kernels
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]

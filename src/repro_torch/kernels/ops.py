@@ -14,6 +14,8 @@ from typing import Dict
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_decode_attention as _pdec
+from repro_torch.kernels import rglru as _rg
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import swiglu as _glu
 
 
@@ -81,8 +83,26 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                              softcap=softcap)
 
 
+def ssd(xh, log_a, Bm, Cm, chunk: int = 256):
+    """Chunked SSD scan: xh [B,T,H,P], log_a [B,T,H], Bm/Cm [B,T,N], all
+    f32 and contiguous → (y [B,T,H,P], final state [B,H,P,N]), f32."""
+    if xh.is_cuda:
+        ssd.launches += 1
+        return _ssd.ssd_cuda(xh, log_a, Bm, Cm, chunk)
+    return _ssd.ssd_ref(xh, log_a, Bm, Cm, chunk)
+
+
+def rglru(a, b):
+    """h_t = a_t * h_{t-1} + b_t from zero: a, b [B,T,W] f32 → h f32."""
+    if a.is_cuda:
+        rglru.launches += 1
+        return _rg.rglru_cuda(a, b)
+    return _rg.rglru_ref(a, b)
+
+
 KERNELS = (fused_glu, paged_decode_attention,
-           paged_decode_attention_quant, flash_attention, decode_attention)
+           paged_decode_attention_quant, flash_attention, decode_attention,
+           ssd, rglru)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -5,10 +5,12 @@
       [--max-prefill-tokens 64]
   python -m repro_torch.launch.serve --serial --mode masked --requests 2
 
-Boots the model (random weights from ``--seed``), builds the pruning
-policy — ``rl`` is the RAP controller (paper Algorithm 3) with a seeded,
-untrained Q-network; ``dense`` never prunes — and serves an Azure-like
-workload trace of (batch, prompt) requests. Two serving paths:
+Boots the model (``--arch``: llama2-7b, mamba2-370m or recurrentgemma-9b,
+``--smoke`` for its reduced config; random weights from ``--seed``),
+builds the pruning policy — ``rl`` is the RAP controller (paper
+Algorithm 3) with a seeded, untrained Q-network; ``dense`` never prunes —
+and serves an Azure-like workload trace of (batch, prompt) requests. Two
+serving paths:
 
   * default — continuous batching through ``RAPEngine``: one shared KV
     pool with admission control, every in-flight request decoding together
@@ -17,7 +19,11 @@ workload trace of (batch, prompt) requests. Two serving paths:
     a page pool and decodes through the paged decode kernel.
     ``--kv-dtype`` picks the KV precision (int8 slot caches are dequantized
     before the kernel; int8/fp8 pages decode through the fused-dequant
-    kernel) and ``--max-prefill-tokens`` turns on chunked prefill;
+    kernel) and ``--max-prefill-tokens`` turns on chunked prefill. The
+    recurrent architectures serve on ``--executor local`` at the model
+    dtype and prefill monolithically (their state has no positional
+    frontier to resume from); the paged executor and a quantized KV cache
+    refuse them;
   * ``--serial`` — the one-shot ``RAPServer`` replay: each request alone,
     against its own budget from the trace, executed whether it fits or not.
 

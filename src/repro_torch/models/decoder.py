@@ -1,28 +1,36 @@
-"""Decoder-only LM: the uniform all-attention paths.
+"""Decoder-only LM: every layout of the ported architectures.
 
 Parameters live in per-kind *stacks* (leading axis = number of layers of
-that kind), as in ``repro/models/decoder.py``; the layer loop is a Python
-loop where JAX used ``lax.scan``. RAP's masked mode multiplies each residual
-branch by a 0/1 gate: ``gates`` = {"mixer": [L] or [L, B], "ffn": ...}; the
-[L, B] form gives every batch row its own keep-mask (continuous batching,
-and the batched GSI scoring forward).
+that kind), as in ``repro/models/decoder.py``; ``default_layout`` maps each
+layer to its mixer (``attn``, ``local_attn``, ``rglru`` or ``ssd``; a local
+attention layer draws from the ``attn`` stack) and its FFN (``dense`` or
+none, indexed by ``ffn_idx``). The layer loop is one Python loop over the
+layout: it stands for JAX's uniform ``lax.scan``, its unrolled loop and its
+pattern-group scan (``_forward_pattern_groups``, a compile-size device with
+the same math). RAP's masked mode multiplies each residual branch by a 0/1
+gate: ``gates`` = {"mixer": [L] or [L, B], "ffn": ...}; the [L, B] form
+gives every batch row its own keep-mask (continuous batching, and the
+batched GSI scoring forward).
 
-Decode runs against a slot cache (:func:`init_cache`: one dense
-``[L, B, S_max, K, Dh]`` cache per attention leaf, model-dtype or int8 with
-per-(token, head) scales; :func:`decode_step`, :func:`decode_horizon`) or a
-page pool (:func:`paged_decode_step`, :func:`paged_decode_horizon`).
-
-Heterogeneous layouts (recurrent, SSD, MoE, local attention) are later
-slices (ROADMAP queue 1, items 11-13) and raise ``NotImplementedError``.
+Decode runs against a slot cache (:func:`init_cache`: per kind, a dense
+``[n, B, S_max, K, Dh]`` attention cache — model-dtype or int8 with
+per-(token, head) scales —, a ring buffer of ``min(window, S_max)`` tokens
+for local attention, and f32 recurrent / SSM state with its conv buffer;
+:func:`decode_step`, :func:`decode_horizon`) or, for uniform all-attention
+layouts only, a page pool (:func:`paged_decode_step`,
+:func:`paged_decode_horizon`) and chunked prefill. MoE, encoder-decoder and
+vision models are later slices (ROADMAP queue 1, items 11-14) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.models import attention, ffn as ffn_mod, layers
+from repro_torch.models import rglru as rglru_mod, ssm as ssm_mod
 
 
 class LayerSlot(NamedTuple):
@@ -60,19 +68,50 @@ def layout_counts(layout) -> Dict[str, int]:
     return counts
 
 
-def _check_uniform(cfg) -> None:
-    if not all(m == "attn" and f == "dense" for m, f in cfg.layer_specs()):
+def check_supported(cfg) -> None:
+    """Refuse what the port has not ported yet: MoE FFNs, encoder-decoder
+    and vision models, norms other than RMSNorm."""
+    ffns = {f for _, f in cfg.layer_specs()}
+    if (cfg.is_encoder_decoder or cfg.family == "vlm" or "moe" in ffns
+            or cfg.norm != "rmsnorm"):
         raise NotImplementedError(
-            f"{cfg.name!r} mixes {sorted(set(cfg.layer_specs()))}; only "
-            f"uniform attention + dense-FFN decoders are ported so far "
-            f"(other architectures: ROADMAP queue 1, items 11-13)")
+            f"{cfg.name!r} ({cfg.family}, norm {cfg.norm}, FFNs "
+            f"{sorted(ffns)}) is a later slice: MoE, encoder-decoder, vision "
+            f"and non-RMSNorm models are ROADMAP queue 1, items 11-14")
+
+
+def is_attn_layout(cfg) -> bool:
+    """Uniform all-attention layout: the only kind with a positional KV
+    write frontier, so the only one chunked prefill and page pools serve."""
+    layout = default_layout(cfg)
+    return bool(layout) and all(s.mixer == "attn" and s.ffn == layout[0].ffn
+                                for s in layout)
+
+
+def require_attn_layout(cfg, what: str) -> None:
+    """Raise unless ``what`` (a path that pages or chunks the KV cache) can
+    serve ``cfg``."""
+    check_supported(cfg)
+    if not is_attn_layout(cfg):
+        raise NotImplementedError(
+            f"{what} serves uniform all-attention layouts; {cfg.name!r} mixes "
+            f"{sorted({str(s.mixer) for s in default_layout(cfg)})} — "
+            f"heterogeneous models serve on slot caches (LocalExecutor: "
+            f"prefill, decode_step)")
 
 
 # --------------------------------------------------------------------- params
+_INIT = {"attn": attention.init_attn_params,
+         "rglru": rglru_mod.init_rglru_params,
+         "ssd": ssm_mod.init_ssd_params,
+         "dense": ffn_mod.init_ffn_params}
+
+
 def init_params(gen: torch.Generator, cfg, device) -> dict:
     """Random parameters drawn from ``gen`` on ``device``, in the JAX
-    package's pytree layout (see ``repro_torch.bridge``)."""
-    _check_uniform(cfg)
+    package's pytree layout (see ``repro_torch.bridge``): one stack per
+    kind of the layout, each with its pre-norm."""
+    check_supported(cfg)
     counts = layout_counts(default_layout(cfg))
     pd = cfg.torch_param_dtype()
     zeros = lambda *s: torch.zeros(*s, dtype=pd, device=device)
@@ -83,14 +122,11 @@ def init_params(gen: torch.Generator, cfg, device) -> dict:
         head = torch.empty(cfg.d_model, cfg.vocab_padded, dtype=pd,
                            device=device)
         params["lm_head"] = layers.dense_init_(head, gen)
-    params["stacks"] = {
-        "attn": dict(norm={"scale": zeros(counts["attn"], cfg.d_model)},
-                     **attention.init_attn_params(gen, cfg, counts["attn"],
-                                                  device)),
-        "dense": dict(norm={"scale": zeros(counts["dense"], cfg.d_model)},
-                      **ffn_mod.init_ffn_params(gen, cfg, counts["dense"],
-                                                device)),
-    }
+    params["stacks"] = {}
+    for kind in sorted(counts):
+        params["stacks"][kind] = dict(
+            norm={"scale": zeros(counts[kind], cfg.d_model)},
+            **_INIT[kind](gen, cfg, counts[kind], device))
     return params
 
 
@@ -131,28 +167,61 @@ def _bgate(g, ref):
     return g.reshape(g.shape + (1,) * (ref.ndim - g.ndim))
 
 
-def _block(params, cfg, i, h, gates, mixer_out):
-    """Residual updates of layer ``i`` around its mixer output."""
+def _mixer_params(params, slot: LayerSlot) -> dict:
+    mk = "attn" if slot.mixer == "local_attn" else slot.mixer
+    return tree_slice(params["stacks"][mk], slot.mixer_idx)
+
+
+def _window(cfg, slot: LayerSlot) -> int:
+    return cfg.attn_window if slot.mixer == "local_attn" else 0
+
+
+def _block(params, cfg, slot: LayerSlot, i: int, h, gates, mixer_out):
+    """Residual updates of layer ``i`` around its mixer output: the gated
+    mixer branch, then the gated FFN branch (none in mamba2)."""
     h = h + _bgate(gates["mixer"][i], h) * mixer_out
-    pf = tree_slice(params["stacks"]["dense"], i)
+    if slot.ffn is None:
+        return h
+    pf = tree_slice(params["stacks"][slot.ffn], slot.ffn_idx)
     hn = layers.apply_norm(cfg, pf["norm"], h)
     return h + _bgate(gates["ffn"][i], h) * ffn_mod.ffn(pf, cfg, hn)
+
+
+def _cache_indices(layout) -> List[int]:
+    """Per-layer index into its mixer kind's cache stack (``local_attn``
+    counts apart from ``attn``: it has its own cache)."""
+    counters: Dict[str, int] = {}
+    idx = []
+    for s in layout:
+        if s.mixer is None:
+            idx.append(-1)
+            continue
+        i = counters.get(s.mixer, 0)
+        counters[s.mixer] = i + 1
+        idx.append(i)
+    return idx
 
 
 # -------------------------------------------------------------------- forward
 def forward(params, cfg, tokens, *, gates=None, unembed: bool = True):
     """Full-sequence forward. Returns (logits f32 [B,S,Vp], None);
     ``unembed=False`` returns the pre-final-norm hidden state instead."""
-    _check_uniform(cfg)
-    L = cfg.n_layers
-    gates = gates or _ones_gates(L, tokens.device)
+    check_supported(cfg)
+    layout = default_layout(cfg)
+    gates = gates or _ones_gates(len(layout), tokens.device)
     h = _embed(params, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    for i in range(L):
-        pm = tree_slice(params["stacks"]["attn"], i)
-        out, _ = attention.attention(pm, cfg, layers.apply_norm(
-            cfg, pm["norm"], h), positions)
-        h = _block(params, cfg, i, h, gates, out)
+    for i, slot in enumerate(layout):
+        pm = _mixer_params(params, slot)
+        hn = layers.apply_norm(cfg, pm["norm"], h)
+        if slot.mixer == "rglru":
+            out = rglru_mod.rglru_mixer(pm, cfg, hn)
+        elif slot.mixer == "ssd":
+            out = ssm_mod.ssd_mixer(pm, cfg, hn)
+        else:
+            out, _ = attention.attention(pm, cfg, hn, positions,
+                                         window=_window(cfg, slot))
+        h = _block(params, cfg, slot, i, h, gates, out)
     if not unembed:
         return h, None
     return _unembed(params, cfg, h), None
@@ -161,36 +230,86 @@ def forward(params, cfg, tokens, *, gates=None, unembed: bool = True):
 # ---------------------------------------------------------------------- cache
 def init_cache(cfg, batch: int, max_len: int, kv_dtype=None,
                device=None) -> dict:
-    """Zeroed decode state of a uniform attention decoder: {"pos": 0,
-    "attn": {"k","v"} [L, batch, max_len, K, Dh]} in ``kv_dtype`` (default
-    the model dtype; ``torch.int8`` adds per-(token, head) scales)."""
-    _check_uniform(cfg)
-    return {"pos": 0,
-            "attn": attention.init_kv_cache(cfg, batch, max_len,
-                                            cfg.n_layers, kv_dtype, device)}
+    """Zeroed decode state for every stateful kind of the layout, plus
+    ``"pos": 0``: ``"attn"`` {"k","v"} [n, batch, max_len, K, Dh] in
+    ``kv_dtype`` (default the model dtype; ``torch.int8`` adds per-(token,
+    head) scales), ``"local_attn"`` the same with ``min(attn_window,
+    max_len)`` ring slots, ``"rglru"`` / ``"ssd"`` their f32 state and
+    conv buffers."""
+    check_supported(cfg)
+    n: Dict[str, int] = {}
+    for s in default_layout(cfg):
+        n[s.mixer] = n.get(s.mixer, 0) + 1
+    cache: dict = {"pos": 0}
+    if n.get("attn"):
+        cache["attn"] = attention.init_kv_cache(cfg, batch, max_len,
+                                                n["attn"], kv_dtype, device)
+    if n.get("local_attn"):
+        cache["local_attn"] = attention.init_kv_cache(
+            cfg, batch, min(cfg.attn_window, max_len), n["local_attn"],
+            kv_dtype, device)
+    if n.get("rglru"):
+        cache["rglru"] = rglru_mod.init_rglru_cache(cfg, batch, n["rglru"],
+                                                    device)
+    if n.get("ssd"):
+        cache["ssd"] = ssm_mod.init_ssd_cache(cfg, batch, n["ssd"], device)
+    return cache
+
+
+def _store_window(entry: dict, ci: int, k, v) -> None:
+    """Write a prompt's K/V into layer ``ci`` of a ring buffer of ``w``
+    slots: the last ``w`` positions, rolled by ``(S - w) % w`` so that
+    position p sits in slot ``p % w``; a prompt shorter than the ring fills
+    its first S slots (the rest stay zero)."""
+    S, w = k.shape[1], entry["k"].shape[2]
+    if S >= w:
+        roll = (S - w) % w
+        k = torch.roll(k[:, S - w:], roll, dims=1)
+        v = torch.roll(v[:, S - w:], roll, dims=1)
+    for key, val in attention.store_kv(entry, k, v).items():
+        entry[key][ci, :, :val.shape[1]] = val
 
 
 def prefill(params, cfg, tokens, max_len: int, *, gates=None,
             kv_dtype=None) -> Tuple[torch.Tensor, dict]:
     """Process the prompt; return (last-position logits [B,Vp], cache) with
     cache :func:`init_cache` ``(B, max_len, kv_dtype)`` holding the
-    prompt's K/V in positions [0, S) (encoded by ``store_kv``), zeros
-    after, and ``"pos"`` = S."""
-    _check_uniform(cfg)
+    prompt's K/V in positions [0, S) (encoded by ``store_kv``; a local
+    attention ring holds the last ``w``), every recurrent layer's final
+    state and its last K-1 pre-conv inputs (zero-padded on the left for a
+    prompt shorter than K-1), and ``"pos"`` = S. Each recurrent state comes
+    from the same scan call that computes the layer's output."""
+    check_supported(cfg)
+    layout = default_layout(cfg)
     B, S = tokens.shape
-    L = cfg.n_layers
-    gates = gates or _ones_gates(L, tokens.device)
+    gates = gates or _ones_gates(len(layout), tokens.device)
     h = _embed(params, cfg, tokens)
     positions = torch.arange(S, device=h.device)[None, :]
     cache = init_cache(cfg, B, max_len, kv_dtype or h.dtype, h.device)
-    for i in range(L):
-        pm = tree_slice(params["stacks"]["attn"], i)
-        out, kv = attention.attention(pm, cfg, layers.apply_norm(
-            cfg, pm["norm"], h), positions)
-        for key, val in attention.store_kv(cache["attn"], kv["k"],
-                                           kv["v"]).items():
-            cache["attn"][key][i, :, :S] = val
-        h = _block(params, cfg, i, h, gates, out)
+    cidx = _cache_indices(layout)
+    for i, slot in enumerate(layout):
+        pm = _mixer_params(params, slot)
+        hn = layers.apply_norm(cfg, pm["norm"], h)
+        ci = cidx[i]
+        if slot.mixer == "rglru":
+            out, hs, conv = rglru_mod.rglru_sequence(pm, cfg, hn)
+            cache["rglru"]["h"][ci] = hs
+            cache["rglru"]["conv"][ci] = conv
+        elif slot.mixer == "ssd":
+            out, state, conv = ssm_mod.ssd_sequence(pm, cfg, hn)
+            cache["ssd"]["state"][ci] = state
+            cache["ssd"]["conv"][ci] = conv
+        else:
+            out, kv = attention.attention(pm, cfg, hn, positions,
+                                          window=_window(cfg, slot))
+            entry = cache[slot.mixer]
+            if slot.mixer == "local_attn":
+                _store_window(entry, ci, kv["k"], kv["v"])
+            else:
+                for key, val in attention.store_kv(entry, kv["k"],
+                                                   kv["v"]).items():
+                    entry[key][ci, :, :S] = val
+        h = _block(params, cfg, slot, i, h, gates, out)
     cache["pos"] = S
     logits = _unembed(params, cfg, h[:, -1:, :])[:, 0]
     return logits, cache
@@ -207,16 +326,16 @@ def prefill_chunk(params, cfg, cache: dict, tokens, start: int, *,
     Running a prompt chunk by chunk and reading the last chunk's logits
     gives :func:`prefill`'s logits. Returns last-position logits [B, Vp]
     and sets ``cache["pos"]``."""
-    _check_uniform(cfg)
-    L = cfg.n_layers
-    gates = gates or _ones_gates(L, tokens.device)
+    require_attn_layout(cfg, "chunked prefill")
+    layout = default_layout(cfg)
+    gates = gates or _ones_gates(len(layout), tokens.device)
     h = _embed(params, cfg, tokens)
-    for i in range(L):
-        pm = tree_slice(params["stacks"]["attn"], i)
-        kv = {name: leaf[i] for name, leaf in cache["attn"].items()}
+    for i, slot in enumerate(layout):
+        pm = _mixer_params(params, slot)
         out = attention.chunk_attention(
-            pm, cfg, layers.apply_norm(cfg, pm["norm"], h), kv, start)
-        h = _block(params, cfg, i, h, gates, out)
+            pm, cfg, layers.apply_norm(cfg, pm["norm"], h),
+            _pool_layer(cache["attn"], i), start)
+        h = _block(params, cfg, slot, i, h, gates, out)
     cache["pos"] = start + tokens.shape[1]
     return _unembed(params, cfg, h[:, -1:, :])[:, 0]
 
@@ -231,17 +350,17 @@ def paged_prefill_chunk(params, cfg, pools: dict, page_table, tokens,
     {"ks","vs"} [L, n_pages, K]), updated in place; page_table: int32
     [B, max_pages]; tokens: [B, C] at absolute offset ``start``. Returns
     last-position logits [B, Vp]."""
-    _check_uniform(cfg)
-    L = cfg.n_layers
-    gates = gates or _ones_gates(L, tokens.device)
+    require_attn_layout(cfg, "paged prefill")
+    layout = default_layout(cfg)
+    gates = gates or _ones_gates(len(layout), tokens.device)
     h = _embed(params, cfg, tokens)
-    for i in range(L):
-        pm = tree_slice(params["stacks"]["attn"], i)
+    for i, slot in enumerate(layout):
+        pm = _mixer_params(params, slot)
         out = attention.paged_chunk_attention(
             pm, cfg, layers.apply_norm(cfg, pm["norm"], h),
             _pool_layer(pools, i), page_table, start,
             scratch_page=scratch_page)
-        h = _block(params, cfg, i, h, gates, out)
+        h = _block(params, cfg, slot, i, h, gates, out)
     return _unembed(params, cfg, h[:, -1:, :])[:, 0]
 
 
@@ -258,19 +377,34 @@ def decode_step(params, cfg, cache: dict, tokens, *,
 
     ``cache["pos"]`` is a scalar (the one-shot path: the whole batch at one
     position) or an int32 [B] tensor (continuous batching: each slot at its
-    own offset); gates may be [L] or [L, B]. tokens: [B, 1]. Returns
-    (logits [B, 1, Vp], cache) with ``cache["pos"]`` advanced by one."""
-    _check_uniform(cfg)
-    L = cfg.n_layers
-    gates = gates or _ones_gates(L, tokens.device)
+    own offset); gates may be [L] or [L, B]. tokens: [B, 1]. Attention
+    layers write their token into the cache (a local attention layer into
+    its ring buffer) and run the dense decode kernel; recurrent layers
+    advance their state and conv buffer. Returns (logits [B, 1, Vp],
+    cache) with ``cache["pos"]`` advanced by one."""
+    check_supported(cfg)
+    layout = default_layout(cfg)
+    gates = gates or _ones_gates(len(layout), tokens.device)
     pos = cache["pos"]
     h = _embed(params, cfg, tokens)
-    for i in range(L):
-        pm = tree_slice(params["stacks"]["attn"], i)
-        out = attention.decode_attention(
-            pm, cfg, layers.apply_norm(cfg, pm["norm"], h),
-            _pool_layer(cache["attn"], i), pos)
-        h = _block(params, cfg, i, h, gates, out)
+    cidx = _cache_indices(layout)
+    for i, slot in enumerate(layout):
+        pm = _mixer_params(params, slot)
+        hn = layers.apply_norm(cfg, pm["norm"], h)
+        ci = cidx[i]
+        if slot.mixer == "rglru":
+            st = cache["rglru"]
+            out, st["h"][ci], st["conv"][ci] = rglru_mod.rglru_decode_step(
+                pm, cfg, hn, st["h"][ci], st["conv"][ci])
+        elif slot.mixer == "ssd":
+            st = cache["ssd"]
+            out, st["state"][ci], st["conv"][ci] = ssm_mod.ssd_decode_step(
+                pm, cfg, hn, st["state"][ci], st["conv"][ci])
+        else:
+            out = attention.decode_attention(
+                pm, cfg, hn, _pool_layer(cache[slot.mixer], ci), pos,
+                window=_window(cfg, slot))
+        h = _block(params, cfg, slot, i, h, gates, out)
     cache["pos"] = pos + 1
     return _unembed(params, cfg, h), cache
 
@@ -304,17 +438,16 @@ def paged_decode_step(params, cfg, pools: dict, page_table, pos, tokens, *,
     int32 [B] per-row write positions; tokens: [B, 1]. Gates may be [L] or
     [L, B]. Returns logits [B, 1, Vp].
     """
-    _check_uniform(cfg)
-    L = cfg.n_layers
-    gates = gates or _ones_gates(L, tokens.device)
+    require_attn_layout(cfg, "paged decode")
+    layout = default_layout(cfg)
+    gates = gates or _ones_gates(len(layout), tokens.device)
     h = _embed(params, cfg, tokens)
-    for i in range(L):
-        pm = tree_slice(params["stacks"]["attn"], i)
-        kv = _pool_layer(pools, i)
+    for i, slot in enumerate(layout):
+        pm = _mixer_params(params, slot)
         out = attention.paged_decode_attention(
-            pm, cfg, layers.apply_norm(cfg, pm["norm"], h), kv, page_table,
-            pos)
-        h = _block(params, cfg, i, h, gates, out)
+            pm, cfg, layers.apply_norm(cfg, pm["norm"], h),
+            _pool_layer(pools, i), page_table, pos)
+        h = _block(params, cfg, slot, i, h, gates, out)
     return _unembed(params, cfg, h)
 
 

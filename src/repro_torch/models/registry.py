@@ -1,4 +1,5 @@
-"""Uniform model API (the decoder-only LM builder of the JAX registry).
+"""Uniform model API (the decoder-only LM builder of the JAX registry):
+the dense, ``ssm`` (mamba2) and ``hybrid`` (recurrentgemma) families.
 
 ``build(cfg)`` returns a ``Model`` with:
   init(seed, device)                 → params
@@ -50,9 +51,7 @@ def cross_entropy(logits, labels, vocab_size: int, mask=None):
 
 
 def _lm_build(cfg) -> Model:
-    if cfg.is_encoder_decoder or cfg.family == "vlm":
-        raise NotImplementedError(
-            "encoder-decoder and vision stubs are ROADMAP queue 1, items 11-14")
+    decoder.check_supported(cfg)
 
     def init(seed: int = 0, device="cuda"):
         gen = torch.Generator(device=device).manual_seed(int(seed))

@@ -1,0 +1,137 @@
+"""Griffin RG-LRU recurrent block [arXiv:2402.19427] (RecurrentGemma).
+
+The port of ``repro/models/rglru.py``.
+
+Block:  y = W_out( GeLU(W_gate x) ⊙ RG-LRU( conv1d_4(W_x x) ) )
+RG-LRU: r_t = σ(W_a u_t + b_a);  i_t = σ(W_i u_t + b_i)
+        log a_t = -c · softplus(Λ) · r_t            (c = 8)
+        h_t = a_t · h_{t-1} + sqrt(1 - a_t²) · (i_t ⊙ u_t)
+
+W_a / W_i are block-diagonal (n_blocks = n_heads). The sequence pass runs
+the recurrence through ``kernels.ops.rglru`` (the CUDA kernel on the card;
+its plain sequential loop, the counterpart of JAX's ``blocked_scan``, on
+the CPU). JAX wraps the projections in ``parallel.activation.width``, a
+sharding hint that is the identity on one device; the port leaves it out.
+The decode state (``init_rglru_cache``) is f32 whatever the model dtype.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers
+
+_C = 8.0
+_CONV_W = 4
+
+
+def _n_blocks(cfg) -> int:
+    nb = max(cfg.n_heads, 1)
+    w = cfg.rnn_width or cfg.d_model
+    while w % nb != 0:
+        nb //= 2
+    return max(nb, 1)
+
+
+def init_rglru_params(gen, cfg, n: int, device) -> dict:
+    """Stacked params of ``n`` RG-LRU blocks."""
+    pd = cfg.torch_param_dtype()
+    D = cfg.d_model
+    W = cfg.rnn_width or cfg.d_model
+    nb = _n_blocks(cfg)
+    bw = W // nb
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def dense(d_in, d_out, scale=1.0):
+        w = torch.empty(n, d_in, d_out, dtype=pd, device=device)
+        for i in range(n):
+            layers.dense_init_(w[i], gen, scale=scale)
+        return w
+
+    def blk():
+        w = torch.empty(n, nb, bw, bw, **f32).normal_(generator=gen)
+        return (w / math.sqrt(bw)).to(pd)
+
+    zeros = lambda: torch.zeros(n, W, dtype=pd, device=device)
+    conv_w = torch.empty(n, _CONV_W, W, **f32).normal_(generator=gen)
+    # Λ init so that a^c ∈ (0.9, 0.999) roughly (the paper's stable range)
+    lam = torch.empty(n, W, **f32).uniform_(0.9 ** 2, 0.999 ** 2,
+                                            generator=gen)
+    return {
+        "wx": dense(D, W), "w_gate": dense(D, W),
+        "conv_w": (conv_w / math.sqrt(_CONV_W)).to(pd), "conv_b": zeros(),
+        "wa": blk(), "ba": zeros(), "wi": blk(), "bi": zeros(),
+        "lam": torch.log(torch.expm1(-torch.log(lam) / _C)),
+        "wo": dense(W, D, scale=1.0 / math.sqrt(2 * max(cfg.n_layers, 1))),
+    }
+
+
+def _block_diag_proj(u, w, b):
+    """u: [..., W]; w: [nb, bw, bw] → [..., W]."""
+    nb, bw, _ = w.shape
+    ub = u.reshape(*u.shape[:-1], nb, bw)
+    out = torch.einsum("...nb,nbc->...nc", ub, w.to(u.dtype))
+    return out.reshape(u.shape) + b.to(u.dtype)
+
+
+def _gates(params, u):
+    """(a, b) of the recurrence from the conv output u, both f32."""
+    r = torch.sigmoid(_block_diag_proj(u, params["wa"], params["ba"]).float())
+    i = torch.sigmoid(_block_diag_proj(u, params["wi"], params["bi"]).float())
+    log_a = -_C * F.softplus(params["lam"]) * r
+    # sqrt(1 - a^2), computed stably through expm1
+    b_scale = torch.sqrt(-torch.expm1(2.0 * log_a))
+    return torch.exp(log_a), b_scale * (i * u.float())
+
+
+def rglru_sequence(params, cfg, x):
+    """Full-sequence Griffin block. x: [B,T,D] → (out [B,T,D], final h
+    [B,W] f32, conv buffer [B,3,W] f32: the last 3 pre-conv inputs,
+    zero-padded on the left when T < 3, as the causal conv's own padding
+    is)."""
+    u = torch.matmul(x, params["wx"].to(x.dtype))
+    g = torch.matmul(x, params["w_gate"].to(x.dtype))
+    K = params["conv_w"].shape[0]
+    up = F.pad(u, (0, 0, K - 1, 0))
+    conv_buf = up[:, -(K - 1):].float()
+    w = params["conv_w"].to(u.dtype)
+    uc = sum(up[:, i:i + u.shape[1], :] * w[i][None, None]
+             for i in range(K)) + params["conv_b"].to(u.dtype)
+    a, b = _gates(params, uc)                               # [B,T,W] f32
+    h = kops.rglru(a.contiguous(), b.contiguous())
+    y = h.to(x.dtype) * layers.gelu(g)
+    return (torch.matmul(y, params["wo"].to(x.dtype)), h[:, -1],
+            conv_buf)
+
+
+def rglru_mixer(params, cfg, x):
+    """Full-sequence Griffin block. x: [B,T,D] → [B,T,D]."""
+    return rglru_sequence(params, cfg, x)[0]
+
+
+def init_rglru_cache(cfg, batch: int, n_layers: int, device=None) -> dict:
+    """Zeroed f32 decode state of ``n_layers`` RG-LRU blocks: {"h"
+    [n, B, W], "conv" [n, B, 3, W]}."""
+    W = cfg.rnn_width or cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"h": torch.zeros(n_layers, batch, W, **f32),
+            "conv": torch.zeros(n_layers, batch, _CONV_W - 1, W, **f32)}
+
+
+def rglru_decode_step(params, cfg, x, h_prev, conv_buf):
+    """One token. x: [B,1,D]; h_prev: [B,W]; conv_buf: [B,3,W].
+
+    Returns (y [B,1,D], h, conv_buf) — new tensors; the caller stores
+    them."""
+    u = torch.matmul(x, params["wx"].to(x.dtype))
+    g = torch.matmul(x, params["w_gate"].to(x.dtype))
+    full = torch.cat([conv_buf.to(u.dtype), u], dim=1)       # [B,4,W]
+    u_t = torch.einsum("bkw,kw->bw", full, params["conv_w"].to(u.dtype)) \
+        + params["conv_b"].to(u.dtype)
+    a, b = _gates(params, u_t)                                # [B,W]
+    h = a * h_prev + b
+    y = (h.to(x.dtype) * layers.gelu(g[:, 0]))[:, None, :]
+    return (torch.matmul(y, params["wo"].to(x.dtype)), h, full[:, 1:])

@@ -5,17 +5,22 @@ The engine decides *who* runs (scheduler) and *what shape* they run in
 execute. Two backends, both in masked mode:
 
   * :class:`LocalExecutor` — slot-batched caches. A :class:`SlotGroup`
-    holds one dense ``[L, n_slots, cache_len, K, Dh]`` cache per K/V leaf
-    (model dtype, or int8 with per-(token, head) scales); groups are keyed
-    by cache length, so ``len_buckets="pow2"`` mints one group per
+    holds the decoder's cache (``decoder.init_cache``) with ``n_slots``
+    rows: per kind of the layout, one dense ``[n, n_slots, cache_len, K,
+    Dh]`` attention cache per K/V leaf (model dtype, or int8 with
+    per-(token, head) scales), a local attention ring buffer, or f32
+    recurrent / SSM state; every leaf has the slot axis at 1. Groups are
+    keyed by cache length, so ``len_buckets="pow2"`` mints one group per
     power-of-two length. Decode steps the occupied slots in the smallest
     batch bucket of ``decode_buckets`` that holds them (gathered from and
     scattered back into the resident cache on the device), through the
-    dense decode kernel.
-  * :class:`PagedExecutor` — physically paged KV execution. Requests own
-    *pages* of a global KV pool (``repro_torch.runtime.kv_pool.KVPool``
-    holds the page tensors on the device), prefill writes KV straight into
-    granted pages, and one decode horizon advances any mix of cache lengths
+    dense decode kernel. It serves every ported layout: uniform attention
+    (llama2), SSD (mamba2) and the Griffin pattern (recurrentgemma).
+  * :class:`PagedExecutor` — physically paged KV execution, uniform
+    all-attention layouts only. Requests own *pages* of a global KV pool
+    (``repro_torch.runtime.kv_pool.KVPool`` holds the page tensors on the
+    device), prefill writes KV straight into granted pages, and one decode
+    horizon advances any mix of cache lengths
     through a per-request page table and the paged decode kernel.
 
 Decode state is device-resident: a group keeps its cache (or page-table
@@ -140,6 +145,12 @@ def _bucket_batch(occ: List[int], free: List[int], n_slots: int,
 _IIDX_CACHE_CAP = 256     # occupancy patterns a group keeps index tensors for
 
 
+def _state_leaves(cache: dict) -> dict:
+    """The cache's state kinds ({kind: {leaf: tensor}}, without ``"pos"``);
+    every leaf has the slot axis at 1."""
+    return {kind: leaves for kind, leaves in cache.items() if kind != "pos"}
+
+
 def _cached_iidx(cache: Dict[Tuple[int, ...], torch.Tensor], idx: List[int],
                  device) -> torch.Tensor:
     """Device copy of a slot-index vector, cached by its pattern, so a
@@ -214,10 +225,12 @@ class SlotGroup:
     """One slot-batched decode family sharing a dense cache: the full
     params with per-slot gates (masked mode), minted per cache length.
 
-    All decode state — the cache (``cache["attn"]`` leaves
-    ``[L, n_slots, cache_len, K, Dh]``, ``cache["pos"]`` int32
-    ``[n_slots]``), the per-slot seed tokens ``[n_slots, 1]`` and the
-    ``[2, L, n_slots]`` gates — lives on the device. Placement writes only
+    All decode state — the cache (every leaf of every kind with the slot
+    axis at 1, e.g. ``cache["attn"]["k"] [L_attn, n_slots, cache_len, K,
+    Dh]`` or ``cache["ssd"]["state"] [L_ssd, n_slots, H, P, N]``;
+    ``cache["pos"]`` int32 ``[n_slots]``), the per-slot seed tokens
+    ``[n_slots, 1]`` and the ``[2, L, n_slots]`` gates — lives on the
+    device. Placement writes only
     the placed slots' rows and gate columns; a horizon reads the resident
     tensors directly, so the per-token path uploads nothing. ``pos`` is a
     host mirror of the positions for the engine's bookkeeping."""
@@ -256,19 +269,21 @@ class SlotGroup:
     def iidx(self, idx: List[int]) -> torch.Tensor:
         return _cached_iidx(self._iidx_cache, idx, self.device)
 
-    def place(self, rid: str, slots: List[int], req_attn: dict,
+    def place(self, rid: str, slots: List[int], req_cache: dict,
               cols: np.ndarray, prompt_len: int,
               first_dev: torch.Tensor) -> None:
-        """Seat a prefilled request: its cache rows ``req_attn`` (leaves
-        ``[L, len(slots), cache_len, ...]``), positions, seed tokens and
-        gate columns ``cols [2, L]``, written in place at ``slots``."""
+        """Seat a prefilled request: its cache rows ``req_cache`` (a
+        request-sized ``decoder.init_cache``: every leaf with
+        ``len(slots)`` rows at axis 1), positions, seed tokens and gate
+        columns ``cols [2, L]``, written in place at ``slots``."""
         self.reserved.difference_update(slots)
         for s in slots:
             self.occupants[s] = rid
             self.pos[s] = prompt_len
         sidx = self.iidx(slots)
-        for key, leaf in self.cache["attn"].items():
-            leaf[:, sidx] = req_attn[key]
+        for kind, leaves in _state_leaves(self.cache).items():
+            for key, leaf in leaves.items():
+                leaf[:, sidx] = req_cache[kind][key]
         self.cache["pos"][sidx] = int(prompt_len)
         self.tokens[sidx, 0] = first_dev
         self.gates_dev[:, :, sidx] = torch.from_numpy(cols).to(
@@ -297,14 +312,16 @@ class SlotGroup:
             self.tokens = toks[:, -1:].contiguous()
             return toks, None
         iidx = self.iidx(idx)
-        sub = {"attn": {k: v[:, iidx] for k, v in self.cache["attn"].items()},
-               "pos": self.cache["pos"][iidx]}
+        sub = {kind: {k: v[:, iidx] for k, v in leaves.items()}
+               for kind, leaves in _state_leaves(self.cache).items()}
+        sub["pos"] = self.cache["pos"][iidx]
         gs = g[:, :, iidx]
         toks, sub = decoder.decode_horizon(
             self.params, self._mcfg, sub, self.tokens[iidx], horizon,
             gates={"mixer": gs[0], "ffn": gs[1]})
-        for k, v in sub["attn"].items():
-            self.cache["attn"][k][:, iidx] = v
+        for kind, leaves in _state_leaves(sub).items():
+            for k, v in leaves.items():
+                self.cache[kind][k][:, iidx] = v
         self.cache["pos"][iidx] = sub["pos"]
         self.tokens[iidx] = toks[:, -1:]
         return toks, idx
@@ -330,8 +347,13 @@ class LocalExecutor(ModelExecutor):
                 "queue 1, item 8")
         if mode != "masked":
             raise ValueError(f"unknown mode {mode!r}")
-        decoder._check_uniform(model.cfg)
-        _, store, _, _ = resolve_kv_dtype(kv_dtype)
+        decoder.check_supported(model.cfg)
+        _, store, quantized, _ = resolve_kv_dtype(kv_dtype)
+        if quantized and not decoder.is_attn_layout(model.cfg):
+            raise NotImplementedError(
+                f"a quantized KV cache on {model.cfg.name!r}'s recurrent / "
+                f"local-attention layout is ROADMAP queue 1, item 13; serve "
+                f"it at the model dtype")
         if store == torch.float8_e4m3fn:
             raise NotImplementedError(
                 "an fp8 slot cache is ROADMAP queue 1, item 11; fp8 KV is "
@@ -390,13 +412,15 @@ class LocalExecutor(ModelExecutor):
         first_dev = torch.argmax(logits, dim=-1).to(torch.int32)
         first = first_dev.cpu().numpy()
         self.launch_s += time.perf_counter() - t0
-        group.place(rid, slots, cache["attn"], cols, S, first_dev)
+        group.place(rid, slots, _state_leaves(cache), cols, S, first_dev)
         return first
 
     # ----------------------------------------------------- chunked prefill
     def supports_chunked_prefill(self, group: SlotGroup) -> bool:
-        # the constructor pins uniform all-attention models
-        return True
+        """Chunked prefill resumes a positional KV write frontier: only
+        uniform all-attention layouts have one (recurrent state cannot be
+        re-entered mid-prompt), so other layouts prefill monolithically."""
+        return decoder.is_attn_layout(self.mcfg)
 
     def prefill_begin(self, group: SlotGroup, slots: List[int], rid: str,
                       prompt: np.ndarray, mask: np.ndarray, *,
@@ -433,8 +457,8 @@ class LocalExecutor(ModelExecutor):
         first_dev = torch.argmax(logits, dim=-1).to(torch.int32)
         first = first_dev.cpu().numpy()
         self.launch_s += time.perf_counter() - t0
-        task.group.place(task.rid, task.slots, task.state["attn"], task.cols,
-                         S, first_dev)
+        task.group.place(task.rid, task.slots, _state_leaves(task.state),
+                         task.cols, S, first_dev)
         task.state = None
         return first
 
@@ -472,9 +496,13 @@ class LocalExecutor(ModelExecutor):
         """Slot caches are dense: physical bytes exist for every minted
         group, and an occupied slot uses only its current position's tokens
         (a slot that over-advanced in its final horizon dropped the writes
-        past ``cache_len``)."""
+        past ``cache_len``). Only global attention KV (the per-token state)
+        counts: window rings and recurrent state are fixed-size, as in
+        JAX."""
         used = phys = 0.0
         for g in self._groups.values():
+            if "attn" not in g.cache:
+                continue
             nbytes = sum(t.numel() * t.element_size()
                          for t in g.cache["attn"].values())
             phys += nbytes
@@ -619,7 +647,7 @@ class PagedExecutor(ModelExecutor):
         if mode != "masked":
             raise ValueError(f"unknown mode {mode!r}")
         name, store, quantized, _ = resolve_kv_dtype(kv_dtype)
-        decoder._check_uniform(model.cfg)
+        decoder.require_attn_layout(model.cfg, "PagedExecutor")
         self.model = model
         self.mcfg = model.cfg
         self.params = params

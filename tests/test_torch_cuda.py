@@ -15,7 +15,11 @@ model-dtype kernel run on ``page_dequant``-ed pages, with f32 q, and the
 dense decode kernel bitwise against the paged kernel on pages holding the
 same tokens in order (f32 q, prefix mask). The case lists are shared with
 ``tests/test_torch_kernels.py`` and ``tests/test_torch_quant.py``, which
-hold the plain versions against the JAX kernels on the CPU.
+hold the plain versions against the JAX kernels on the CPU. The scan
+kernels (``ssd`` at 3e-4, ``rglru`` at 2e-5, both f32: the tolerances of
+``tests/test_torch_recurrent.py``) take that file's shapes plus mamba2's
+and recurrentgemma's widths. Small recurrent models are held card against
+CPU by ``chip_smoke.py``'s reference phase.
 """
 import numpy as np
 import pytest
@@ -25,7 +29,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode_attention as pdec
-from repro_torch.kernels import swiglu
+from repro_torch.kernels import rglru, ssd, swiglu
 from repro_torch.models import attention, decoder, registry
 
 torch.set_num_threads(1)
@@ -86,6 +90,28 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, H, K, D, window,
                                               cap, dtype, tol):
     q, k, v = (torch.from_numpy(a).to(cuda, dtype)
                for a in _qkv(7, B, Sq, H, K, D))
+    got = fa.flash_attention_cuda(q, k, v, window=window, softcap=cap)
+    want = fa.attention_ref(q, k, v, window=window, softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# recurrentgemma's local attention: 16 query heads on one kv head of 256
+GRIFFIN_FLASH_CASES = [
+    # B, Sq, H, K, D, window, softcap
+    (1, 70, 16, 1, 256, 0, 0.0),    # causal, shorter than the window
+    (1, 100, 16, 1, 256, 32, 0.0),  # banded: S > window
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,Sq,H,K,D,window,cap", GRIFFIN_FLASH_CASES)
+def test_flash_attention_kernel_matches_plain_griffin(cuda, B, Sq, H, K, D,
+                                                      window, cap, dtype,
+                                                      tol):
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _qkv(8, B, Sq, H, K, D))
     got = fa.flash_attention_cuda(q, k, v, window=window, softcap=cap)
     want = fa.attention_ref(q, k, v, window=window, softcap=cap)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
@@ -258,6 +284,7 @@ DECODE_CASES = [
     (2, 8, 2, 32, 100, 0.0, "rows"),   # G = 4, S not a multiple of 64
     (2, 8, 2, 16, 70, 30.0, "rows"),   # softcap
     (2, 4, 2, 32, 96, 0.0, "ring"),    # non-prefix mask
+    (2, 16, 1, 256, 80, 0.0, "ring"),  # recurrentgemma: G = 16, D = 256
 ]
 
 
@@ -377,3 +404,64 @@ def test_slot_group_bucketed_horizon_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert idx == [0, 2] and toks.shape == (2, 4)
+
+
+# ----------------------------------------------------------- the scans
+SSD_CASES = [
+    # B, T, H, P, N, chunk
+    (1, 64, 2, 16, 16, 16), (2, 100, 4, 32, 64, 32),   # ragged T
+    (1, 48, 3, 16, 32, 16), (2, 300, 4, 64, 128, 256),  # mamba2's head
+    (3, 64, 2, 64, 128, 256),                           # T < chunk
+]
+
+
+def _ssd_inputs(seed, B, T, H, P, N):
+    rng = np.random.default_rng(seed)
+    r = lambda *s, scale: (rng.standard_normal(s) * scale).astype(np.float32)
+    return (r(B, T, H, P, scale=0.5), -np.abs(r(B, T, H, scale=0.1)),
+            r(B, T, N, scale=0.3), r(B, T, N, scale=0.3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,N,Q", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, B, T, H, P, N, Q):
+    args = [torch.from_numpy(a).to(cuda) for a in
+            _ssd_inputs(B * 10 + T, B, T, H, P, N)]
+    y, fin = ssd.ssd_cuda(*args, Q)
+    y_ref, fin_ref = ssd.ssd_ref(*args, Q)
+    torch.testing.assert_close(y, y_ref, atol=3e-4, rtol=3e-4)
+    torch.testing.assert_close(fin, fin_ref, atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,W", [(2, 64, 128), (1, 100, 64), (3, 33, 96),
+                                   (2, 257, 4096)])
+def test_rglru_kernel_matches_plain(cuda, B, T, W):
+    rng = np.random.default_rng(B * 10 + T)
+    a = np.exp(-np.abs(rng.standard_normal((B, T, W)) * 0.5))
+    b = rng.standard_normal((B, T, W)) * 0.5
+    a, b = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (a, b))
+    torch.testing.assert_close(rglru.rglru_cuda(a, b), rglru.rglru_ref(a, b),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_scan_wrappers_refuse_bf16_and_strided(cuda):
+    a = torch.ones(1, 8, 16, device=cuda)
+    with pytest.raises(TypeError):
+        rglru.rglru_cuda(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru.rglru_cuda(a.transpose(1, 2), a.transpose(1, 2))
+    # the kernel refuses a chunk over 256 and a state whose tiles overflow a
+    # block's shared memory; a launch after either still runs
+    args = [torch.from_numpy(x).to(cuda) for x in _ssd_inputs(0, 1, 300, 2,
+                                                              16, 16)]
+    with pytest.raises(RuntimeError, match="ssd"):
+        ssd.ssd_cuda(*args, 300)
+    big = [torch.from_numpy(x).to(cuda) for x in _ssd_inputs(0, 1, 8, 1, 64,
+                                                             512)]
+    with pytest.raises(RuntimeError, match="ssd"):
+        ssd.ssd_cuda(*big, 8)
+    y, fin = ssd.ssd_cuda(*args, 256)
+    y_ref, fin_ref = ssd.ssd_ref(*args, 256)
+    torch.testing.assert_close(y, y_ref, atol=3e-4, rtol=3e-4)

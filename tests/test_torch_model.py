@@ -208,6 +208,6 @@ def test_gate_zero_drops_the_block(pair):
 
 def test_other_architectures_are_later_slices():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_smoke_config("mamba2-370m")
+        get_smoke_config("olmoe-1b-7b")
     with pytest.raises(KeyError):
         get_smoke_config("no-such-arch")
