@@ -11,12 +11,14 @@ Phases, each fatal on failure:
                 card's name and power limit;
   2. kernels  — hold each kernel against its plain PyTorch version on the
                 card at the serves' shapes plus GQA, softcap and band cases,
-                in f32 (TF32 off) and bf16, each with its stated tolerance
-                (the fused-dequant paged decode on int8 and fp8 pages, and
-                bitwise against the model-dtype kernel on dequantized pages
-                with f32 q); time kernel, plain version and (attention) the
-                ``scaled_dot_product_attention`` yardstick, and work out
-                each kernel's bound from its bytes and operations. The dense
+                in f32 (TF32 off) and bf16 (flash also fp16), each with its
+                stated tolerance (the fused-dequant paged decode on int8
+                and fp8 pages, and bitwise against the model-dtype kernel on
+                dequantized pages with f32 q); time kernel, plain version
+                and (attention) the ``scaled_dot_product_attention``
+                yardstick, and work out each kernel's bound from its bytes
+                and operations; flash is timed at the prefill, GSI scoring
+                and recurrentgemma shapes (``FLASH_TIMED``). The dense
                 decode kernel (the slot path's) is held against its plain
                 version with per-row ``[B, S]`` and shared ``[S]`` masks,
                 GQA, softcap, ring masks (recurrentgemma's G=16, D=256 among
@@ -95,7 +97,7 @@ SERVE5_ARGV = ([a if a != "llama2-7b" else "mamba2-370m" for a in SERVE3_ARGV]
                + ["--pool-requests", "1.0"])
 SERVE6_ARGV = [a if a != "llama2-7b" else "recurrentgemma-9b"
                for a in SERVE3_ARGV]
-TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2, "torch.float16": 2e-2}
 
 
 def card_line() -> str:
@@ -111,9 +113,13 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3,
+            hide_launch: bool = False) -> float:
     """Mean device time of ``fn`` from CUDA events, with the 50 MB L2
-    flushed before every launch (the main path finds its operands cold)."""
+    flushed before every launch (the main path finds its operands cold).
+    The events also hold whatever of the host's launch overhead the flush
+    does not cover; ``hide_launch`` queues ``fn`` behind a 0.1 ms spin, so
+    that only the device's own time is left."""
     import torch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
@@ -121,6 +127,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        if hide_launch:
+            torch.cuda._sleep(200_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -297,9 +305,63 @@ def paged_quant_cases(torch, ops, pdec, attention):
                      f"({toks} tokens) int8 pages, q {dt}"}
 
 
+# the shapes flash attention is timed at: llama2-7b's monolithic prefill of
+# 8 x 256 (the headline, comparable across PRs), a GSI scoring forward (2
+# calibration rows x 8 candidates of 64 tokens) and recurrentgemma-9b's
+# local attention (16 heads on one kv head of 256; its window of 2048 holds
+# all 264 tokens, so causal sdpa computes the same function)
+FLASH_TIMED = {"prefill": (8, 256, 32, 32, 128, 0),
+               "scoring": (16, 64, 32, 32, 128, 0),
+               "recurrentgemma": (8, 264, 16, 1, 256, 2048)}
+
+
+def flash_bound(B, S, H, K, D, window, dtype) -> tuple:
+    """Bound of causal (banded) attention over S tokens: q and out read and
+    written at H heads, k and v read at K heads; 4·D operations per kept
+    (query, key) pair and query head."""
+    es = {"torch.float32": 4}.get(str(dtype), 2)
+    pairs = sum(qi + 1 - (max(0, qi - window + 1) if window > 0 else 0)
+                for qi in range(S))
+    return bound_ms((2 * B * S * H * D + 2 * B * S * K * D) * es,
+                    4 * B * H * D * pairs, dtype)
+
+
+def flash_calls(torch, fa, g, B, S, H, K, D, window, dt) -> dict:
+    """Random bf16/fp16 inputs at one ``FLASH_TIMED`` shape and three calls
+    on them: the kernel, its plain version and the
+    ``scaled_dot_product_attention`` yardstick (causal; GQA by
+    ``enable_gqa``, on the head-major copies it takes)."""
+    q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(B, S, K, D, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    gqa = {"enable_gqa": True} if K < H else {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return {"kernel": lambda: fa.flash_attention_cuda(q, k, v, window=window),
+            "plain": lambda: fa.attention_ref(q, k, v, window=window),
+            "library": lambda: sdpa(qt, kt, vt, is_causal=True, **gqa)}
+
+
+def flash_timing(torch, fa, g, B, S, H, K, D, window, dt) -> dict:
+    calls = flash_calls(torch, fa, g, B, S, H, K, D, window, dt)
+    shape = (f"B={B} S={S} H={H} K={K} D={D} causal"
+             f"{f' window={window}' if window else ''} {dt}")
+    err = check(f"flash_attention {shape}", calls["kernel"](),
+                calls["plain"](), dt)
+    bms, by = flash_bound(B, S, H, K, D, window, dt)
+    return {"max_abs_err": err, "ms": time_ms(calls["kernel"]),
+            "plain_ms": time_ms(calls["plain"]), "bound_ms": bms,
+            "bound_by": by, "library_ms": time_ms(calls["library"]),
+            "shape": shape}
+
+
 def flash_cases(torch, ops, fa):
+    """Flash attention at the serves' widths: f32 runs the kernel's FMA
+    body, bf16 and fp16 its tensor-core body (64 x 64 tiles; the small
+    tile-edge cases are in ``tests/test_torch_cuda.py``). Timed at the
+    three ``FLASH_TIMED`` shapes; the prefill shape is the entry's
+    headline, the other two ride as extra keys."""
     g = torch.Generator(device="cuda").manual_seed(3)
-    errs = {}
     cases = [(1, 256, 32, 32, 128, 0, 0.0, torch.float32),
              (2, 100, 32, 32, 128, 0, 0.0, torch.float32),     # ragged Sq
              (1, 256, 32, 32, 128, 0, 0.0, torch.bfloat16),
@@ -313,36 +375,27 @@ def flash_cases(torch, ops, fa):
              (1, 264, 16, 1, 256, 0, 0.0, torch.float32),
              (2, 264, 16, 1, 256, 0, 0.0, torch.bfloat16),
              (1, 600, 16, 1, 256, 256, 0.0, torch.float32),
-             (1, 600, 16, 1, 256, 256, 0.0, torch.bfloat16)]
-    for i, (B, S, H, K, D, w, cap, dt) in enumerate(cases):
+             (1, 600, 16, 1, 256, 256, 0.0, torch.bfloat16),
+             # fp16 beside bf16, and the tensor-core tiles' edges at width
+             (2, 130, 32, 8, 128, 0, 0.0, torch.float16),      # G=4, ragged
+             (1, 65, 16, 1, 256, 0, 0.0, torch.float16),       # straddle
+             (2, 100, 32, 32, 128, 16, 0.0, torch.bfloat16),   # narrow band
+             (1, 200, 8, 4, 64, 0, 30.0, torch.float16),       # softcap
+             (1, 600, 16, 1, 256, 256, 0.0, torch.float16)]
+    for B, S, H, K, D, w, cap, dt in cases:
         q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
         k = torch.randn(B, S, K, D, generator=g, device="cuda").to(dt)
         v = torch.randn(B, S, K, D, generator=g, device="cuda").to(dt)
-        errs[i] = check(
-            f"flash_attention B={B} S={S} H={H} K={K} D={D} window={w} "
-            f"cap={cap} {dt}",
-            ops.flash_attention(q, k, v, window=w, softcap=cap),
-            fa.attention_ref(q, k, v, window=w, softcap=cap), dt)
-    B, S, H, D, dt = 8, 256, 32, 128, torch.bfloat16     # prefill 8×256
-    q, k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
-               for _ in range(3))
-    err = check(f"flash_attention B={B} S={S} H={H} D={D} {dt}",
-                fa.flash_attention_cuda(q, k, v), fa.attention_ref(q, k, v),
-                dt)
-    es = q.element_size()
-    pairs = S * (S + 1) // 2
-    bms, by = bound_ms(4 * q.numel() * es, 4 * B * H * D * pairs, dt)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+        check(f"flash_attention B={B} S={S} H={H} K={K} D={D} window={w} "
+              f"cap={cap} {dt}",
+              ops.flash_attention(q, k, v, window=w, softcap=cap),
+              fa.attention_ref(q, k, v, window=w, softcap=cap), dt)
+    timed = {name: flash_timing(torch, fa, g, *shape, torch.bfloat16)
+             for name, shape in FLASH_TIMED.items()}
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:97",
-            "max_abs_err": err,
-            "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
-            "plain_ms": time_ms(lambda: fa.attention_ref(q, k, v)),
-            "bound_ms": bms, "bound_by": by,
-            "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
-            "shape": f"B={B} S={S} H=K={H} D={D} causal {dt}"}
+            **timed.pop("prefill"), **timed}
 
 
 def decode_cases(torch, ops, dec, pdec):
@@ -871,10 +924,12 @@ def main() -> None:
                decode_cases(torch, ops, dec, pdec),
                ssd_cases(torch, ops, ssd), rglru_cases(torch, ops, rglru)]
     for e in entries:
-        print(f"  {e['name']} @ {e['shape']} [{card}]: kernel "
-              f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
-              f"{e['bound_ms']:.4f} ms ({e['bound_by']}), library "
-              f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms")
+        for t in [e] + [x for x in e.values() if isinstance(x, dict)]:
+            lib_ms = t["library_ms"]
+            print(f"  {e['name']} @ {t['shape']} [{card}]: kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+                  f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms")
     print("reference:")
     reference_phase(torch)
     recurrent_reference(torch)

@@ -3,7 +3,11 @@
 ``attention_ref`` is the plain PyTorch version (any device);
 ``flash_attention_cuda`` launches the CUDA kernel ``csrc/flash_attention.cu``
 (the port of the Pallas kernel
-``repro/kernels/flash_attention.py::flash_attention``).
+``repro/kernels/flash_attention.py::flash_attention``). bf16 and fp16 inputs
+run its tensor-core body (``mma.sync`` with f32 accumulation, the softmax in
+f32, and P rounded to the input type before P·V, as ``attention_ref`` and
+the JAX reference round it); f32 inputs run its f32 FMA body, which keeps
+full-f32 products and probabilities.
 """
 from __future__ import annotations
 

@@ -3,10 +3,11 @@
 ``_sdpa`` and ``_causal_mask`` mirror ``repro/models/attention.py``'s
 functions of the same names: scores are taken in f32, the softmax in f32,
 and the probabilities are cast to ``v.dtype`` before the P·V product, so a
-bf16 plain result rounds where the JAX reference rounds. (The CUDA kernels,
-like the Pallas kernels, keep the probabilities in f32.) In the port every
-attention goes through ``kernels.ops``, whose plain versions —
-``flash_attention.attention_ref`` and
+bf16 plain result rounds where the JAX reference rounds. (The decode
+kernels and the f32 flash body, like the Pallas kernels, keep the
+probabilities in f32; the bf16/fp16 flash body rounds them as here.) In
+the port every attention goes through ``kernels.ops``, whose plain
+versions — ``flash_attention.attention_ref`` and
 ``paged_decode_attention.paged_decode_attention_ref`` — are built on these.
 
 Quantized page pools (int8 / float8_e4m3fn codes with one f32 scale per

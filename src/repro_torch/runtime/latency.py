@@ -47,6 +47,9 @@ def summarize(xs: Iterable[float],
     for q in qs:
         key = f"p{int(q)}" if float(q).is_integer() else f"p{q}"
         out[key] = percentile(data, q)
-    out["mean"] = sum(data) / len(data) if data else 0.0
+    # the rounded quotient can land just outside the stream's range (seven
+    # copies of 515908805.880605 give a mean 6e-8 above their max): clamp
+    out["mean"] = (min(max(sum(data) / len(data), min(data)), max(data))
+                   if data else 0.0)
     out["count"] = float(len(data))
     return out

@@ -112,6 +112,20 @@ def test_host_streams_equal():
     assert latency.summarize(xs) == jlat.summarize(xs)
 
 
+def test_latency_mean_stays_inside_the_stream():
+    """sum / len rounds 6e-8 above the max of seven copies of one value:
+    the port clamps its mean into [min, max] and moves no other mean."""
+    xs = [515908805.880605] * 7
+    assert sum(xs) / len(xs) > max(xs)        # the rounding being pinned
+    s = latency.summarize(xs)
+    assert min(xs) <= s["mean"] <= max(xs)
+    assert s["mean"] == 515908805.880605 and s["p50"] == s["p99"] == xs[0]
+    ys = [float(y) for y in np.random.default_rng(0).random(37)]
+    assert latency.summarize(ys)["mean"] == sum(ys) / len(ys)
+    assert latency.summarize([]) == {"p50": 0.0, "p90": 0.0, "p99": 0.0,
+                                     "mean": 0.0, "count": 0.0}
+
+
 def test_mask_helpers():
     cfg = get_smoke_config("llama2-7b").replace(n_layers=3)
     m = masks.remove_block(masks.full_mask(3), 4)

@@ -6,9 +6,10 @@ package, so it runs on a GPU machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: 1e-4 in f32 (TF32 off), 2e-2 in bf16 for attention — the plain
-versions round the softmax probabilities to bf16 before the P·V product,
-as the JAX reference does, while the kernels keep them in f32 — and
+Tolerances: 1e-4 in f32 (TF32 off), 2e-2 in bf16 and fp16 for attention —
+the plain versions round the softmax probabilities to bf16 before the P·V
+product, as the JAX reference does, while the decode kernels keep them in
+f32 and the flash kernel's tensor-core body sums in another order — and
 1e-5 / 8e-3 (one bf16 rounding) for the fused GLU. The fused-dequant paged
 decode kernel (int8 and fp8 pages) is also held bitwise against the
 model-dtype kernel run on ``page_dequant``-ed pages, with f32 q, and the
@@ -49,6 +50,15 @@ FLASH_CASES = [
     (1, 50, 4, 1, 16, 0, 0.0),      # ragged (padding path)
     (1, 64, 4, 4, 32, 16, 0.0),     # banded / MHA
     (1, 32, 4, 2, 32, 0, 30.0),     # softcap
+    # the edges of the bf16/fp16 body's 64 x 64 tiles
+    (1, 100, 4, 2, 32, 0, 0.0),     # Sq, Skv not multiples of 64
+    (2, 130, 4, 4, 64, 0, 0.0),     # three kv tiles, the last ragged
+    (1, 65, 4, 1, 64, 0, 0.0),      # a second q tile of one row
+    (1, 130, 4, 4, 32, 16, 0.0),    # a band narrower than a tile
+    (1, 100, 4, 2, 32, 300, 0.0),   # a band wider than S
+    (1, 64, 8, 2, 128, 0, 0.0),     # GQA G=4 at D=128
+    (1, 70, 4, 2, 40, 0, 0.0),      # D=40, zero-padded to 64
+    (1, 70, 4, 2, 36, 0, 0.0),      # D % 8 != 0: the element loader
 ]
 
 
@@ -82,9 +92,13 @@ def _paged_inputs(seed, B, H, K, D, pt, S):
     return q, kp, vp, table, lengths
 
 
+# bf16 and fp16 run the kernel's tensor-core body, f32 its FMA body
+FLASH_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2),
+                (torch.float16, 2e-2)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,tol", FLASH_DTYPES)
 @pytest.mark.parametrize("B,Sq,H,K,D,window,cap", FLASH_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, H, K, D, window,
                                               cap, dtype, tol):
@@ -100,12 +114,13 @@ GRIFFIN_FLASH_CASES = [
     # B, Sq, H, K, D, window, softcap
     (1, 70, 16, 1, 256, 0, 0.0),    # causal, shorter than the window
     (1, 100, 16, 1, 256, 32, 0.0),  # banded: S > window
+    (1, 65, 16, 1, 256, 0, 0.0),    # a q tile straddling the diagonal
+    (2, 130, 16, 1, 256, 16, 0.0),  # a band narrower than a tile
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,tol", FLASH_DTYPES)
 @pytest.mark.parametrize("B,Sq,H,K,D,window,cap", GRIFFIN_FLASH_CASES)
 def test_flash_attention_kernel_matches_plain_griffin(cuda, B, Sq, H, K, D,
                                                       window, cap, dtype,
