@@ -24,10 +24,15 @@ Phases, each fatal on failure:
                 GQA, softcap, ring masks (recurrentgemma's G=16, D=256 among
                 them) and a ragged cache length, and bitwise against the
                 paged kernel on pages holding the same tokens (f32 q, prefix
-                mask). The scan kernels ``ssd`` (mamba2: its prefill shape, a
-                ragged three-chunk sequence, the scoring shape, batch 1) and
-                ``rglru`` (recurrentgemma: its prefill shape, a ragged
-                length, batch 1) are held in f32 at 3e-4 and 2e-5;
+                mask) at shapes of one and of several splits, and each
+                decode body launched twice for the same bits; the three
+                decode bodies are timed at ``DECODE_TIMED`` (llama2-7b at
+                B=8 and B=1, recurrentgemma-9b), event and device-only,
+                sdpa beside the dense one. The scan kernels ``ssd``
+                (mamba2: its prefill shape, a ragged three-chunk sequence,
+                the scoring shape, batch 1) and ``rglru`` (recurrentgemma:
+                its prefill shape, a ragged length, batch 1) are held in
+                f32 at 3e-4 and 2e-5;
   3. reference — a small model through the kernels on the card against the
                 same model through the plain versions on the CPU: paged
                 with a model-dtype and an int8 page pool, the slot path
@@ -197,7 +202,97 @@ def paged_inputs(torch, B, H, K, D, pt, max_len, dt, seed):
     return [t.cuda() for t in (q, kp, vp, table, lengths)]
 
 
-def paged_cases(torch, ops, pdec):
+# the shapes the three decode bodies are timed at, B, H, K, D, max_len:
+# llama2-7b's decode at B=8 (ragged lengths, 2398 tokens: the headline,
+# comparable across PRs) and at B=1 (one full row of 512), and
+# recurrentgemma-9b's (16 heads on one kv head of 256, ragged up to its
+# cache of 264)
+DECODE_TIMED = {"llama": (8, 32, 32, 128, 512),
+                "llama_b1": (1, 32, 32, 128, 512),
+                "recurrentgemma": (8, 16, 1, 256, 264)}
+
+
+def decode_calls(torch, dec, pdec, attention, B, H, K, D, S) -> dict:
+    """The three decode bodies on the same tokens: bf16 pages of 16 tokens
+    (``paged_inputs`` seed 12: ragged lengths, row 0 full), int8 pages of
+    them with bf16 q, and a contiguous bf16 cache of the table's width with
+    per-row prefix masks. Per body: the kernel and plain calls, the bytes
+    the function must move and a shape label; ``sdpa``: the
+    ``scaled_dot_product_attention`` call (boolean mask) for the dense
+    body; ``ops``: the operations (4·D per attended token and query
+    head)."""
+    pt, dt = 16, torch.bfloat16
+    q, kp, vp, table, lengths = paged_inputs(torch, B, H, K, D, pt, S,
+                                             torch.float32, 12)
+    kq, ks = attention.page_quant(kp, torch.int8)
+    vq, vs = attention.page_quant(vp, torch.int8)
+    q, kp, vp = q.to(dt), kp.to(dt), vp.to(dt)
+    n = table.shape[1] * pt
+    kd = kp[table.long()].reshape(B, n, K, D)
+    vd = vp[table.long()].reshape(B, n, K, D)
+    rows = torch.arange(n, device="cuda")[None, :] < lengths[:, None]
+    toks = int(lengths.sum())
+    pages = int(((lengths + pt - 1) // pt).sum())
+    io = 2 * q.numel() * 2                      # q read, out written
+    index = table.numel() * 4 + lengths.numel() * 4
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kd, vd))
+    gqa = {"enable_gqa": True} if K < H else {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shape = (f"B={B} H={H} K={K} D={D} ragged len<={S} ({toks} tokens), "
+             f"q {dt}")
+    return {
+        "paged": (lambda: pdec.paged_decode_attention_cuda(
+                      q, kp, vp, table, lengths),
+                  lambda: pdec.paged_decode_attention_ref(
+                      q, kp, vp, table, lengths),
+                  io + 2 * toks * K * D * 2 + index,
+                  f"{shape}, bf16 pages of {pt}"),
+        "quant": (lambda: pdec.paged_decode_attention_quant_cuda(
+                      q, kq, vq, ks, vs, table, lengths),
+                  lambda: pdec.paged_decode_attention_quant_ref(
+                      q, kq, vq, ks, vs, table, lengths),
+                  io + 2 * toks * K * D + 2 * pages * K * 4 + index,
+                  f"{shape}, int8 pages of {pt}"),
+        "dense": (lambda: dec.decode_attention_cuda(q, kd, vd, rows),
+                  lambda: dec.decode_attention_ref(q, kd, vd, rows),
+                  io + 2 * toks * K * D * 2 + rows.numel(),
+                  f"{shape}, cache of {n}, per-row prefix masks"),
+        "sdpa": lambda: sdpa(qt, kt, vt, attn_mask=rows[:, None, None, :],
+                             **gqa),
+        "ops": 4 * toks * H * D}
+
+
+def decode_timing(torch, dec, pdec, attention, B, H, K, D, S) -> dict:
+    """``decode_calls`` timed: per body the event time (``ms``), the
+    device-only time (``busy_ms``, host launch hidden), the plain version's
+    time and the bound; sdpa as the dense body's ``library_ms`` (and
+    ``library_busy_ms``). Each body is first held against its plain
+    version on the inputs it is timed on."""
+    calls = decode_calls(torch, dec, pdec, attention, B, H, K, D, S)
+    out = {}
+    for body in ("paged", "quant", "dense"):
+        kernel, plain, nbytes, shape = calls[body]
+        check(f"timed {body} decode {shape}", kernel(), plain(),
+              torch.bfloat16)
+        bms, by = bound_ms(nbytes, calls["ops"], torch.bfloat16)
+        out[body] = {"ms": time_ms(kernel),
+                     "busy_ms": time_ms(kernel, hide_launch=True),
+                     "plain_ms": time_ms(plain), "bound_ms": bms,
+                     "bound_by": by, "library_ms": None, "shape": shape}
+    out["dense"]["library_ms"] = time_ms(calls["sdpa"])
+    out["dense"]["library_busy_ms"] = time_ms(calls["sdpa"],
+                                              hide_launch=True)
+    return out
+
+
+def timed_entry(timed: dict, body: str) -> dict:
+    """A decode kernel's numbers: the llama shape's as the headline, the
+    other ``DECODE_TIMED`` shapes as keys of their own."""
+    return {**timed["llama"][body],
+            **{name: t[body] for name, t in timed.items() if name != "llama"}}
+
+
+def paged_cases(torch, ops, pdec, timed):
     errs = {}
     cases = [(1, 32, 32, 128, 16, 512, 0.0, torch.float32),
              (8, 32, 32, 128, 16, 512, 0.0, torch.float32),
@@ -216,27 +311,13 @@ def paged_cases(torch, ops, pdec):
                                        softcap=cap),
             pdec.paged_decode_attention_ref(q, kp, vp, table, lengths,
                                             softcap=cap), dt)
-    B, H, K, D, pt, S, dt = 8, 32, 32, 128, 16, 512, torch.bfloat16
-    q, kp, vp, table, lengths = paged_inputs(torch, B, H, K, D, pt, S, dt, 12)
-    es = q.element_size()
-    toks = int(lengths.sum())
-    nbytes = (2 * q.numel() * es + 2 * toks * K * D * es
-              + table.numel() * 4 + lengths.numel() * 4)
-    bms, by = bound_ms(nbytes, 4 * toks * H * D, dt)
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/paged_decode_attention.py:117",
-            "max_abs_err": errs[2],
-            "ms": time_ms(lambda: pdec.paged_decode_attention_cuda(
-                q, kp, vp, table, lengths)),
-            "plain_ms": time_ms(lambda: pdec.paged_decode_attention_ref(
-                q, kp, vp, table, lengths)),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "shape": f"B={B} H=K={H} D={D} pt={pt} ragged len<={S} "
-                     f"({toks} tokens) {dt}"}
+            "max_abs_err": errs[2], **timed_entry(timed, "paged")}
 
 
-def paged_quant_cases(torch, ops, pdec, attention):
+def paged_quant_cases(torch, ops, pdec, attention, timed):
     """Fused-dequant paged decode: int8 and fp8 pages, q f32 and bf16, G=1
     and G=4, softcap, a length one past a page edge, and the serve's
     shape; each held against its plain version and, with f32 q, against
@@ -279,30 +360,11 @@ def paged_quant_cases(torch, ops, pdec, attention):
                     pdec.paged_decode_attention_quant_ref(
                         qd, kq, vq, ks, vs, table, lengths, softcap=cap), dt)
     # serve 2's decode: int8 pages, bf16 q
-    B, H, K, D, pt, S, _, seed = cases[0]
-    dt, pdt = torch.bfloat16, torch.int8
-    q, kp, vp, table, lengths = paged_inputs(torch, B, H, K, D, pt, S,
-                                             torch.float32, seed=seed)
-    q = q.to(dt)
-    kq, ks = attention.page_quant(kp, pdt)
-    vq, vs = attention.page_quant(vp, pdt)
-    toks = int(lengths.sum())
-    pages = int(((lengths + pt - 1) // pt).sum())
-    nbytes = (2 * toks * K * D * kq.element_size() + 2 * pages * K * 4
-              + 2 * q.numel() * q.element_size() + table.numel() * 4
-              + lengths.numel() * 4)
-    bms, by = bound_ms(nbytes, 4 * toks * H * D, dt)
     return {"name": "paged_decode_attention_quant", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/paged_decode_attention.py:97",
-            "max_abs_err": errs[(0, str(pdt), str(dt))],
-            "ms": time_ms(lambda: pdec.paged_decode_attention_quant_cuda(
-                q, kq, vq, ks, vs, table, lengths)),
-            "plain_ms": time_ms(lambda: pdec.paged_decode_attention_quant_ref(
-                q, kq, vq, ks, vs, table, lengths)),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "shape": f"B={B} H=K={H} D={D} pt={pt} ragged len<={S} "
-                     f"({toks} tokens) int8 pages, q {dt}"}
+            "max_abs_err": errs[(0, str(torch.int8), str(torch.bfloat16))],
+            **timed_entry(timed, "quant")}
 
 
 # the shapes flash attention is timed at: llama2-7b's monolithic prefill of
@@ -398,12 +460,14 @@ def flash_cases(torch, ops, fa):
             **timed.pop("prefill"), **timed}
 
 
-def decode_cases(torch, ops, dec, pdec):
+def decode_cases(torch, ops, dec, pdec, attention, timed):
     """The dense decode kernel: per-row ``[B, S]`` prefix masks from the
     paged timing case's ragged lengths and a shared ``[S]`` mask at
     llama2-7b's shape, GQA, softcap, a wrapped ring mask and a cache length
     that is not a multiple of the 64-token tile, in f32 and bf16; bitwise
-    against the paged kernel (f32); timed beside the plain version and
+    against the paged kernel (f32) at shapes of one and of several splits;
+    each of the three decode bodies launched twice on the same inputs for
+    the same bits. Timed by ``decode_timing`` beside the plain version and
     ``scaled_dot_product_attention`` with a boolean mask."""
     errs = {}
     g = torch.Generator(device="cpu").manual_seed(21)
@@ -444,10 +508,13 @@ def decode_cases(torch, ops, dec, pdec):
                 f"{kind} {tuple(valid.shape)} {dt}",
                 ops.decode_attention(*args, softcap=cap),
                 dec.decode_attention_ref(*args, softcap=cap), dt)
-    # the paged kernel's twin: the same tokens laid out in its pages
+    # the paged kernel's twin: the same tokens laid out in its pages (on
+    # 132 SMs the llama2-7b shapes, recurrentgemma's and the softcap case
+    # run in 2, 3, 4, 5 and 8 splits, the 64-token cache in one)
     for i, (b, h, k, d, s, cap, seed) in enumerate(
             [(8, 32, 32, 128, 512, 0.0, 12), (4, 32, 8, 128, 200, 0.0, 31),
-             (3, 8, 2, 64, 96, 30.0, 32)]):
+             (3, 8, 2, 64, 96, 30.0, 32), (1, 32, 32, 128, 512, 0.0, 33),
+             (8, 16, 1, 256, 264, 0.0, 34), (8, 32, 32, 128, 64, 0.0, 35)]):
         q, kp, vp, table, lens = paged_inputs(torch, b, h, k, d, pt, s,
                                               torch.float32, seed)
         n = table.shape[1] * pt
@@ -463,29 +530,25 @@ def decode_cases(torch, ops, dec, pdec):
         if not bit:
             raise AssertionError("the dense decode kernel is not bitwise "
                                  "equal to the paged kernel")
-    # the serve's decode: llama2-7b, 8 slots of 512, ragged prefix masks
-    dt = torch.bfloat16
-    q = torch.randn(B, 1, H, D, generator=g).cuda().to(dt)
-    kc = torch.randn(B, S, K, D, generator=g).cuda().to(dt)
-    vc = torch.randn(B, S, K, D, generator=g).cuda().to(dt)
-    toks = int(lengths.sum())
-    es = q.element_size()
-    nbytes = 2 * q.numel() * es + 2 * toks * K * D * es + rows.numel()
-    bms, by = bound_ms(nbytes, 4 * toks * H * D, dt)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kc, vc))
-    mask = rows[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+        # the splits combine in a fixed order: a second launch, same bits
+        kq, ks = attention.page_quant(kp, torch.int8)
+        vq, vs = attention.page_quant(vp, torch.int8)
+        for body, run in (
+                ("dense", lambda: dec.decode_attention_cuda(
+                    q, kd, vd, valid, softcap=cap)),
+                ("paged", lambda: pdec.paged_decode_attention_cuda(
+                    q, kp, vp, table, lens, softcap=cap)),
+                ("int8 paged", lambda: pdec.paged_decode_attention_quant_cuda(
+                    q, kq, vq, ks, vs, table, lens, softcap=cap))):
+            if not torch.equal(run(), run()):
+                raise AssertionError(f"two launches of the {body} decode "
+                                     f"kernel gave different bits")
+        print(f"    two launches of each decode body: the same bits")
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:72",
-            "max_abs_err": errs[(0, str(dt))],
-            "ms": time_ms(lambda: dec.decode_attention_cuda(q, kc, vc, rows)),
-            "plain_ms": time_ms(lambda: dec.decode_attention_ref(q, kc, vc,
-                                                                 rows)),
-            "bound_ms": bms, "bound_by": by,
-            "library_ms": time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask)),
-            "shape": f"B={B} H=K={H} D={D} S={S} per-row prefix masks "
-                     f"({toks} valid tokens) {dt}"}
+            "max_abs_err": errs[(0, str(torch.bfloat16))],
+            **timed_entry(timed, "dense")}
 
 
 SCAN_TOL = {"ssd": 3e-4, "rglru": 2e-5}
@@ -918,17 +981,21 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s -> {lib}")
 
     print("kernels vs plain versions:")
-    entries = [paged_cases(torch, ops, pdec),
-               paged_quant_cases(torch, ops, pdec, attention),
+    timed = {name: decode_timing(torch, dec, pdec, attention, *shape)
+             for name, shape in DECODE_TIMED.items()}
+    entries = [paged_cases(torch, ops, pdec, timed),
+               paged_quant_cases(torch, ops, pdec, attention, timed),
                glu_cases(torch, ops, swiglu), flash_cases(torch, ops, fa),
-               decode_cases(torch, ops, dec, pdec),
+               decode_cases(torch, ops, dec, pdec, attention, timed),
                ssd_cases(torch, ops, ssd), rglru_cases(torch, ops, rglru)]
     for e in entries:
         for t in [e] + [x for x in e.values() if isinstance(x, dict)]:
             lib_ms = t["library_ms"]
+            busy = (f" (device-only {t['busy_ms']:.4f})"
+                    if "busy_ms" in t else "")
             print(f"  {e['name']} @ {t['shape']} [{card}]: kernel "
-                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+                  f"{t['ms']:.4f} ms{busy}, plain {t['plain_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
                   f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms")
     print("reference:")
     reference_phase(torch)

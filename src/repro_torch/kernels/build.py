@@ -13,6 +13,7 @@ package on a machine with no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -103,6 +104,17 @@ def function(symbol: str, argtypes: List) -> ctypes._CFuncPtr:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """SMs of a CUDA device, read once per device."""
+    idx = torch.device(device).index
+    return _sms(torch.cuda.current_device() if idx is None else idx)
 
 
 def stream(t) -> int:

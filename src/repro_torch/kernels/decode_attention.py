@@ -3,7 +3,10 @@
 ``decode_attention_ref`` is the plain PyTorch version (any device): a
 masked softmax over the whole cache width. ``decode_attention_cuda``
 launches the CUDA kernel ``csrc/decode_attention.cu``, the port of the
-Pallas kernel ``repro/kernels/decode_attention.py::decode_attention``.
+Pallas kernel ``repro/kernels/decode_attention.py::decode_attention``: one
+CTA per (row, kv head, split of the cache), the splits from
+``ref.decode_splits`` and their f32 partials in scratch allocated here,
+combined in a fixed order (``ref.split_decode_ref`` mirrors it).
 
 ``valid`` is JAX's ``[S]`` (one mask for every row: the one-shot path,
 scalar position) or ``[B, S]`` (one mask per row: the slot cache, where
@@ -18,9 +21,19 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import _sdpa
+from repro_torch.kernels.ref import _sdpa, decode_splits
 
-TILE = 64            # csrc/flash_decode.cuh kTile
+
+def split_scratch(q, B: int, K: int, S: int):
+    """(split_tokens, nsplit, partials) of one decode launch over ``S``
+    token slots: the splits from static shapes (``ref.decode_splits`` and
+    the card's SM count), and f32 scratch for their partials (none for one
+    split)."""
+    split, n = decode_splits(B, K, S, build.sm_count(q.device))
+    H, D = q.shape[2], q.shape[3]
+    part = torch.empty(B * H * n * (D + 2) if n > 1 else 0,
+                       dtype=torch.float32, device=q.device)
+    return split, n, part
 
 
 def decode_attention_ref(q, k, v, valid, *, softcap: float = 0.0):
@@ -32,7 +45,8 @@ def decode_attention_ref(q, k, v, valid, *, softcap: float = 0.0):
 
 
 def _check(q, k, v, valid):
-    """Shapes, dtypes and shared memory; returns (B, H, K, D, S)."""
+    """Shapes and dtypes; returns (B, H, K, D, S). The kernel refuses a
+    group and width whose tiles do not fit a block's shared memory."""
     B, one, H, D = q.shape
     Bk, S, K, Dk = k.shape
     if (one != 1 or Bk != B or Dk != D or v.shape != k.shape or H % K
@@ -45,11 +59,6 @@ def _check(q, k, v, valid):
                         f"dequantized by load_kv first)")
     if valid.dtype != torch.bool:
         raise TypeError(f"valid must be bool, got {valid.dtype}")
-    G = H // K
-    smem = 16 + 9 * TILE + (2 * G * D + TILE * G + 3 * G) * 4
-    if smem > 227 * 1024:
-        raise ValueError(f"head dim {D} / group {G} exceed the kernel's "
-                         f"shared memory")
     return B, H, K, D, S
 
 
@@ -60,12 +69,15 @@ def decode_attention_cuda(q, k, v, valid, *, softcap: float = 0.0):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     valid = valid.contiguous().view(torch.uint8)
     out = torch.empty_like(q)
+    split, n, part = split_scratch(q, B, K, S)
     fn = build.function("rap_decode_attention",
-                        [build.P] * 4 + [build.LL, build.P] + [build.I] * 5
+                        [build.P] * 4 + [build.LL] + [build.P] * 2
+                        + [build.I] * 7
                         + [build.F32, build.F32, build.I, build.P])
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    valid.data_ptr(), S if valid.ndim == 2 else 0,
-                   out.data_ptr(), B, H, K, D, S, 1.0 / math.sqrt(D),
-                   float(softcap), build.dtype_code(q), build.stream(q)),
+                   out.data_ptr(), part.data_ptr(), B, H, K, D, S,
+                   split, n, 1.0 / math.sqrt(D), float(softcap),
+                   build.dtype_code(q), build.stream(q)),
                 "decode_attention")
     return out

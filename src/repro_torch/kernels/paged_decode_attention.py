@@ -5,7 +5,9 @@ gathers each row's pages into a contiguous ``[B, max_pages·pt, K, D]`` view
 and runs a masked softmax. ``paged_decode_attention_cuda`` launches the CUDA
 kernel ``csrc/paged_decode_attention.cu`` (the port of the Pallas kernel
 ``repro/kernels/paged_decode_attention.py::paged_decode_attention``,
-model-dtype pages), which chases the page table without a gather.
+model-dtype pages), which chases the page table without a gather; it cuts
+each row's ``max_pages · page_tokens`` slots into the same splits as the
+dense kernel (``decode_attention.split_scratch``).
 
 The quantized pair serves int8 / float8_e4m3fn pages with f32 scales
 ``[n_pages, K]``: ``paged_decode_attention_quant_ref`` widens the gathered
@@ -21,6 +23,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import split_scratch
 from repro_torch.kernels.ref import _sdpa, gather_pages
 
 
@@ -48,9 +51,10 @@ def paged_decode_attention_quant_ref(q, k_pages, v_pages, k_scales, v_scales,
     return _sdpa(q, ck, cv, valid[:, None, :], softcap)
 
 
-def _check(q, k_pages, v_pages, page_table, lengths, extra_smem: int):
-    """Shapes, index dtypes, layout and shared memory of either kernel;
-    returns (B, H, K, D, pt)."""
+def _check(q, k_pages, v_pages, page_table, lengths):
+    """Shapes, index dtypes and layout of either kernel; returns (B, H, K,
+    D, pt). The kernels refuse a group and width whose tiles do not fit a
+    block's shared memory."""
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("page_table and lengths must be int32")
     B, one, H, D = q.shape
@@ -61,11 +65,6 @@ def _check(q, k_pages, v_pages, page_table, lengths, extra_smem: int):
                          f"{tuple(k_pages.shape)} table "
                          f"{tuple(page_table.shape)} lengths "
                          f"{tuple(lengths.shape)}")
-    G = H // K
-    smem = 64 * 8 + (2 * G * D + 64 * G + 3 * G) * 4 + extra_smem
-    if D > 256 or smem > 227 * 1024:
-        raise ValueError(f"head dim {D} / group {G} exceed the kernel's "
-                         f"shared memory")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         # the pool is updated in place: a silent copy would detach it
         raise ValueError("k/v pages must be contiguous")
@@ -80,19 +79,21 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths, *,
     if not (q.dtype == k_pages.dtype == v_pages.dtype):
         raise TypeError("q and the pages must share one dtype (int8/fp8 "
                         "pages go to paged_decode_attention_quant_cuda)")
-    B, H, K, D, pt = _check(q, k_pages, v_pages, page_table, lengths, 0)
+    B, H, K, D, pt = _check(q, k_pages, v_pages, page_table, lengths)
     q = q.contiguous()
     table = page_table.contiguous()
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
+    max_pages = table.shape[1]
+    split, n, part = split_scratch(q, B, K, max_pages * pt)
     fn = build.function("rap_paged_decode_attention",
-                        [build.P] * 6 + [build.I] * 6
+                        [build.P] * 7 + [build.I] * 8
                         + [build.F32, build.F32, build.I, build.P])
     build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                   table.data_ptr(), lengths.data_ptr(),
-                   out.data_ptr(), B, H, K, D, pt, table.shape[1],
-                   1.0 / math.sqrt(D), float(softcap), build.dtype_code(q),
-                   build.stream(q)),
+                   table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                   part.data_ptr(), B, H, K, D, pt, max_pages,
+                   split, n, 1.0 / math.sqrt(D), float(softcap),
+                   build.dtype_code(q), build.stream(q)),
                 "paged_decode_attention")
     return out
 
@@ -112,8 +113,7 @@ def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scales,
     if k_pages.dtype != v_pages.dtype or k_pages.dtype not in PAGE_CODES:
         raise TypeError(f"quantized pages must be int8 or float8_e4m3fn, "
                         f"got {k_pages.dtype}/{v_pages.dtype}")
-    B, H, K, D, pt = _check(q, k_pages, v_pages, page_table, lengths,
-                            2 * 64 * 4)
+    B, H, K, D, pt = _check(q, k_pages, v_pages, page_table, lengths)
     n_pages = k_pages.shape[0]
     for s in (k_scales, v_scales):
         if s.dtype != torch.float32 or s.shape != (n_pages, K):
@@ -125,14 +125,17 @@ def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scales,
     table = page_table.contiguous()
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
+    max_pages = table.shape[1]
+    split, n, part = split_scratch(q, B, K, max_pages * pt)
     fn = build.function("rap_paged_decode_attention_quant",
-                        [build.P] * 8 + [build.I] * 6
+                        [build.P] * 9 + [build.I] * 8
                         + [build.F32, build.F32, build.I, build.I, build.P])
     build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                    k_scales.data_ptr(), v_scales.data_ptr(),
                    table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                   B, H, K, D, pt, table.shape[1], 1.0 / math.sqrt(D),
-                   float(softcap), build.dtype_code(q),
-                   PAGE_CODES[k_pages.dtype], build.stream(q)),
+                   part.data_ptr(), B, H, K, D, pt, max_pages,
+                   split, n, 1.0 / math.sqrt(D), float(softcap),
+                   build.dtype_code(q), PAGE_CODES[k_pages.dtype],
+                   build.stream(q)),
                 "paged_decode_attention_quant")
     return out

@@ -10,6 +10,12 @@ the port every attention goes through ``kernels.ops``, whose plain
 versions — ``flash_attention.attention_ref`` and
 ``paged_decode_attention.paged_decode_attention_ref`` — are built on these.
 
+The decode kernels cut each row's tokens into splits of whole 64-token
+tiles (:func:`decode_splits`, from static shapes only) and combine the
+splits' partial softmaxes in a fixed order; :func:`split_decode_ref` and
+:func:`split_paged_decode_ref` mirror that arithmetic in plain PyTorch for
+the tests (nothing on the serving path calls them).
+
 Quantized page pools (int8 / float8_e4m3fn codes with one f32 scale per
 (page, kv head)) are widened by :func:`page_dequant`, the exact function
 the fused-dequant kernel is pinned against; :func:`take_pages` and
@@ -59,6 +65,70 @@ def gather_pages(pages, page_table, dtype, scales=None):
     if scales is not None:
         c = page_dequant(c, scales[idx])
     return c.reshape(page_table.shape[0], -1, *pages.shape[2:]).to(dtype)
+
+
+DECODE_TILE = 64            # csrc/flash_decode.cuh kTile
+SPLIT_CTAS_PER_SM = 4       # CTAs the decode kernels aim to start per SM
+
+
+def decode_splits(B: int, K: int, S: int, sms: int):
+    """(tokens per split, splits) of the decode kernels for ``B`` rows of
+    ``K`` kv heads over ``S`` token slots (the dense cache width, or the
+    paged table's ``max_pages · page_tokens``) on a card of ``sms`` SMs.
+    Splits are whole 64-token tiles, the fewest that start about
+    ``SPLIT_CTAS_PER_SM · sms`` CTAs. Shapes alone decide it — never the
+    lengths or the mask, which live on the device — so the dense and the
+    paged kernel cut the same tokens at the same places."""
+    tiles = max(1, -(-S // DECODE_TILE))
+    want = -(-SPLIT_CTAS_PER_SM * sms // max(1, B * K))
+    per = -(-tiles // max(1, min(want, tiles)))
+    return per * DECODE_TILE, -(-tiles // per)
+
+
+def split_decode_ref(q, k, v, valid, split_tokens: int, *,
+                     softcap: float = 0.0):
+    """The decode kernels' split-and-combine arithmetic in plain f32: q
+    [B,1,H,D], k/v [B,S,K,D], valid bool [S] or [B,S] → [B,1,H,D]. Each
+    split of ``split_tokens`` keeps its partial (m, l, acc) — m the max
+    attended score (``NEG_INF`` if none), p = 0 exactly for masked tokens —
+    and the splits combine in order: m* = max m_i, out = Σ e^(m_i − m*)
+    acc_i / max(Σ e^(m_i − m*) l_i, 1e-30), skipping splits with l_i = 0."""
+    B, _, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    n = -(-S // split_tokens)
+    pad = n * split_tokens - S
+    mask = (valid[None] if valid.ndim == 1 else valid).expand(B, S)
+    mask = torch.nn.functional.pad(mask, (0, pad))               # [B, n·T]
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    s = torch.einsum("bkgd,btkd->bkgt", q.reshape(B, K, G, D).float(), kf)
+    s = layers.softcap(s * (1.0 / math.sqrt(D)), softcap)
+    mask = mask[:, None, None, :].expand_as(s)
+    s = s.masked_fill(~mask, NEG_INF).reshape(B, K, G, n, split_tokens)
+    mask = mask.reshape(s.shape)
+    m = s.amax(-1)                                               # [B,K,G,n]
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bkgnt,bntkd->bkgnd", p,
+                       vf.reshape(B, n, split_tokens, K, D))
+    w = torch.where(l > 0, torch.exp(m - m.amax(-1, keepdim=True)), 0.0)
+    out = torch.einsum("bkgn,bkgnd->bkgd", w, acc) \
+        / (w * l).sum(-1).clamp_min(1e-30)[..., None]
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def split_paged_decode_ref(q, k_pages, v_pages, page_table, lengths,
+                           split_tokens: int, *, k_scales=None,
+                           v_scales=None, softcap: float = 0.0):
+    """:func:`split_decode_ref` over each row's pages, widened to f32 (with
+    their scales, for int8/fp8 pages), attending its first ``lengths[b]``
+    tokens up to the table's width."""
+    ck = gather_pages(k_pages, page_table, torch.float32, k_scales)
+    cv = gather_pages(v_pages, page_table, torch.float32, v_scales)
+    valid = (torch.arange(ck.shape[1], device=q.device)[None, :]
+             < lengths[:, None])
+    return split_decode_ref(q, ck, cv, valid, split_tokens, softcap=softcap)
 
 
 def _sdpa(q, k, v, mask, softcap: float = 0.0):

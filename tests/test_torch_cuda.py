@@ -30,7 +30,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode_attention as pdec
-from repro_torch.kernels import rglru, ssd, swiglu
+from repro_torch.kernels import ref, rglru, ssd, swiglu
 from repro_torch.models import attention, decoder, registry
 
 torch.set_num_threads(1)
@@ -75,7 +75,28 @@ PAGED_CASES = [
     (2, 8, 2, 32, 16, 48, 0.0),     # G = 4
     (2, 8, 2, 16, 8, 32, 30.0),     # G = 4 + softcap
     (1, 4, 1, 32, 16, 17, 0.0),     # G = 4, one token past a page edge
+    # split-KV: splits are whole 64-token tiles
+    (2, 4, 2, 32, 16, 130, 0.0),    # split edges on page edges
+    (2, 8, 2, 32, 24, 150, 30.0),   # split edges inside pages, softcap
 ]
+
+# split-KV edges with explicit lengths, and the serves' widths:
+# B, H, K, D, page_tokens, lengths, softcap
+SPLIT_CASES = [
+    (3, 4, 2, 32, 16, (192, 1, 64), 0.0),   # a row of 1 token, a row ending
+                                            # on a split edge; splits wholly
+                                            # past two rows' ends
+    (2, 8, 2, 32, 24, (150, 65), 30.0),     # split edges inside pages
+    (2, 8, 8, 64, 16, (2560, 700), 0.0),    # B·K = 16: several tiles a
+                                            # split (the two-stage ring)
+    (2, 4, 2, 36, 8, (100, 37), 0.0),       # D % 8 != 0: element loader
+    (1, 32, 32, 128, 16, (512,), 0.0),      # llama2-7b, B = 1
+    (8, 32, 32, 128, 16, (512, 137, 300, 45, 511, 257, 64, 1), 0.0),
+    (1, 16, 1, 256, 16, (264,), 0.0),       # recurrentgemma: G = 16, D = 256
+    (8, 16, 1, 256, 16, (264, 200, 130, 64, 65, 1, 263, 100), 0.0),
+]
+SPLIT_IDS = [f"B{c[0]}-H{c[1]}-K{c[2]}-D{c[3]}-pt{c[4]}-len{max(c[5])}"
+             for c in SPLIT_CASES]
 
 
 def _paged_inputs(seed, B, H, K, D, pt, S):
@@ -90,6 +111,29 @@ def _paged_inputs(seed, B, H, K, D, pt, S):
     kp = rng.standard_normal((n_pages, pt, K, D)).astype(np.float32)
     vp = rng.standard_normal((n_pages, pt, K, D)).astype(np.float32)
     return q, kp, vp, table, lengths
+
+
+def _split_inputs(seed, B, H, K, D, pt, lengths):
+    """As :func:`_paged_inputs` with the given lengths (the table as wide
+    as the longest)."""
+    rng = np.random.default_rng(seed)
+    P = -(-max(lengths) // pt)
+    n_pages = B * P + 3
+    table = rng.permutation(n_pages)[: B * P].reshape(B, P).astype(np.int32)
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, pt, K, D)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, pt, K, D)).astype(np.float32)
+    return q, kp, vp, table, np.asarray(lengths, dtype=np.int32)
+
+
+def _dense_of(q, kp, vp, table, lengths):
+    """The same tokens as a contiguous cache with prefix masks."""
+    B, P = table.shape
+    pt, K, D = kp.shape[1:]
+    kd = kp[table].reshape(B, P * pt, K, D)
+    vd = vp[table].reshape(B, P * pt, K, D)
+    valid = np.arange(P * pt)[None, :] < lengths[:, None]
+    return q, kd, vd, valid
 
 
 # bf16 and fp16 run the kernel's tensor-core body, f32 its FMA body
@@ -300,6 +344,14 @@ DECODE_CASES = [
     (2, 8, 2, 16, 70, 30.0, "rows"),   # softcap
     (2, 4, 2, 32, 96, 0.0, "ring"),    # non-prefix mask
     (2, 16, 1, 256, 80, 0.0, "ring"),  # recurrentgemma: G = 16, D = 256
+    # split-KV at the serves' widths: llama2-7b at B = 1 and 8,
+    # recurrentgemma's ring of 264 at B = 8, and a long cache (several
+    # tiles a split)
+    (1, 32, 32, 128, 512, 0.0, "rows"),
+    (8, 32, 32, 128, 512, 0.0, "rows"),
+    (8, 16, 1, 256, 264, 0.0, "ring"),
+    (2, 8, 8, 64, 2560, 0.0, "rows"),
+    (2, 4, 2, 36, 100, 0.0, "rows"),   # D % 8 != 0: element loader
 ]
 
 
@@ -353,6 +405,131 @@ def test_decode_kernel_equals_paged_kernel(cuda, B, H, K, D, pt, S, cap):
     want = pdec.paged_decode_attention_cuda(t(q), t(kp), t(vp), t(table),
                                             t(lengths), softcap=cap)
     assert torch.equal(got, want)
+
+
+def _on(device, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,K,D,pt,lengths,cap", SPLIT_CASES,
+                         ids=SPLIT_IDS)
+def test_split_decode_kernels_match_plain(cuda, B, H, K, D, pt, lengths, cap,
+                                          dtype, tol):
+    """Both kernels at the split edges and the serves' widths against
+    their plain versions, and the f32 kernels against the plain mirror of
+    their split-and-combine at the kernels' own split length."""
+    q, kp, vp, table, lens = _on(cuda, *_split_inputs(23, B, H, K, D, pt,
+                                                      lengths))
+    _, kd, vd, valid = _on(cuda, *_dense_of(*_split_inputs(
+        23, B, H, K, D, pt, lengths)))
+    q, kp, vp, kd, vd = (t.to(dtype) for t in (q, kp, vp, kd, vd))
+    got = pdec.paged_decode_attention_cuda(q, kp, vp, table, lens,
+                                           softcap=cap)
+    want = pdec.paged_decode_attention_ref(q, kp, vp, table, lens,
+                                           softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    got_d = dec.decode_attention_cuda(q, kd, vd, valid, softcap=cap)
+    want_d = dec.decode_attention_ref(q, kd, vd, valid, softcap=cap)
+    torch.testing.assert_close(got_d.float(), want_d.float(), atol=tol,
+                               rtol=tol)
+    if dtype == torch.float32:
+        split, _ = ref.decode_splits(B, K, kd.shape[1],
+                                     torch.cuda.get_device_properties(
+                                         cuda).multi_processor_count)
+        mirror = ref.split_decode_ref(q, kd, vd, valid, split, softcap=cap)
+        torch.testing.assert_close(got_d, mirror, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@PAGE_DTYPES
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,K,D,pt,lengths,cap", SPLIT_CASES,
+                         ids=SPLIT_IDS)
+def test_split_quant_kernel_matches_plain(cuda, B, H, K, D, pt, lengths, cap,
+                                          dtype, tol, page_dtype):
+    q, kp, vp, table, lens = _on(cuda, *_split_inputs(29, B, H, K, D, pt,
+                                                      lengths))
+    kq, ks = attention.page_quant(kp, page_dtype)
+    vq, vs = attention.page_quant(vp, page_dtype)
+    q = q.to(dtype)
+    got = pdec.paged_decode_attention_quant_cuda(q, kq, vq, ks, vs, table,
+                                                 lens, softcap=cap)
+    want = pdec.paged_decode_attention_quant_ref(q, kq, vq, ks, vs, table,
+                                                 lens, softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,D,pt,lengths,cap", SPLIT_CASES,
+                         ids=SPLIT_IDS)
+def test_split_kernels_keep_their_bitwise_twins(cuda, B, H, K, D, pt,
+                                                lengths, cap):
+    """Across several splits: dense ≡ paged on the same tokens (f32 q,
+    prefix masks), and int8 / fp8 pages ≡ the model-dtype kernel on their
+    dequantized pages."""
+    arrays = _split_inputs(31, B, H, K, D, pt, lengths)
+    q, kp, vp, table, lens = _on(cuda, *arrays)
+    _, kd, vd, valid = _on(cuda, *_dense_of(*arrays))
+    assert torch.equal(
+        dec.decode_attention_cuda(q, kd, vd, valid, softcap=cap),
+        pdec.paged_decode_attention_cuda(q, kp, vp, table, lens,
+                                         softcap=cap))
+    for page_dtype in (torch.int8, torch.float8_e4m3fn):
+        kq, ks = attention.page_quant(kp, page_dtype)
+        vq, vs = attention.page_quant(vp, page_dtype)
+        assert torch.equal(
+            pdec.paged_decode_attention_quant_cuda(q, kq, vq, ks, vs, table,
+                                                   lens, softcap=cap),
+            pdec.paged_decode_attention_cuda(
+                q, attention.page_dequant(kq, ks),
+                attention.page_dequant(vq, vs), table, lens, softcap=cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [5, 7], ids=["llama2-7b", "recurrentgemma"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_are_deterministic(cuda, case, dtype):
+    """Two launches on the same inputs give the same bits, for each body:
+    the splits combine in a fixed order, with no float atomics."""
+    B, H, K, D, pt, lengths, cap = SPLIT_CASES[case]
+    arrays = _split_inputs(37, B, H, K, D, pt, lengths)
+    q, kp, vp, table, lens = _on(cuda, *arrays)
+    _, kd, vd, valid = _on(cuda, *_dense_of(*arrays))
+    q, kp, vp, kd, vd = (t.to(dtype) for t in (q, kp, vp, kd, vd))
+    kq, ks = attention.page_quant(kp.float(), torch.int8)
+    vq, vs = attention.page_quant(vp.float(), torch.int8)
+    for run in (lambda: dec.decode_attention_cuda(q, kd, vd, valid),
+                lambda: pdec.paged_decode_attention_cuda(q, kp, vp, table,
+                                                         lens),
+                lambda: pdec.paged_decode_attention_quant_cuda(
+                    q, kq, vq, ks, vs, table, lens)):
+        first = run()
+        assert torch.equal(first, run())
+
+
+@pytest.mark.cuda
+def test_decode_kernels_refuse_what_does_not_fit(cuda):
+    """A group and width whose tiles overflow a block's shared memory are
+    refused by the kernels (an error code, cleared); a launch after the
+    refusal still runs."""
+    q, k, v, valid, _ = _decode_inputs(0, 1, 64, 1, 1024, 64, "rows")
+    q, k, v, valid = _on(cuda, q, k, v, valid)
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        dec.decode_attention_cuda(q, k, v, valid)
+    qp, kp, vp, table, lens = _on(cuda, *_paged_inputs(0, 1, 64, 1, 1024, 16,
+                                                       64))
+    with pytest.raises(RuntimeError, match="paged_decode_attention"):
+        pdec.paged_decode_attention_cuda(qp, kp, vp, table, lens)
+    q, k, v, valid, _ = _decode_inputs(1, 2, 8, 2, 32, 100, "rows")
+    q, k, v, valid = _on(cuda, q, k, v, valid)
+    torch.testing.assert_close(dec.decode_attention_cuda(q, k, v, valid),
+                               dec.decode_attention_ref(q, k, v, valid),
+                               atol=1e-4, rtol=1e-4)
 
 
 def _slot_cache_run(p, cfg, dev, kv_dtype, toks, H):
