@@ -29,10 +29,15 @@ Phases, each fatal on failure:
                 decode bodies are timed at ``DECODE_TIMED`` (llama2-7b at
                 B=8 and B=1, recurrentgemma-9b), event and device-only,
                 sdpa beside the dense one. The scan kernels ``ssd``
-                (mamba2: its prefill shape, a ragged three-chunk sequence,
-                the scoring shape, batch 1) and ``rglru`` (recurrentgemma:
-                its prefill shape, a ragged length, batch 1) are held in
-                f32 at 3e-4 and 2e-5;
+                (mamba2: tile and chunk edges, and the ``SSD_TIMED``
+                shapes: prefill, GSI scoring, batch 1, a ragged three-chunk
+                sequence, each launched twice for the same bits and timed
+                event and device-only) and ``rglru`` (recurrentgemma: its
+                prefill shape, a ragged length, batch 1) are held in f32 at
+                3e-4 and 2e-5; the fused GLU at llama2-7b's and
+                recurrentgemma-9b's widths and an odd one, timed at
+                ``GLU_TIMED`` (llama prefill and scoring, recurrentgemma's
+                GeGLU prefill), event and device-only;
   3. reference — a small model through the kernels on the card against the
                 same model through the plain versions on the CPU: paged
                 with a model-dtype and an int8 page pool, the slot path
@@ -84,6 +89,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
             "torch.float32": 67e12}  # dense tensor bf16 / non-tensor f32
+TF32_OPS = 495e12              # dense tensor TF32 (ssd's 3xTF32 products)
 BASE_ARGV = ["--arch", "llama2-7b", "--mode", "masked", "--policy", "rl",
              "--episodes", "0", "--max-new", "8", "--seed", "0"]
 SERVE_ARGV = BASE_ARGV + ["--executor", "paged", "--requests", "6",
@@ -162,29 +168,56 @@ def check(name: str, out, ref, dtype) -> float:
 
 
 # ------------------------------------------------------------- kernel cases
-def glu_cases(torch, ops, swiglu):
-    g = torch.Generator(device="cuda").manual_seed(1)
-    F = 11008
-    errs = {}
-    for T, act, dt in [(8, "swiglu", torch.float32), (256, "swiglu", torch.float32),
-                       (8, "swiglu", torch.bfloat16), (2048, "swiglu", torch.bfloat16),
-                       (37, "geglu", torch.bfloat16), (37, "geglu", torch.float32)]:
-        h = torch.randn(T, 2 * F, generator=g, device="cuda").to(dt)
-        errs[(T, act, str(dt))] = check(
-            f"fused_glu T={T} F={F} {act} {dt}", ops.fused_glu(h, act),
-            swiglu.glu_ref(h, act), dt)
-    T, dt = 2048, torch.bfloat16           # prefill of 8×256 tokens
+# the shapes the fused GLU is timed at, rows, F, activation: llama2-7b's
+# monolithic prefill of 8 x 256 (the headline, comparable across PRs), its
+# GSI scoring forward (2 calibration rows x 8 candidates of 64 tokens) and
+# recurrentgemma-9b's GeGLU prefill (8 x 264 tokens)
+GLU_TIMED = {"prefill": (2048, 11008, "swiglu"),
+             "scoring": (1024, 11008, "swiglu"),
+             "recurrentgemma": (2112, 12288, "geglu")}
+
+
+def glu_timing(torch, swiglu, g, T, F, act) -> dict:
+    """The fused GLU on random bf16 ``h [T, 2F]``, held against its plain
+    version, then timed: event (``ms``) and device-only (``busy_ms``) ms,
+    the plain version's ms and the byte bound."""
+    dt = torch.bfloat16
     h = torch.randn(T, 2 * F, generator=g, device="cuda").to(dt)
-    es = h.element_size()
-    bms, by = bound_ms(3 * T * F * es, 5 * T * F, torch.float32)
+    shape = f"h [{T}, {2 * F}] {act} {dt}"
+    err = check(f"timed fused_glu {shape}", swiglu.fused_glu_cuda(h, act),
+                swiglu.glu_ref(h, act), dt)
+    bms, by = bound_ms(3 * T * F * h.element_size(), 5 * T * F,
+                       torch.float32)
+    return {"max_abs_err": err,
+            "ms": time_ms(lambda: swiglu.fused_glu_cuda(h, act)),
+            "busy_ms": time_ms(lambda: swiglu.fused_glu_cuda(h, act),
+                               hide_launch=True),
+            "plain_ms": time_ms(lambda: swiglu.glu_ref(h, act)),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": shape}
+
+
+def glu_cases(torch, ops, swiglu):
+    """The fused GLU at llama2-7b's and recurrentgemma-9b's widths (the
+    vector path) and at an odd width (the element path), f32 and bf16;
+    timed at the ``GLU_TIMED`` shapes, llama's prefill the headline."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for T, F, act, dt in [(8, 11008, "swiglu", torch.float32),
+                          (256, 11008, "swiglu", torch.float32),
+                          (8, 11008, "swiglu", torch.bfloat16),
+                          (37, 11008, "geglu", torch.bfloat16),
+                          (37, 11008, "geglu", torch.float32),
+                          (264, 12288, "geglu", torch.bfloat16),
+                          (5, 11007, "swiglu", torch.bfloat16)]:
+        h = torch.randn(T, 2 * F, generator=g, device="cuda").to(dt)
+        check(f"fused_glu T={T} F={F} {act} {dt}", ops.fused_glu(h, act),
+              swiglu.glu_ref(h, act), dt)
+    timed = {name: glu_timing(torch, swiglu, g, *shape)
+             for name, shape in GLU_TIMED.items()}
     return {"name": "fused_glu", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/swiglu.cu",
             "replaces": "src/repro/kernels/swiglu.py:35",
-            "max_abs_err": errs[(T, "swiglu", str(dt))],
-            "ms": time_ms(lambda: swiglu.fused_glu_cuda(h, "swiglu")),
-            "plain_ms": time_ms(lambda: swiglu.glu_ref(h, "swiglu")),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "shape": f"h [{T}, {2 * F}] {dt}"}
+            **timed.pop("prefill"), **timed}
 
 
 def paged_inputs(torch, B, H, K, D, pt, max_len, dt, seed):
@@ -584,43 +617,83 @@ def scan_inputs(torch, B=8, T=256, H=32, P=64, N=128, W=4096, seed=41):
             rnd(B, T, W, scale=0.5))
 
 
+# the shapes ssd is timed at, B, T, H, P, N, chunk: mamba2-370m's prefill
+# (the headline, comparable across PRs), the GSI scoring forward (2
+# calibration rows x 8 candidates of 64 tokens: one 64-token chunk; most of
+# serve 5's launches), batch 1, and a ragged sequence of three chunks
+SSD_TIMED = {"prefill": (8, 256, 32, 64, 128, 256),
+             "scoring": (16, 64, 32, 64, 128, 256),
+             "batch1": (1, 256, 32, 64, 128, 256),
+             "three_chunks": (2, 600, 32, 64, 128, 256)}
+
+
+def ssd_bound(torch, B, T, H, P, N, Q) -> tuple:
+    """(bound ms, what bounds it, bound ms on TF32 tensor cores) of the
+    chunked scan. Bytes: xh, log_a, B and C read once, y and the final
+    state written once. Operations on causal pairs only: C·Bᵀ once per
+    (batch, chunk) for every head (one group); per head (C·Bᵀ ⊙ L)·x and
+    the chunk's own state 2·q·N·P, and C·stateᵀ 2·q·N·P only after the
+    first chunk, whose carried state is zero. The first bound takes the
+    f32 FMA rate (the inputs' type); the kernel's 3xTF32 products make
+    three TF32 products of each, at 495 TFLOP/s."""
+    chunks = [min(Q, T - c) for c in range(0, T, Q)]
+    pairs = sum(q * (q + 1) // 2 for q in chunks)
+    ops = (B * 2 * pairs * N
+           + B * H * (2 * pairs * P + 2 * T * N * P
+                      + 2 * (T - chunks[0]) * N * P))
+    nbytes = 4 * (2 * B * T * H * P + B * T * H + 2 * B * T * N
+                  + B * H * P * N)
+    bms, by = bound_ms(nbytes, ops, torch.float32)
+    return bms, by, max(nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS) * 1e3
+
+
+def ssd_timing(torch, ssd, B, T, H, P, N, Q) -> dict:
+    """``ssd`` on ``scan_inputs`` at one shape: held against its plain
+    version, launched twice for the same bits, then timed: event (``ms``)
+    and device-only (``busy_ms``) ms, the plain version's ms and the
+    bounds."""
+    xh, log_a, Bm, Cm, _, _ = scan_inputs(torch, B, T, H, P, N, 1)
+    shape = f"B={B} T={T} H={H} P={P} N={N} chunk={min(Q, T)} f32"
+    y, fin = ssd.ssd_cuda(xh, log_a, Bm, Cm, Q)
+    y_ref, fin_ref = ssd.ssd_ref(xh, log_a, Bm, Cm, Q)
+    err = max(check_scan(f"timed ssd {shape} y", y, y_ref, SCAN_TOL["ssd"]),
+              check_scan(f"timed ssd {shape} state", fin, fin_ref,
+                         SCAN_TOL["ssd"]))
+    y2, fin2 = ssd.ssd_cuda(xh, log_a, Bm, Cm, Q)
+    if not (torch.equal(y, y2) and torch.equal(fin, fin2)):
+        raise AssertionError(f"two launches of ssd at {shape} gave "
+                             f"different bits")
+    bms, by, tc_ms = ssd_bound(torch, B, T, H, P, N, Q)
+    run = lambda: ssd.ssd_cuda(xh, log_a, Bm, Cm, Q)
+    return {"max_abs_err": err, "ms": time_ms(run),
+            "busy_ms": time_ms(run, hide_launch=True),
+            "plain_ms": time_ms(lambda: ssd.ssd_ref(xh, log_a, Bm, Cm, Q)),
+            "bound_ms": bms, "bound_by": by, "bound_3xtf32_ms": tc_ms,
+            "library_ms": None, "shape": shape}
+
+
 def ssd_cases(torch, ops, ssd):
-    """mamba2-370m's SSD at its prefill shape (one 256-token chunk), a
-    ragged three-chunk sequence, the GSI scoring shape (2 × 64 calibration
-    tokens × 8 candidates: one 64-token chunk), batch 1, and small odd
-    shapes; y and the final state each held to the plain version."""
-    errs = []
-    cases = [(8, 256, 32, 64, 128, 256), (2, 600, 32, 64, 128, 256),
-             (16, 64, 32, 64, 128, 256), (1, 256, 32, 64, 128, 256),
-             (2, 100, 4, 32, 64, 32), (1, 48, 3, 16, 32, 16)]
+    """mamba2-370m's SSD at the ``SSD_TIMED`` shapes (each checked, twice
+    for the same bits, and timed; the prefill shape is the headline) and
+    at small odd shapes and tile edges; y and the final state each held to
+    the plain version."""
+    cases = [(2, 100, 4, 32, 64, 32), (1, 48, 3, 16, 32, 16),
+             (1, 65, 2, 64, 128, 256), (1, 1, 2, 64, 128, 256),
+             (1, 50, 2, 6, 10, 16)]
     for i, (B, T, H, P, N, Q) in enumerate(cases):
         xh, log_a, Bm, Cm, _, _ = scan_inputs(torch, B, T, H, P, N, 1,
                                               seed=50 + i)
         y, fin = ops.ssd(xh, log_a, Bm, Cm, Q)
         y_ref, fin_ref = ssd.ssd_ref(xh, log_a, Bm, Cm, Q)
         name = f"ssd B={B} T={T} H={H} P={P} N={N} chunk={min(Q, T)}"
-        errs.append(max(check_scan(name + " y", y, y_ref, SCAN_TOL["ssd"]),
-                        check_scan(name + " state", fin, fin_ref,
-                                   SCAN_TOL["ssd"])))
-    B, T, H, P, N, Q = cases[0]
-    xh, log_a, Bm, Cm, _, _ = scan_inputs(torch, B, T, H, P, N, 1)
-    # causal pairs only: the kernel never computes the upper triangle.
-    # C·Bᵀ is one product per (batch, chunk), shared by every head (one
-    # group); (C·Bᵀ ⊙ L)·x, C·stateᵀ and the state update are per head
-    pairs = sum(q * (q + 1) // 2 for q in
-                [min(Q, T - c) for c in range(0, T, Q)])
-    ops_ = B * 2 * pairs * N + B * H * (2 * pairs * P + 4 * T * N * P)
-    nbytes = 4 * (2 * xh.numel() + log_a.numel() + 2 * Bm.numel()
-                  + B * H * P * N)
-    bms, by = bound_ms(nbytes, ops_, torch.float32)
+        check_scan(name + " y", y, y_ref, SCAN_TOL["ssd"])
+        check_scan(name + " state", fin, fin_ref, SCAN_TOL["ssd"])
+    timed = {name: ssd_timing(torch, ssd, *shape)
+             for name, shape in SSD_TIMED.items()}
     return {"name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd.py:76",
-            "max_abs_err": errs[0],
-            "ms": time_ms(lambda: ssd.ssd_cuda(xh, log_a, Bm, Cm, Q)),
-            "plain_ms": time_ms(lambda: ssd.ssd_ref(xh, log_a, Bm, Cm, Q)),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "shape": f"B={B} T={T} H={H} P={P} N={N} chunk={Q} f32"}
+            **timed.pop("prefill"), **timed}
 
 
 def rglru_cases(torch, ops, rglru):

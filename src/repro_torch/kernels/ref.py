@@ -16,6 +16,12 @@ splits' partial softmaxes in a fixed order; :func:`split_decode_ref` and
 :func:`split_paged_decode_ref` mirror that arithmetic in plain PyTorch for
 the tests (nothing on the serving path calls them).
 
+The CUDA ``ssd`` kernels decompose the chunked scan: C·Bᵀ once per
+(batch, chunk) for all heads, each chunk's own state in parallel, the
+state passed across chunks, then y per 64-row query tile.
+:func:`ssd_split_ref` mirrors that decomposition in plain PyTorch for the
+tests (the serving path runs ``kernels/ssd.py::ssd_ref`` on the CPU).
+
 Quantized page pools (int8 / float8_e4m3fn codes with one f32 scale per
 (page, kv head)) are widened by :func:`page_dequant`, the exact function
 the fused-dequant kernel is pinned against; :func:`take_pages` and
@@ -129,6 +135,55 @@ def split_paged_decode_ref(q, k_pages, v_pages, page_table, lengths,
     valid = (torch.arange(ck.shape[1], device=q.device)[None, :]
              < lengths[:, None])
     return split_decode_ref(q, ck, cv, valid, split_tokens, softcap=softcap)
+
+
+def ssd_split_ref(xh, log_a, Bm, Cm, chunk: int = 256, tile: int = 64):
+    """The CUDA ``ssd`` kernels' decomposition of the chunked scan, in plain
+    f32 (inputs and outputs as ``kernels/ssd.py::ssd_ref``):
+
+    1. per (batch, chunk), for all heads at once: G = C·Bᵀ; per (batch,
+       head, chunk), in parallel: the chunk's own state
+       (x ⊙ exp(total − a_cum))ᵀ·B;
+    2. per (batch, head), in chunk order: the state entering each chunk,
+       s_c = s_{c−1}·exp(total_c) + own_c, from zero;
+    3. per (batch, head, chunk, ``tile``-row query tile): y =
+       exp(a_cum) ⊙ (C·s_{c−1}ᵀ), skipped on the first chunk (its state is
+       zero), plus (G ⊙ L)·x over the key tiles up to the diagonal, with
+       L = exp(a_cum[q] − a_cum[s]) taken only where s <= q."""
+    B, T, H, P = xh.shape
+    Q = min(int(chunk), T)
+    x_all, la = xh.float(), log_a.float()
+    Bf, Cf = Bm.float(), Cm.float()
+    parts = []
+    for c0 in range(0, T, Q):
+        sl = slice(c0, min(T, c0 + Q))
+        a = torch.cumsum(la[:, sl], dim=1)                     # [B,q,H]
+        w = torch.exp(a[:, -1:] - a)
+        own = torch.einsum("bshp,bsh,bsn->bhpn", x_all[:, sl], w, Bf[:, sl])
+        parts.append((sl, a, torch.einsum("bqn,bsn->bqs", Cf[:, sl],
+                                          Bf[:, sl]), own))
+    state = torch.zeros_like(parts[0][3])
+    y = torch.empty(B, T, H, P, dtype=torch.float32, device=xh.device)
+    for c, (sl, a, G, own) in enumerate(parts):
+        x, Cc, q = x_all[:, sl], Cf[:, sl], a.shape[1]
+        for q0 in range(0, q, tile):
+            q1 = min(q0 + tile, q)
+            yt = torch.zeros(B, q1 - q0, H, P, device=xh.device)
+            if c > 0:
+                yt = torch.einsum("bqn,bhpn->bqhp", Cc[:, q0:q1], state) \
+                    * torch.exp(a[:, q0:q1])[..., None]
+            for k0 in range(0, q1, tile):
+                k1 = min(k0 + tile, q)
+                causal = (torch.arange(k0, k1, device=xh.device)[None, :]
+                          <= torch.arange(q0, q1, device=xh.device)[:, None])
+                seg = a[:, q0:q1, None, :] - a[:, None, k0:k1, :]
+                L = torch.exp(seg.masked_fill(~causal[None, :, :, None],
+                                              float("-inf")))
+                yt = yt + torch.einsum("bqs,bqsh,bshp->bqhp",
+                                       G[:, q0:q1, k0:k1], L, x[:, k0:k1])
+            y[:, sl.start + q0:sl.start + q1] = yt
+        state = state * torch.exp(a[:, -1])[..., None, None] + own
+    return y, state
 
 
 def _sdpa(q, k, v, mask, softcap: float = 0.0):

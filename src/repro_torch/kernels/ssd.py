@@ -3,8 +3,10 @@
 ``ssd_ref`` is the plain PyTorch version (any device): the chunked form
 of ``repro/models/ssm.py::_ssd_scan``, a Python loop over chunks batched
 over (batch, head) — what the model runs on the CPU. ``ssd_cuda``
-launches the CUDA kernel ``csrc/ssd.cu``, the port of the Pallas kernel
-``repro/kernels/ssd.py::ssd``.
+launches the CUDA kernels of ``csrc/ssd.cu``, the port of the Pallas kernel
+``repro/kernels/ssd.py::ssd``, from one entry point: the chunked scan's
+GPU decomposition (``ref.ssd_split_ref`` mirrors its arithmetic for the
+tests).
 
 Inputs are f32: ``xh [B,T,H,P]`` (dt already folded in), ``log_a
 [B,T,H]``, ``Bm``/``Cm [B,T,N]`` (one group, shared by every head).
@@ -19,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+
+TILE = 64          # csrc/ssd.cu kT: query and key tiles of C·Bᵀ
 
 
 def ssd_ref(xh, log_a, Bm, Cm, chunk: int = 256):
@@ -66,14 +70,23 @@ def ssd_cuda(xh, log_a, Bm, Cm, chunk: int = 256):
         raise ValueError(f"bad shapes xh {tuple(xh.shape)} log_a "
                          f"{tuple(log_a.shape)} B {tuple(Bm.shape)} C "
                          f"{tuple(Cm.shape)}")
-    # the kernel refuses a chunk over 256 and a (P, N) state whose tiles do
+    # the kernel refuses a chunk over 256 and a state width N whose tiles do
     # not fit a block's shared memory; build.check raises on its error code
     Q = min(int(chunk), T)
+    nc = -(-T // Q)
+    qp = TILE * -(-Q // TILE)
     y = torch.empty_like(xh)
     final = torch.empty(B, H, P, N, dtype=torch.float32, device=xh.device)
-    fn = build.function("rap_ssd", [build.P] * 6 + [build.I] * 6
+    # scratch: the causal 64 x 64 tiles of C·Bᵀ of each (batch, chunk), and,
+    # past one chunk, each chunk's own state (then the state entering it)
+    # [B, nc, H, P, N] followed by its decay exp(total) [B, nc, H]
+    g = torch.empty(B, nc, qp, qp, dtype=torch.float32, device=xh.device)
+    states = (torch.empty(B * nc * H * (P * N + 1), dtype=torch.float32,
+                          device=xh.device) if nc > 1 else None)
+    fn = build.function("rap_ssd", [build.P] * 8 + [build.I] * 6
                         + [build.P])
     build.check(fn(xh.data_ptr(), log_a.data_ptr(), Bm.data_ptr(),
-                   Cm.data_ptr(), y.data_ptr(), final.data_ptr(), B, T, H,
-                   P, N, Q, build.stream(xh)), "ssd")
+                   Cm.data_ptr(), y.data_ptr(), final.data_ptr(),
+                   g.data_ptr(), None if states is None else states.data_ptr(),
+                   B, T, H, P, N, Q, build.stream(xh)), "ssd")
     return y, final

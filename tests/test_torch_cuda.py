@@ -10,17 +10,20 @@ Tolerances: 1e-4 in f32 (TF32 off), 2e-2 in bf16 and fp16 for attention —
 the plain versions round the softmax probabilities to bf16 before the P·V
 product, as the JAX reference does, while the decode kernels keep them in
 f32 and the flash kernel's tensor-core body sums in another order — and
-1e-5 / 8e-3 (one bf16 rounding) for the fused GLU. The fused-dequant paged
-decode kernel (int8 and fp8 pages) is also held bitwise against the
-model-dtype kernel run on ``page_dequant``-ed pages, with f32 q, and the
-dense decode kernel bitwise against the paged kernel on pages holding the
-same tokens in order (f32 q, prefix mask). The case lists are shared with
-``tests/test_torch_kernels.py`` and ``tests/test_torch_quant.py``, which
-hold the plain versions against the JAX kernels on the CPU. The scan
-kernels (``ssd`` at 3e-4, ``rglru`` at 2e-5, both f32: the tolerances of
-``tests/test_torch_recurrent.py``) take that file's shapes plus mamba2's
-and recurrentgemma's widths. Small recurrent models are held card against
-CPU by ``chip_smoke.py``'s reference phase.
+1e-5 / 8e-3 / 2e-3 (one bf16 or fp16 rounding) for the fused GLU, whose
+16-byte vector path is also held bitwise against its element path. The
+fused-dequant paged decode kernel (int8 and fp8 pages) is also held
+bitwise against the model-dtype kernel run on ``page_dequant``-ed pages,
+with f32 q, and the dense decode kernel bitwise against the paged kernel on
+pages holding the same tokens in order (f32 q, prefix mask). The case lists
+are shared with ``tests/test_torch_kernels.py`` and
+``tests/test_torch_quant.py``, which hold the plain versions against the
+JAX kernels on the CPU. The scan kernels (``ssd`` at 3e-4, ``rglru`` at
+2e-5, both f32: the tolerances of ``tests/test_torch_recurrent.py``) take
+that file's shapes plus mamba2's and recurrentgemma's widths; ``ssd`` also
+its tile and chunk edges and ``chip_smoke.py``'s timed shapes, and two of
+its launches give the same bits. Small recurrent models are held card
+against CPU by ``chip_smoke.py``'s reference phase.
 """
 import numpy as np
 import pytest
@@ -296,6 +299,46 @@ def test_fused_glu_kernel_matches_plain(cuda, activation, dtype, tol):
     torch.testing.assert_close(swiglu.fused_glu_cuda(h, activation).float(),
                                swiglu.glu_ref(h, activation).float(),
                                atol=tol, rtol=tol)
+
+
+GLU_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 8e-3),
+              (torch.float16, 2e-3)]      # one rounding to the output type
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GLU_DTYPES, ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("F,activation", [(11008, "swiglu"),
+                                          (12288, "geglu"),
+                                          (11007, "swiglu")],
+                         ids=["llama", "recurrentgemma", "odd-F"])
+@pytest.mark.parametrize("T", [1, 2048])
+def test_fused_glu_kernel_at_the_serving_widths(cuda, T, F, activation,
+                                                dtype, tol):
+    """llama2-7b's and recurrentgemma-9b's widths take the 16-byte vector
+    path, an odd F the element path; one row and a prefill of 8 x 256."""
+    g = torch.Generator(device=cuda).manual_seed(T + F)
+    h = torch.randn(T, 2 * F, generator=g, device=cuda).to(dtype)
+    torch.testing.assert_close(swiglu.fused_glu_cuda(h, activation).float(),
+                               swiglu.glu_ref(h, activation).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("activation", ["swiglu", "geglu"])
+def test_fused_glu_vector_path_equals_element_path(cuda, activation, dtype):
+    """The same arithmetic on both paths: a buffer one element off a
+    16-byte boundary takes the element path and gives the vector path's
+    bits."""
+    T, F = 37, 11008
+    g = torch.Generator(device=cuda).manual_seed(7)
+    buf = torch.randn(T * 2 * F + 1, generator=g, device=cuda).to(dtype)
+    shifted = buf[1:].view(T, 2 * F)                 # element path
+    assert shifted.data_ptr() % 16 != 0
+    aligned = shifted.clone()                        # vector path
+    assert torch.equal(swiglu.fused_glu_cuda(aligned, activation),
+                       swiglu.fused_glu_cuda(shifted, activation))
 
 
 @pytest.mark.cuda
@@ -599,12 +642,28 @@ def test_slot_group_bucketed_horizon_makes_no_host_sync(cuda):
 
 
 # ----------------------------------------------------------- the scans
+# the kernel's tile and chunk edges (64-row query and key tiles, chunks of
+# 256): T around one and two tiles, one past a chunk, three chunks with a
+# ragged last one, a chunk smaller than a tile, one token; P, N at mamba2's
+# widths and below. tests/test_torch_ssd_split.py holds the plain mirror of
+# the kernel's decomposition against ssd_ref and Pallas on the same edges.
+SSD_EDGES = [
+    # B, T, H, P, N, chunk
+    (1, 63, 2, 64, 128, 256), (1, 64, 2, 64, 128, 256),
+    (1, 65, 2, 64, 128, 256), (1, 129, 2, 64, 128, 256),
+    (2, 257, 2, 16, 32, 256), (1, 600, 2, 16, 32, 256),
+    (2, 100, 3, 32, 64, 32), (2, 1, 2, 64, 128, 256),
+]
+# the shapes chip_smoke.py times: GSI scoring, prefill, batch 1, three chunks
+SSD_TIMED = [(16, 64, 32, 64, 128, 256), (8, 256, 32, 64, 128, 256),
+             (1, 256, 32, 64, 128, 256), (2, 600, 32, 64, 128, 256)]
 SSD_CASES = [
     # B, T, H, P, N, chunk
     (1, 64, 2, 16, 16, 16), (2, 100, 4, 32, 64, 32),   # ragged T
     (1, 48, 3, 16, 32, 16), (2, 300, 4, 64, 128, 256),  # mamba2's head
     (3, 64, 2, 64, 128, 256),                           # T < chunk
-]
+    (1, 50, 2, 6, 10, 16),                              # P, N % 4 != 0
+] + SSD_EDGES + SSD_TIMED
 
 
 def _ssd_inputs(seed, B, T, H, P, N):
@@ -623,6 +682,18 @@ def test_ssd_kernel_matches_plain(cuda, B, T, H, P, N, Q):
     y_ref, fin_ref = ssd.ssd_ref(*args, Q)
     torch.testing.assert_close(y, y_ref, atol=3e-4, rtol=3e-4)
     torch.testing.assert_close(fin, fin_ref, atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,N,Q", SSD_TIMED + [SSD_EDGES[-3]])
+def test_ssd_kernel_is_deterministic(cuda, B, T, H, P, N, Q):
+    """Two launches on the same inputs give the same bits: no atomics,
+    every sum in a fixed order (the state pass included)."""
+    args = [torch.from_numpy(a).to(cuda) for a in
+            _ssd_inputs(B + T, B, T, H, P, N)]
+    y, fin = ssd.ssd_cuda(*args, Q)
+    y2, fin2 = ssd.ssd_cuda(*args, Q)
+    assert torch.equal(y, y2) and torch.equal(fin, fin2)
 
 
 @pytest.mark.cuda
