@@ -70,7 +70,28 @@ Phases, each fatal on failure:
                 d_model 4096, vocab 256000, 8.6B parameters): serve 1's
                 checks, and the launches the layout implies (26 ``rglru``,
                 12 flash and 38 GLU per forward; 12 dense decode and 38 GLU
-                per decode step), none paged.
+                per decode step), none paged;
+ 10. serve 7  — serve 1 with ``--episodes 6``: the RAP controller is
+                trained first (DQN over ``PruneEnv``, whose GSI scoring
+                forwards run on the card): every episode fits, rewards and
+                losses finite, at least one TD update, and 32 flash and 32
+                GLU launches per scoring forward and no other launch during
+                training; then serve 1's checks for the trained controller;
+ 11. shock    — ``scenarios.run_budget_shock`` on llama2-7b at full width
+                (DensePolicy, 12 requests, 8 slots) on paged bf16 pages,
+                paged int8 pages and ``--executor local`` slot caches:
+                preemptions and spilled MB > 0, completions in the shock and
+                after it, the pool drained, the token agreement with the
+                unshocked run (printed, not gated; the decode kernels take
+                their split from the slot width, so the rows a request
+                steps with do not change its sums), and one request's pages
+                and scale rows through spill → restore bitwise; then
+                ``run_cancellation_storm`` on paged bf16: at least a quarter
+                cancelled, no live request, no leaked page.
+
+The reference phase also serves a small fp32 trace (TF32 off) with and
+without a budget shock on paged f32 and int8 pools and on slot caches:
+tokens must be equal.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a GPU, or without the rest of
@@ -83,6 +104,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
@@ -108,6 +131,10 @@ SERVE5_ARGV = ([a if a != "llama2-7b" else "mamba2-370m" for a in SERVE3_ARGV]
                + ["--pool-requests", "1.0"])
 SERVE6_ARGV = [a if a != "llama2-7b" else "recurrentgemma-9b"
                for a in SERVE3_ARGV]
+# serve 1 with the controller trained first: 6 episodes of the pruning
+# MDP bring the replay buffer past its batch of 64 transitions at seed 0
+SERVE7_ARGV = [("6" if prev == "--episodes" else a)
+               for prev, a in zip([None] + SERVE_ARGV, SERVE_ARGV)]
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2, "torch.float16": 2e-2}
 
 
@@ -879,6 +906,290 @@ def recurrent_reference(torch) -> None:
               f"'error': no host sync")
 
 
+def shock_engine(model, params, mm, kind, kv_dtype, budget, max_len,
+                 max_new, horizon, tokens_per_page, slots=4):
+    """A DensePolicy engine (a keep-mask the live budget cannot change) on
+    the paged or slot path at ``kv_dtype``."""
+    from repro_torch.core.policy import DensePolicy
+    from repro_torch.runtime import (EngineConfig, LocalExecutor,
+                                     PagedExecutor, RAPEngine)
+    make = PagedExecutor if kind == "paged" else LocalExecutor
+    return RAPEngine(model, params, DensePolicy(mm), EngineConfig(
+        mode="masked", max_new_tokens=max_new, max_active=slots,
+        max_len=max_len, budget_bytes=budget,
+        tokens_per_page=tokens_per_page, kv_dtype=kv_dtype,
+        decode_horizon=horizon),
+        executor=make(model, params, max_active=slots, kv_dtype=kv_dtype))
+
+
+# the shock trace: 12 batch-1 requests on 8 slots (serve 1's), a pool of 5
+# dense requests of 272 tokens, so that up to 8 decode together and a
+# shock moves the survivors from the 8-row decode bucket to the 4-row one
+SHOCK_REQUESTS, SHOCK_SLOTS, SHOCK_POOL = 12, 8, 5.0
+# name, executor, KV precision, the share of the KV headroom the shock
+# cuts: int8 pages hold about twice the tokens of bf16 in the same bytes,
+# so their shock cuts deeper to reach below the reservations
+SHOCK_CONFIGS = (("paged bf16", "paged", None, 0.5),
+                 ("paged int8", "paged", "int8", 0.75),
+                 ("local", "local", None, 0.5))
+
+
+def reference_shock(torch, device: str = "cuda") -> None:
+    """The small fp32 model on the card: 8 requests (prompts of 16 and 24
+    tokens, 6 new tokens, all arriving at t = 0) unshocked and under a
+    shock that cuts 80% of the KV headroom from tick 3 to 13, on paged f32
+    and int8 pools and slot caches; the tokens must be equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import masks, memory
+    from repro_torch.models import registry
+    from repro_torch.runtime import EngineRequest, TickStaircase
+    cfg = get_smoke_config("llama2-7b").replace(n_layers=4)
+    model = registry.build(cfg)
+    params = model.init(0, device)
+    mm = memory.build_memory_model(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (1, 24),
+                         generator=torch.Generator().manual_seed(8)).numpy()
+    full = masks.full_mask(cfg.n_layers)
+    budget = mm.param_bytes(full) + 2.5 * mm.state_bytes(full, 1, 26)
+    for name, kind, kv, _ in SHOCK_CONFIGS:
+        name = name.replace("bf16", "f32")
+        reps = []
+        for shock in (False, True):
+            eng = shock_engine(model, params, mm, kind, kv, budget, 32, 6, 2,
+                               8)
+            kvb = budget - eng.resident_param_bytes
+            frac = (eng.resident_param_bytes + 0.2 * kvb) / budget
+            trace = (TickStaircase(budget, [(3, 1.0), (10, frac), (0, 1.0)])
+                     if shock else None)
+            reps.append(eng.run([EngineRequest(
+                rid=f"r{i}", prompt=toks[:, : (16 if i % 2 else 24)])
+                for i in range(8)], budget_trace=trace))
+        want = {r.rid: r.tokens for r in reps[0].results}
+        same = all(np.array_equal(r.tokens, want[r.rid])
+                   for r in reps[1].results if r.status == "done")
+        done = sum(r.status == "done" for r in reps[1].results)
+        print(f"  reference shock ({name}, f32 model): "
+              f"{reps[1].preempted_count} preempted, {done}/8 done, tokens "
+              f"equal to the unshocked run: {same}")
+        if not same or done != 8 or reps[1].preempted_count < 1:
+            raise AssertionError(f"the small model's shocked trace ({name}) "
+                                 f"differs from the unshocked one")
+
+
+def shock_requests(cfg, n: int = 8, max_new: int = 16):
+    """``n`` batch-1 requests, all arriving at t = 0 (so admission does not
+    depend on the card's speed), prompts of 64-256 tokens from the seeded
+    corpus."""
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.runtime import EngineRequest
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(0)
+    return [EngineRequest(rid=f"s{i}", prompt=corpus.sample_tokens(
+                rng, 1, int(rng.integers(1, 5)) * 64), max_new=max_new)
+            for i in range(n)]
+
+
+def spill_roundtrip(torch, pool) -> None:
+    """One request's pages and scale rows through spill → restore on the
+    card, onto other pages: ``torch.equal`` on every byte."""
+    from repro_torch.kernels.ref import put_pages, take_pages
+    n_tok = 3 * pool.tokens_per_page + 5
+    pool.alloc_tokens("probe", 2, n_tok, max_tokens=n_tok)
+    ids = [p for row in pool.row_pages("probe") for p in row]
+    idx = (slice(None), torch.tensor(ids, device=pool.k_pages.device))
+    g = torch.Generator(device=pool.k_pages.device).manual_seed(4)
+    shape = (pool.k_pages.shape[0], len(ids), *pool.k_pages.shape[2:])
+    for pages in (pool.k_pages, pool.v_pages):
+        put_pages(pages, idx, 60 * torch.randn(shape, generator=g,
+                                               device=pages.device))
+    if pool.k_scales is not None:
+        for sc in (pool.k_scales, pool.v_scales):
+            sc[idx] = torch.rand(sc[idx].shape, generator=g,
+                                 device=sc.device) + 0.1
+    want = [take_pages(p, idx).clone() for p in (pool.k_pages, pool.v_pages)]
+    want += ([] if pool.k_scales is None
+             else [s[idx].clone() for s in (pool.k_scales, pool.v_scales)])
+    pool.spill("probe")
+    pool.alloc_tokens("other", 1, pool.tokens_per_page,
+                      max_tokens=pool.tokens_per_page)
+    for pages in (pool.k_pages, pool.v_pages):
+        put_pages(pages, idx, torch.zeros(shape, device=pages.device))
+    rows = pool.restore("probe")
+    new = (slice(None), torch.tensor([p for r in rows for p in r],
+                                     device=pool.k_pages.device))
+    got = [take_pages(p, new) for p in (pool.k_pages, pool.v_pages)]
+    got += ([] if pool.k_scales is None
+            else [s[new] for s in (pool.k_scales, pool.v_scales)])
+    same = all(torch.equal(a.view(torch.uint8) if a.element_size() == 1
+                           else a, b.view(torch.uint8)
+                           if b.element_size() == 1 else b)
+               for a, b in zip(got, want))
+    moved = set(new[1].tolist()) != set(ids)
+    pool.free("probe")
+    pool.free("other")
+    print(f"  spill → restore of one request ({len(ids)} pages"
+          f"{', scale rows' if pool.k_scales is not None else ''}) onto other "
+          f"pages: equal bitwise: {same}")
+    if not (same and moved and pool.bytes_reserved == 0):
+        raise AssertionError("spill → restore did not round-trip bitwise")
+
+
+def shock_phase(torch, ops, card: str, cfg, device: str = "cuda") -> dict:
+    """``run_budget_shock`` (a share of the KV headroom cut for the middle
+    ticks, one unshocked run before and one after) and a cancellation
+    storm, on one model at ``cfg``'s width; returns each run's summary."""
+    import gc
+    from repro_torch.core import masks, memory
+    from repro_torch.models import registry
+    from repro_torch.runtime import (TickStaircase, run_budget_shock,
+                                     run_cancellation_storm, token_agreement)
+    model = registry.build(cfg)
+    params = model.init(0, device)
+    mm = memory.build_memory_model(cfg)
+    reqs = shock_requests(cfg, SHOCK_REQUESTS)
+    max_len = 256 + 16
+    full = masks.full_mask(cfg.n_layers)
+    budget = mm.param_bytes(full) + SHOCK_POOL * mm.state_bytes(full, 1,
+                                                                max_len)
+    out = {}
+    for name, kind, kv, cut in SHOCK_CONFIGS:
+        eng = shock_engine(model, params, mm, kind, kv, budget, max_len, 16,
+                           4, 16, SHOCK_SLOTS)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = run_budget_shock(eng, reqs, budget_bytes=budget, frac=cut,
+                               replays=1)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        rep = res["report"]
+        agree = token_agreement(model, params, reqs, res["warm_report"], rep)
+        pool = rep.pool
+        summary = {
+            "card": card, "run": name, "requests": len(reqs),
+            "preempted_count": rep.preempted_count,
+            "spilled_mb": rep.spilled_mb,
+            "resume_ms": {k: rep.resume_latency.get(k, 0.0) * 1e3
+                          for k in ("p50", "p99")},
+            "itl_ms": {k: rep.itl.get(k, 0.0) * 1e3 for k in ("p50", "p99")},
+            "itl_preempted_ms": {k: rep.itl_preempted.get(k, 0.0) * 1e3
+                                 for k in ("p50", "p99")},
+            "completed": {p: res[p]["completed"]
+                          for p in ("pre", "shock", "post")},
+            "tok_per_s": rep.tokens_per_s,
+            "recovery_ratio": res["recovery_ratio"],
+            "agreement": agree, "launches": counts,
+            "n_pages": int(pool["n_pages"]), "wall_s": wall}
+        print(f"  shock ({name}) [{card}]: {rep.preempted_count} preempted, "
+              f"{rep.spilled_mb:.1f} MB spilled, resume p50/p99 "
+              f"{summary['resume_ms']['p50']:.1f}/"
+              f"{summary['resume_ms']['p99']:.1f} ms, completed pre/shock/"
+              f"post {summary['completed']}, itl p99 "
+              f"{summary['itl_ms']['p99']:.2f} ms (preempted requests "
+              f"{summary['itl_preempted_ms']['p99']:.2f}), recovery "
+              f"{res['recovery_ratio']:.3f}; tokens equal to the unshocked "
+              f"run in {agree['equal']}/{agree['requests']} requests "
+              f"({agree['equal_tokens']}/{agree['tokens']} tokens), first "
+              f"divergence {agree['first']}; launches {counts}")
+        print("shock: " + json.dumps(summary))
+        drained = (pool["reserved_bytes"] == 0
+                   and pool["spilled_requests"] == 0
+                   and pool["live_requests"] == 0
+                   and pool["free_pages"] == pool["n_pages"])
+        decode = {"paged bf16": "paged_decode_attention",
+                  "paged int8": "paged_decode_attention_quant",
+                  "local": "decode_attention"}[name]
+        if (rep.preempted_count < 1 or rep.spilled_mb <= 0 or not drained
+                or res["shock"]["completed"] < 1
+                or res["post"]["completed"] < 1
+                or any(r.status != "done" for r in rep.results)
+                or (device == "cuda"
+                    and min(counts[decode], counts["flash_attention"],
+                            counts["fused_glu"]) < 1)):
+            raise AssertionError(f"shock ({name}) failed its checks")
+        if kind == "paged":
+            spill_roundtrip(torch, eng.pool)
+        out[name] = summary
+        del eng, res, rep
+    # a storm of cancellations under a shock, paged bf16
+    eng = shock_engine(model, params, mm, "paged", None, budget, max_len,
+                       16, 4, 16, SHOCK_SLOTS)
+    kvb = budget - eng.resident_param_bytes
+    frac = (eng.resident_param_bytes + 0.5 * kvb) / budget
+    ops.reset_launches()
+    storm = run_cancellation_storm(
+        eng, reqs, cancel_frac=0.34, seed=5,
+        budget_trace=TickStaircase(budget, [(3, 1.0), (6, frac), (0, 1.0)]))
+    counts = ops.launch_counts()
+    print(f"  storm (paged bf16) [{card}]: {storm['cancelled']}/"
+          f"{storm['n_requests']} cancelled, {storm['done']} done, "
+          f"{storm['preempted_count']} preempted, live "
+          f"{int(storm['live_requests'])}, leaked pages "
+          f"{int(storm['leaked_pages'])}, spilled "
+          f"{int(storm['spilled_requests'])}; launches {counts}")
+    if (storm["cancelled"] < 0.25 * storm["n_requests"]
+            or storm["live_requests"] or storm["leaked_pages"]
+            or storm["spilled_requests"]
+            or storm["done"] + storm["cancelled"] != storm["n_requests"]):
+        raise AssertionError("the cancellation storm leaked")
+    out["storm"] = {"launches": counts,
+                    **{k: storm[k] for k in ("cancelled", "done",
+                                             "preempted_count")}}
+    del eng, model, params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(torch, ops, card: str) -> dict:
+    """Serve 7: ``launch.serve`` with ``--episodes``. The training call is
+    observed from outside (``dqn.train`` wrapped for the phase): its
+    result, its scoring forwards and the launches it made."""
+    from repro_torch.core import dqn
+    seen = {}
+    train = dqn.train
+
+    def observed(env_factory, **kw):
+        env = env_factory()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        tr = train(lambda: env, **kw)
+        torch.cuda.synchronize()
+        seen.update(tr=tr, forwards=env.forwards,
+                    seconds=time.perf_counter() - t0,
+                    counts={k: v - before[k]
+                            for k, v in ops.launch_counts().items()})
+        return tr
+
+    dqn.train = observed
+    try:
+        s7 = serve_phase(torch, ops, card, SERVE7_ARGV)
+    finally:
+        dqn.train = train
+    tr, n = seen["tr"], len(seen["tr"].episode_rewards)
+    c, f = seen["counts"], seen["forwards"]
+    want = {k: 0 for k in c}
+    want.update(flash_attention=s7["layers"] * f, fused_glu=s7["layers"] * f)
+    print(f"  training [{card}]: {n} episodes in {seen['seconds']:.1f} s "
+          f"({seen['seconds'] / n:.2f} s/episode), {len(tr.losses)} TD "
+          f"updates, {f} scoring forwards; rewards "
+          f"{[round(r, 4) for r in tr.episode_rewards]}, fits "
+          f"{tr.episode_fits}, last loss "
+          f"{tr.losses[-1] if tr.losses else None}; launches {c}")
+    if (not all(tr.episode_fits) or len(tr.losses) < 1
+            or not np.isfinite(tr.episode_rewards).all()
+            or not np.isfinite(tr.losses).all() or c != want):
+        raise AssertionError(f"serve 7's training failed its checks "
+                             f"(launches {c} against {want})")
+    serving = {k: v - c[k] for k, v in s7["launches"].items()}
+    if min(serving["paged_decode_attention"], serving["fused_glu"],
+           serving["flash_attention"]) < 1:
+        raise AssertionError("serve 7 did not serve through the kernels")
+    return {"launches": s7["launches"], "train_launches": c,
+            "train_s": seen["seconds"], "episodes": n,
+            "td_updates": len(tr.losses), "forwards": f}
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -1054,6 +1365,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s -> {lib}")
 
     print("kernels vs plain versions:")
+    t0 = time.perf_counter()
     timed = {name: decode_timing(torch, dec, pdec, attention, *shape)
              for name, shape in DECODE_TIMED.items()}
     entries = [paged_cases(torch, ops, pdec, timed),
@@ -1070,9 +1382,13 @@ def main() -> None:
                   f"{t['ms']:.4f} ms{busy}, plain {t['plain_ms']:.4f} ms, "
                   f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
                   f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms")
+    print(f"kernels: {time.perf_counter() - t0:.1f} s")
     print("reference:")
+    t0 = time.perf_counter()
     reference_phase(torch)
     recurrent_reference(torch)
+    reference_shock(torch)
+    print(f"reference: {time.perf_counter() - t0:.1f} s")
     print("serve:")
     s1 = serve_phase(torch, ops, card, SERVE_ARGV)
     c1 = s1["launches"]
@@ -1101,20 +1417,36 @@ def main() -> None:
         raise AssertionError("serve 3 did not decode through the dense "
                              "decode kernel alone")
     print("serve 4:")
+    t0 = time.perf_counter()
     c4 = serial_phase(torch, ops, card, SERVE4_ARGV)["launches"]
+    print(f"  serve 4: {time.perf_counter() - t0:.1f} s")
     print("serve 5:")
     c5 = serve_phase(torch, ops, card, SERVE5_ARGV)["launches"]
     check_recurrent_launches("serve 5", "mamba2-370m", c5)
     print("serve 6:")
     c6 = serve_phase(torch, ops, card, SERVE6_ARGV)["launches"]
     check_recurrent_launches("serve 6", "recurrentgemma-9b", c6)
+    print("serve 7:")
+    t0 = time.perf_counter()
+    s7 = train_phase(torch, ops, card)
+    c7 = s7["launches"]
+    print(f"  serve 7: {time.perf_counter() - t0:.1f} s")
+    print("shock:")
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    shock = shock_phase(torch, ops, card, get_config("llama2-7b"))
+    print(f"  shock and storm: {time.perf_counter() - t0:.1f} s")
     # each kernel's launches come from the serve whose path runs it
     home = {"paged_decode_attention_quant": c2, "decode_attention": c3,
             "ssd": c5, "rglru": c6}
     for e in entries:
         e["launches"] = home.get(e["name"], c1)[e["name"]]
-        for i, c in enumerate((c1, c2, c3, c4, c5, c6), start=1):
+        for i, c in enumerate((c1, c2, c3, c4, c5, c6, c7), start=1):
             e[f"launches_serve{i}"] = c[e["name"]]
+        e["launches_serve7_training"] = s7["train_launches"][e["name"]]
+        for name, run in shock.items():
+            e[f"launches_{name.replace(' ', '_')}"] = run["launches"][
+                e["name"]]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(f"device: {card}")

@@ -24,12 +24,16 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import _sdpa, decode_splits
 
 
-def split_scratch(q, B: int, K: int, S: int):
-    """(split_tokens, nsplit, partials) of one decode launch over ``S``
-    token slots: the splits from static shapes (``ref.decode_splits`` and
-    the card's SM count), and f32 scratch for their partials (none for one
-    split)."""
-    split, n = decode_splits(B, K, S, build.sm_count(q.device))
+def split_scratch(q, B: int, K: int, S: int, split_rows: int = 0):
+    """(split_tokens, nsplit, partials) of one decode launch of ``B`` rows
+    over ``S`` token slots: the splits from static shapes
+    (``ref.decode_splits`` for ``split_rows`` rows, default ``B``, and the
+    card's SM count), and f32 scratch for their partials (none for one
+    split). A caller that steps a varying subset of a fixed set of rows
+    passes the set's size, so a row's sums do not depend on which rows step
+    with it."""
+    split, n = decode_splits(split_rows or B, K, S,
+                             build.sm_count(q.device))
     H, D = q.shape[2], q.shape[3]
     part = torch.empty(B * H * n * (D + 2) if n > 1 else 0,
                        dtype=torch.float32, device=q.device)
@@ -62,14 +66,15 @@ def _check(q, k, v, valid):
     return B, H, K, D, S
 
 
-def decode_attention_cuda(q, k, v, valid, *, softcap: float = 0.0):
+def decode_attention_cuda(q, k, v, valid, *, softcap: float = 0.0,
+                          split_rows: int = 0):
     if not all(t.is_cuda for t in (q, k, v, valid)):
         raise ValueError("decode_attention_cuda takes CUDA tensors")
     B, H, K, D, S = _check(q, k, v, valid)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     valid = valid.contiguous().view(torch.uint8)
     out = torch.empty_like(q)
-    split, n, part = split_scratch(q, B, K, S)
+    split, n, part = split_scratch(q, B, K, S, split_rows)
     fn = build.function("rap_decode_attention",
                         [build.P] * 4 + [build.LL] + [build.P] * 2
                         + [build.I] * 7

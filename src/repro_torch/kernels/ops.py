@@ -29,46 +29,52 @@ def fused_glu(h, activation: str = "swiglu"):
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            k_scales=None, v_scales=None,
-                           softcap: float = 0.0):
+                           softcap: float = 0.0, split_rows: int = 0):
     """q: [B,1,H,D]; k/v_pages: [n_pages, pt, K, D]; page_table: int32
     [B, max_pages]; lengths: int32 [B] → [B,1,H,D]. ``k/v_scales`` (f32
     ``[n_pages, K]``, both or neither) mark int8/fp8 pages and go to
-    :func:`paged_decode_attention_quant`."""
+    :func:`paged_decode_attention_quant`. ``split_rows`` (0: B) is the row
+    count the kernel's split-KV cut is chosen for (``ref.decode_splits``);
+    the plain version has no splits."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales must be given together")
     if k_scales is not None:
         return paged_decode_attention_quant(
             q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
-            softcap=softcap)
+            softcap=softcap, split_rows=split_rows)
     if q.is_cuda:
         paged_decode_attention.launches += 1
         return _pdec.paged_decode_attention_cuda(
-            q, k_pages, v_pages, page_table, lengths, softcap=softcap)
+            q, k_pages, v_pages, page_table, lengths, softcap=softcap,
+            split_rows=split_rows)
     return _pdec.paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                             lengths, softcap=softcap)
 
 
 def paged_decode_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
                                  page_table, lengths, *,
-                                 softcap: float = 0.0):
+                                 softcap: float = 0.0, split_rows: int = 0):
     """Fused-dequant paged decode: int8/fp8 pages with per-(page, kv head)
     f32 scales ``[n_pages, K]``; otherwise as :func:`paged_decode_attention`."""
     if q.is_cuda:
         paged_decode_attention_quant.launches += 1
         return _pdec.paged_decode_attention_quant_cuda(
             q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
-            softcap=softcap)
+            softcap=softcap, split_rows=split_rows)
     return _pdec.paged_decode_attention_quant_ref(
         q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
         softcap=softcap)
 
 
-def decode_attention(q, k, v, valid, *, softcap: float = 0.0):
+def decode_attention(q, k, v, valid, *, softcap: float = 0.0,
+                     split_rows: int = 0):
     """q: [B,1,H,D]; k/v: [B,S,K,D] contiguous cache; valid: bool [S] (one
-    mask for all rows) or [B,S] (one per row) → [B,1,H,D]."""
+    mask for all rows) or [B,S] (one per row) → [B,1,H,D]. ``split_rows``
+    as in :func:`paged_decode_attention`."""
     if q.is_cuda:
         decode_attention.launches += 1
-        return _dec.decode_attention_cuda(q, k, v, valid, softcap=softcap)
+        return _dec.decode_attention_cuda(q, k, v, valid, softcap=softcap,
+                                          split_rows=split_rows)
     return _dec.decode_attention_ref(q, k, v, valid, softcap=softcap)
 
 

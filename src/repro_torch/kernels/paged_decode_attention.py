@@ -72,7 +72,7 @@ def _check(q, k_pages, v_pages, page_table, lengths):
 
 
 def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths, *,
-                                softcap: float = 0.0):
+                                softcap: float = 0.0, split_rows: int = 0):
     tensors = (q, k_pages, v_pages, page_table, lengths)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("paged_decode_attention_cuda takes CUDA tensors")
@@ -85,7 +85,7 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths, *,
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
     max_pages = table.shape[1]
-    split, n, part = split_scratch(q, B, K, max_pages * pt)
+    split, n, part = split_scratch(q, B, K, max_pages * pt, split_rows)
     fn = build.function("rap_paged_decode_attention",
                         [build.P] * 7 + [build.I] * 8
                         + [build.F32, build.F32, build.I, build.P])
@@ -103,7 +103,8 @@ PAGE_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}   # csrc page loaders
 
 def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scales,
                                       v_scales, page_table, lengths, *,
-                                      softcap: float = 0.0):
+                                      softcap: float = 0.0,
+                                      split_rows: int = 0):
     """Fused-dequant paged decode on the card: q bf16/f32/f16, pages int8 or
     float8_e4m3fn, scales f32 ``[n_pages, K]``."""
     tensors = (q, k_pages, v_pages, k_scales, v_scales, page_table, lengths)
@@ -126,7 +127,7 @@ def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scales,
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
     max_pages = table.shape[1]
-    split, n, part = split_scratch(q, B, K, max_pages * pt)
+    split, n, part = split_scratch(q, B, K, max_pages * pt, split_rows)
     fn = build.function("rap_paged_decode_attention_quant",
                         [build.P] * 9 + [build.I] * 8
                         + [build.F32, build.F32, build.I, build.I, build.P])

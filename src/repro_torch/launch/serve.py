@@ -2,15 +2,17 @@
 
   python -m repro_torch.launch.serve --executor {local,paged} --mode masked \
       --policy rl --episodes 0 --requests 6 [--kv-dtype int8] \
-      [--max-prefill-tokens 64]
+      [--max-prefill-tokens 64] [--budget-trace staircase]
   python -m repro_torch.launch.serve --serial --mode masked --requests 2
 
 Boots the model (``--arch``: llama2-7b, mamba2-370m or recurrentgemma-9b,
 ``--smoke`` for its reduced config; random weights from ``--seed``),
 builds the pruning policy — ``rl`` is the RAP controller (paper
-Algorithm 3) with a seeded, untrained Q-network; ``dense`` never prunes —
-and serves an Azure-like workload trace of (batch, prompt) requests. Two
-serving paths:
+Algorithm 3), its Q-network trained for ``--episodes`` episodes of the
+pruning MDP (paper Algorithm 2: ``dqn.train`` over ``env.PruneEnv``, whose
+GSI scoring forwards run on the card) or, with 0 episodes, seeded and
+untrained; ``dense`` never prunes — and serves an Azure-like workload
+trace of (batch, prompt) requests. Two serving paths:
 
   * default — continuous batching through ``RAPEngine``: one shared KV
     pool with admission control, every in-flight request decoding together
@@ -19,7 +21,11 @@ serving paths:
     a page pool and decodes through the paged decode kernel.
     ``--kv-dtype`` picks the KV precision (int8 slot caches are dequantized
     before the kernel; int8/fp8 pages decode through the fused-dequant
-    kernel) and ``--max-prefill-tokens`` turns on chunked prefill. The
+    kernel) and ``--max-prefill-tokens`` turns on chunked prefill.
+    ``--budget-trace`` makes the budget move while requests are served
+    (DESIGN.md §11): running requests are preempted (state and KV spilled
+    to the host) when it drops and resumed when it recovers, unless
+    ``--no-enable-preemption``. The
     recurrent architectures serve on ``--executor local`` at the model
     dtype and prefill monolithically (their state has no positional
     frontier to resume from); the paged executor and a quantized KV cache
@@ -29,9 +35,8 @@ serving paths:
 
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead (for tests). Without a GPU and without ``--device cpu`` it
-raises. Training the controller (``--episodes > 0``), structural mode, the
-sharded executor and the static baselines are later slices (ROADMAP
-queue 1).
+raises. Structural mode, the sharded executor and the static baselines
+are later slices (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -58,8 +63,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--serial", action="store_true",
                     help="one-shot RAPServer replay instead of the engine")
     ap.add_argument("--episodes", type=int, default=0,
-                    help="DQN training episodes (training is a later slice: "
-                         "only 0 is served)")
+                    help="DQN training episodes before serving (0: a "
+                         "seeded, untrained Q-network)")
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-prompt", type=int, default=256,
                     help="prompts are cut to this many tokens")
@@ -92,6 +97,19 @@ def _parser() -> argparse.ArgumentParser:
                     help="chunked prefill: prompts prefill in pow2 chunks of "
                          "at most this many tokens, one chunk per engine "
                          "tick between decode horizons (0 = monolithic)")
+    ap.add_argument("--budget-trace", choices=("none", "workload",
+                                               "staircase"),
+                    default="none",
+                    help="time-varying budget: 'workload' replays the "
+                         "trace's memory-availability walk (each request's "
+                         "budget_frac is a breakpoint); 'staircase' cuts half "
+                         "the KV headroom for the middle half of the trace "
+                         "and restores it; 'none' serves the static budget")
+    ap.add_argument("--enable-preemption", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="preempt running requests when the budget trace "
+                         "drops (--no-enable-preemption: only new "
+                         "admissions are gated)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -112,10 +130,7 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
     if args.mode != "masked":
         raise NotImplementedError("--mode structural is ROADMAP queue 1, "
                                   "item 8")
-    if args.episodes > 0:
-        raise NotImplementedError(
-            "--episodes > 0: DQN training (dqn.train, env.PruneEnv, "
-            "optim/adamw.py) is ROADMAP queue 1, item 3")
+    import time
 
     import numpy as np
     import torch
@@ -129,13 +144,14 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
         device = torch.device(args.device)
 
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.core import dqn, masks, memory, workload
+    from repro_torch.core import dqn, env as env_lib, masks, memory, workload
     from repro_torch.core.controller import RAPController
     from repro_torch.core.policy import make_policy
     from repro_torch.data import SyntheticCorpus
     from repro_torch.models import registry
     from repro_torch.runtime import (EngineConfig, EngineRequest,
-                                     LocalExecutor, PagedExecutor, RAPEngine)
+                                     LocalExecutor, PagedExecutor, RAPEngine,
+                                     staircase_trace, workload_budget_trace)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -148,7 +164,25 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
              for k, v in corpus.batch(2, 64, split="calib").items()}
     mm = memory.build_memory_model(cfg)
 
-    if args.policy == "rl":
+    wl = workload.WorkloadConfig(seed=args.seed, max_batch=8,
+                                 short_len=(32, 128), long_len=(128, 512),
+                                 long_frac=0.3)
+    if args.policy == "rl" and args.episodes > 0:
+        print(f"training RAP controller ({args.episodes} episodes)...")
+        t0 = time.perf_counter()
+        e = env_lib.PruneEnv(model, params, calib, mm)
+        tr = dqn.train(lambda: e, episodes=args.episodes,
+                       request_sampler=workload.request_sampler(wl, mm),
+                       seed=args.seed)
+        train_s = time.perf_counter() - t0
+        print(f"  reward: first={tr.episode_rewards[0]:.3f} "
+              f"last={tr.episode_rewards[-1]:.3f} "
+              f"fit-rate={np.mean(tr.episode_fits):.2f}")
+        print(f"  {len(tr.losses)} TD updates, {e.forwards} scoring forwards, "
+              f"{train_s:.1f} s ({train_s / args.episodes:.2f} s/episode)")
+        policy = make_policy("rl", controller=RAPController(
+            model, params, calib, mm, tr.q_params))
+    elif args.policy == "rl":
         L = cfg.n_layers
         qp = dqn.init_qnet(torch.Generator().manual_seed(args.seed),
                            2 * L + 4, 2 * L + 1, 32)
@@ -157,9 +191,6 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
     else:
         policy = make_policy(args.policy, mm=mm)
 
-    wl = workload.WorkloadConfig(seed=args.seed, max_batch=8,
-                                 short_len=(32, 128), long_len=(128, 512),
-                                 long_frac=0.3)
     reqs = workload.generate(wl)[: args.requests]
     rng = np.random.default_rng(args.seed)
     if args.serial:
@@ -188,7 +219,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
         max_len=max_total, budget_bytes=budget, kv_dtype=kv_dtype,
         decode_horizon=args.decode_horizon,
         budget_quantum_frac=args.budget_quantum,
-        max_prefill_tokens=args.max_prefill_tokens),
+        max_prefill_tokens=args.max_prefill_tokens,
+        preemption_enabled=args.enable_preemption),
         scheduler=args.scheduler, executor=executor)
     ereqs = []
     for i, r in enumerate(reqs):
@@ -197,12 +229,30 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
         ereqs.append(EngineRequest(rid=f"req{i}", prompt=prompt,
                                    arrival_t=r.t - reqs[0].t,
                                    priority=0 if sql <= 128 else 1))
+    # a moving budget: breakpoints on the engine's virtual clock
+    trace = None
+    if args.budget_trace == "workload":
+        trace = [(t - reqs[0].t, b) for t, b in
+                 workload_budget_trace(reqs, budget)]
+    elif args.budget_trace == "staircase":
+        span = max(ereqs[-1].arrival_t, 0.2)
+        # cut half the KV headroom, not of the total: params stay resident,
+        # and half the total would leave no pool at all
+        kv = budget - mm.param_bytes(full)
+        shocked = (mm.param_bytes(full) + 0.5 * kv) / budget
+        trace = staircase_trace(budget, 0.25 * span, 0.75 * span,
+                                frac=shocked)
+    if trace is not None:
+        print(f"budget trace: {args.budget_trace} ({len(trace)} breakpoints, "
+              f"{min(b for _, b in trace) / 1e9:.3f}–"
+              f"{max(b for _, b in trace) / 1e9:.3f} GB), preemption "
+              f"{'on' if args.enable_preemption else 'off'}")
     print(f"engine[{policy.name}/{args.scheduler}/{args.executor}]: "
           f"{len(ereqs)} "
           f"requests (batch {min(r.batch for r in reqs)}–{max_b}), {slots} "
           f"slots, budget {budget / 1e9:.3f} GB (params "
           f"{mm.param_bytes(full) / 1e9:.3f} GB)")
-    rep = engine.run(ereqs)
+    rep = engine.run(ereqs, budget_trace=trace)
     for r in rep.results:
         if r.status == "done":
             print(f"{r.rid}: kept {int(r.mask.sum())}/{len(r.mask)} blocks  "
@@ -216,6 +266,14 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
           f"tokens, {rep.decode_iters} decode iters, mean queue "
           f"{rep.mean_queue_delay_s * 1e3:.0f}ms, fit-rate "
           f"{rep.budget_fit_rate:.2f}")
+    if trace is not None:
+        print(f"preemption: {rep.preempted_count} preempted, "
+              f"{rep.spilled_mb:.2f}MB spilled, resume p50/p99 "
+              f"{rep.resume_latency.get('p50', 0.0) * 1e3:.0f}/"
+              f"{rep.resume_latency.get('p99', 0.0) * 1e3:.0f}ms, "
+              f"preempted-request itl p99 "
+              f"{rep.itl_preempted.get('p99', 0.0) * 1e3:.2f}ms, "
+              f"{len(rep.budget_events)} budget events")
     if rep.ttft.get("count"):
         print(f"latency: ttft p50/p99 {rep.ttft['p50'] * 1e3:.1f}/"
               f"{rep.ttft['p99'] * 1e3:.1f}ms, itl p50/p99 "

@@ -124,8 +124,8 @@ def load_kv(entry: dict, dtype):
     return entry["k"].to(dtype), entry["v"].to(dtype)
 
 
-def decode_attention(params, cfg, x, kv: dict, pos, *,
-                     window: int = 0) -> torch.Tensor:
+def decode_attention(params, cfg, x, kv: dict, pos, *, window: int = 0,
+                     split_rows: int = 0) -> torch.Tensor:
     """One-token decode against a slot cache (one layer's entry, leaves
     ``[B, S_max, K, Dh]`` + scales), written IN PLACE. Returns out [B,1,D].
 
@@ -137,7 +137,8 @@ def decode_attention(params, cfg, x, kv: dict, pos, *,
     drops its write, as JAX's ``.at[].set`` does — on the device, by
     writing the old value back, with no host sync. ``window > 0`` makes the
     cache a ring buffer: the token lands at ``pos % S`` and the last
-    ``window`` tokens are valid.
+    ``window`` tokens are valid. ``split_rows`` goes to the kernel
+    (``ops.decode_attention``).
     """
     B = x.shape[0]
     dev = x.device
@@ -173,7 +174,8 @@ def decode_attention(params, cfg, x, kv: dict, pos, *,
         valid = kpos <= posc                                # [B or 1, S]
     ck, cv = load_kv(kv, q.dtype)
     out = kops.decode_attention(q, ck, cv, valid if batched else valid[0],
-                                softcap=cfg.logit_softcap)
+                                softcap=cfg.logit_softcap,
+                                split_rows=split_rows)
     return torch.matmul(out.reshape(B, 1, -1), params["wo"].to(x.dtype))
 
 
@@ -238,8 +240,8 @@ def _append_quant(pool, scales, page_ids, offs, new) -> None:
 
 
 # ---------------------------------------------------------------- decode
-def paged_decode_attention(params, cfg, x, kv: dict, page_table,
-                           pos) -> torch.Tensor:
+def paged_decode_attention(params, cfg, x, kv: dict, page_table, pos, *,
+                           split_rows: int = 0) -> torch.Tensor:
     """One-token decode against a paged KV pool (one layer's slice).
 
     x: [B,1,D]; kv: {"k","v"} page pools [n_pages, page_tokens, K, Dh]
@@ -255,6 +257,7 @@ def paged_decode_attention(params, cfg, x, kv: dict, page_table,
     no fixed order — harmless, the page is never read under a valid
     length. A position past the table width (a request over-generating in
     its final horizon) clamps to the last column, as JAX's gather does.
+    ``split_rows`` goes to the kernel (``ops.paged_decode_attention``).
     """
     B = x.shape[0]
     page_tokens = kv["k"].shape[1]
@@ -276,7 +279,8 @@ def paged_decode_attention(params, cfg, x, kv: dict, page_table,
     out = kops.paged_decode_attention(q, kv["k"], kv["v"], page_table,
                                       pos + 1, k_scales=kv.get("ks"),
                                       v_scales=kv.get("vs"),
-                                      softcap=cfg.logit_softcap)
+                                      softcap=cfg.logit_softcap,
+                                      split_rows=split_rows)
     return torch.matmul(out.reshape(B, 1, -1), params["wo"].to(x.dtype))
 
 

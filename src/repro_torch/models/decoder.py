@@ -371,8 +371,8 @@ def _pool_layer(pools: dict, i: int) -> dict:
 
 
 # --------------------------------------------------------------------- decode
-def decode_step(params, cfg, cache: dict, tokens, *,
-                gates=None) -> Tuple[torch.Tensor, dict]:
+def decode_step(params, cfg, cache: dict, tokens, *, gates=None,
+                split_rows: int = 0) -> Tuple[torch.Tensor, dict]:
     """One autoregressive step against a slot cache (updated in place).
 
     ``cache["pos"]`` is a scalar (the one-shot path: the whole batch at one
@@ -380,8 +380,9 @@ def decode_step(params, cfg, cache: dict, tokens, *,
     own offset); gates may be [L] or [L, B]. tokens: [B, 1]. Attention
     layers write their token into the cache (a local attention layer into
     its ring buffer) and run the dense decode kernel; recurrent layers
-    advance their state and conv buffer. Returns (logits [B, 1, Vp],
-    cache) with ``cache["pos"]`` advanced by one."""
+    advance their state and conv buffer. ``split_rows`` (0: B) is the row
+    count the decode kernel's split-KV cut is chosen for. Returns (logits
+    [B, 1, Vp], cache) with ``cache["pos"]`` advanced by one."""
     check_supported(cfg)
     layout = default_layout(cfg)
     gates = gates or _ones_gates(len(layout), tokens.device)
@@ -403,14 +404,15 @@ def decode_step(params, cfg, cache: dict, tokens, *,
         else:
             out = attention.decode_attention(
                 pm, cfg, hn, _pool_layer(cache[slot.mixer], ci), pos,
-                window=_window(cfg, slot))
+                window=_window(cfg, slot), split_rows=split_rows)
         h = _block(params, cfg, slot, i, h, gates, out)
     cache["pos"] = pos + 1
     return _unembed(params, cfg, h), cache
 
 
 def decode_horizon(params, cfg, cache: dict, tokens, horizon: int, *,
-                   gates=None) -> Tuple[torch.Tensor, dict]:
+                   gates=None, split_rows: int = 0
+                   ) -> Tuple[torch.Tensor, dict]:
     """``horizon`` greedy :func:`decode_step` s with the argmax token fed
     back on the device (the loop form of JAX's ``lax.scan``): nothing is
     read back to the host inside the loop. tokens: int32 [B, 1] seed.
@@ -421,7 +423,8 @@ def decode_horizon(params, cfg, cache: dict, tokens, horizon: int, *,
     tok = tokens
     toks = []
     for _ in range(horizon):
-        logits, cache = decode_step(params, cfg, cache, tok, gates=gates)
+        logits, cache = decode_step(params, cfg, cache, tok, gates=gates,
+                                    split_rows=split_rows)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         toks.append(nxt)
         tok = nxt[:, None]
@@ -429,14 +432,15 @@ def decode_horizon(params, cfg, cache: dict, tokens, horizon: int, *,
 
 
 def paged_decode_step(params, cfg, pools: dict, page_table, pos, tokens, *,
-                      gates=None) -> torch.Tensor:
+                      gates=None, split_rows: int = 0) -> torch.Tensor:
     """One autoregressive step against a paged KV pool.
 
     pools: {"k","v"} page arrays [L, n_pages, page_tokens, K, Dh] —
     quantized pools add {"ks","vs"} scales [L, n_pages, K] — updated in
     place (one new token per row); page_table: int32 [B, max_pages]; pos:
     int32 [B] per-row write positions; tokens: [B, 1]. Gates may be [L] or
-    [L, B]. Returns logits [B, 1, Vp].
+    [L, B]. ``split_rows`` as in :func:`decode_step`. Returns logits
+    [B, 1, Vp].
     """
     require_attn_layout(cfg, "paged decode")
     layout = default_layout(cfg)
@@ -446,13 +450,13 @@ def paged_decode_step(params, cfg, pools: dict, page_table, pos, tokens, *,
         pm = _mixer_params(params, slot)
         out = attention.paged_decode_attention(
             pm, cfg, layers.apply_norm(cfg, pm["norm"], h),
-            _pool_layer(pools, i), page_table, pos)
+            _pool_layer(pools, i), page_table, pos, split_rows=split_rows)
         h = _block(params, cfg, slot, i, h, gates, out)
     return _unembed(params, cfg, h)
 
 
 def paged_decode_horizon(params, cfg, pools: dict, page_table, pos, tokens,
-                         horizon: int, *, gates=None):
+                         horizon: int, *, gates=None, split_rows: int = 0):
     """``horizon`` greedy paged decode steps with the argmax token fed back
     on the device (the loop form of JAX's ``lax.scan``): nothing is read
     back to the host inside the loop. The page table is constant across
@@ -465,7 +469,7 @@ def paged_decode_horizon(params, cfg, pools: dict, page_table, pos, tokens,
     toks = []
     for _ in range(horizon):
         logits = paged_decode_step(params, cfg, pools, page_table, pos, tok,
-                                   gates=gates)
+                                   gates=gates, split_rows=split_rows)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         toks.append(nxt)
         tok = nxt[:, None]

@@ -1,4 +1,6 @@
-"""Serving runtime: KV pool, scheduler, executors, engine, one-shot server."""
+"""Serving runtime: KV pool, scheduler, executors, engine, one-shot server,
+fault-injection scenarios."""
+from repro_torch.runtime import scenarios
 from repro_torch.runtime.engine import (EngineConfig, EngineReport,
                                         EngineRequest, RAPEngine,
                                         RequestResult)
@@ -6,17 +8,27 @@ from repro_torch.runtime.executor import (LocalExecutor, ModelExecutor,
                                           PagedExecutor, PagedGroup,
                                           SlotGroup, chunk_widths)
 from repro_torch.runtime.kv_pool import (KVPool, PageAllocation,
-                                         PoolExhausted, TokenAllocation)
+                                         PoolExhausted, SpilledAllocation,
+                                         TokenAllocation)
+from repro_torch.runtime.scenarios import (TickStaircase,
+                                           heavy_tailed_requests,
+                                           run_budget_shock,
+                                           run_cancellation_storm,
+                                           staircase_trace, token_agreement,
+                                           workload_budget_trace)
 from repro_torch.runtime.scheduler import (SCHEDULERS, FIFOScheduler,
                                            PriorityScheduler, Scheduler,
                                            SchedulerOutput, SJFScheduler,
-                                           make_scheduler)
+                                           VictimCandidate, make_scheduler)
 from repro_torch.runtime.server import RAPServer, ServeResult
 
 __all__ = ["RAPEngine", "EngineConfig", "EngineRequest", "EngineReport",
            "RequestResult", "KVPool", "PageAllocation", "TokenAllocation",
-           "PoolExhausted", "Scheduler", "SchedulerOutput", "FIFOScheduler",
-           "SJFScheduler", "PriorityScheduler", "SCHEDULERS",
+           "SpilledAllocation", "PoolExhausted", "Scheduler",
+           "SchedulerOutput", "FIFOScheduler", "SJFScheduler",
+           "PriorityScheduler", "VictimCandidate", "SCHEDULERS",
            "make_scheduler", "ModelExecutor", "LocalExecutor", "SlotGroup",
            "PagedExecutor", "PagedGroup", "RAPServer", "ServeResult",
-           "chunk_widths"]
+           "chunk_widths", "scenarios", "TickStaircase", "staircase_trace",
+           "workload_budget_trace", "heavy_tailed_requests",
+           "run_budget_shock", "run_cancellation_storm", "token_agreement"]

@@ -21,16 +21,30 @@ engine is a thin loop over four seams:
 
 One :meth:`RAPEngine._tick`:
 
+  0. **budget** — under a budget trace, re-evaluate the device budget on
+     the virtual clock and, if the bytes reserved now exceed it, preempt
+     running victims (``Scheduler.select_victims`` order): their decode
+     state and KV pages are copied to the host and their slots and pages
+     freed. Nothing is in flight at this point of the tick, so the copies
+     race no launch;
   1. **launch** — every occupied group enqueues one decode horizon of up to
      ``EngineConfig.decode_horizon`` tokens on the current CUDA stream;
      the tokens stay on the device;
-  2. **host phase** — arrivals (virtual clock; idle gaps are skipped,
-     compute time is real), admission (policy decision, page grant,
-     prefill) while the horizon runs;
+  2. **host phase** — the ``on_tick`` hook, arrivals (virtual clock; idle
+     gaps are skipped, compute time is real), resumes of preempted
+     requests the budget has room for (before any new admission), then
+     admission (policy decision, page grant, prefill) while the horizon
+     runs;
   3. **finish** — the one device→host read of the horizon's tokens, folded
      into the requests resident at launch; completion is checked at the
      horizon boundary and over-generated tokens are truncated, so results
      are identical for any horizon.
+
+A resumed request decodes on from its restored state, so its tokens are
+those of a run that never preempted it (DESIGN.md §11). ``cancel(rid)``
+removes a request at any stage (pending, queued, prefilling, decoding,
+preempted) and frees what it holds; ``run`` releases pages, slots and
+spill copies before re-raising an exception.
 
 With ``EngineConfig.max_prefill_tokens > 0`` admission grants only the
 first chunk's pages and every in-flight chunked prefill advances one
@@ -42,8 +56,8 @@ every request against the budget exactly as given, grows capacity for an
 oversize request when nothing runs, and records an overcommit instead of
 queueing.
 
-Budget traces with preemption, ``cancel`` and structural mode are later
-slices (ROADMAP queue 1, items 7–8) and raise ``NotImplementedError``.
+Structural mode is a later slice (ROADMAP queue 1, item 8) and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -61,7 +75,8 @@ from repro_torch.runtime.executor import (LocalExecutor, ModelExecutor,
 from repro_torch.runtime.kv_pool import (KVPool, default_page_bytes,
                                          resolve_kv_dtype)
 from repro_torch.runtime.latency import summarize as _lat_summarize
-from repro_torch.runtime.scheduler import Scheduler, make_scheduler
+from repro_torch.runtime.scheduler import (Scheduler, VictimCandidate,
+                                           make_scheduler)
 
 __all__ = ["EngineConfig", "EngineRequest", "RequestResult", "EngineReport",
            "RAPEngine"]
@@ -112,6 +127,19 @@ class EngineConfig:
     # >0: prompts prefill in pow2 chunks of at most this many tokens, one
     # chunk per tick (0 = monolithic prefill)
     max_prefill_tokens: int = 0
+    # Elastic budgets (DESIGN.md §11): under a run() budget_trace that
+    # shrinks below the bytes reserved, preempt running victims (decode
+    # state and KV pages spilled to the host, resumed when the budget
+    # recovers). False still gates NEW admissions on the traced budget but
+    # never preempts.
+    preemption_enabled: bool = True
+    # preemption frees this fraction of the shrunken KV budget beyond the
+    # deficit, so the next admission or extension does not re-trigger a
+    # shock at the boundary (0 frees exactly the deficit)
+    spill_headroom_frac: float = 0.1
+    # "scheduler": Scheduler.select_victims (SLO tiers + aging under
+    # PriorityScheduler); "arrival": the newest running request first
+    victim_policy: str = "scheduler"
 
     def __post_init__(self):
         if self.mode == "structural":
@@ -151,6 +179,15 @@ class EngineConfig:
         if self.decode_horizon < 1:
             raise ValueError(f"decode_horizon must be >= 1, got "
                              f"{self.decode_horizon!r}")
+        if not isinstance(self.preemption_enabled, bool):
+            raise ValueError(f"preemption_enabled must be a bool, got "
+                             f"{self.preemption_enabled!r}")
+        if not (0.0 <= self.spill_headroom_frac < 1.0):
+            raise ValueError(f"spill_headroom_frac must be in [0, 1), got "
+                             f"{self.spill_headroom_frac!r}")
+        if self.victim_policy not in ("scheduler", "arrival"):
+            raise ValueError(f"unknown victim_policy {self.victim_policy!r}; "
+                             f"expected scheduler|arrival")
 
 
 @dataclasses.dataclass
@@ -165,7 +202,7 @@ class EngineRequest:
 @dataclasses.dataclass
 class RequestResult:
     rid: str
-    status: str                       # done | rejected
+    status: str                       # done | rejected | cancelled
     tokens: Optional[np.ndarray]      # [b, generated]
     mask: Optional[np.ndarray]
     arrival_t: float
@@ -178,7 +215,7 @@ class RequestResult:
     peak_bytes: float
     kv_bytes: float
     reason: str = ""
-    # time to first token, measured from ARRIVAL (-1.0 for rejected)
+    # time to first token, measured from ARRIVAL (-1.0 when no token came)
     ttft_s: float = -1.0
 
 
@@ -201,6 +238,19 @@ class EngineReport:
     # latency summaries (runtime.latency.summarize dicts, seconds)
     ttft: Dict[str, float] = dataclasses.field(default_factory=dict)
     itl: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # elastic budgets: preemption events, requests cancelled, MB of KV
+    # spilled to the host over the run
+    preempted_count: int = 0
+    cancelled: int = 0
+    spilled_mb: float = 0.0
+    # preempt → resume latency (one sample per resume, virtual clock)
+    resume_latency: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # the ITL samples of requests preempted at least once, pooled apart:
+    # a resume gap is one huge inter-token latency in the victim's stream
+    itl_preempted: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # (virtual t, budget bytes) breakpoints the run applied
+    budget_events: List[Tuple[float, float]] = dataclasses.field(
+        default_factory=list)
 
     def result(self, rid: str) -> RequestResult:
         for r in self.results:
@@ -222,6 +272,12 @@ class _Running:
     # token-emission events (virtual time, tokens appended): the first is
     # the prefill's token (TTFT anchor); each horizon appends one
     events: List[Tuple[float, int]] = dataclasses.field(default_factory=list)
+    # times preempted (routes its ITL samples to the itl_preempted pool)
+    preempt_count: int = 0
+    # set by the force-resume liveness backstop: exempt from preemption, so
+    # a budget too small for even one request drains it instead of
+    # re-spilling it at the next tick
+    pinned: bool = False
 
 
 @dataclasses.dataclass
@@ -236,6 +292,17 @@ class _Prefilling:
     kv_bytes: float
     max_new: int
     task: Any
+
+
+@dataclasses.dataclass
+class _Preempted:
+    """A running request evicted under a budget shock: its KV pages in the
+    pool's host-side spill store, the rest of its decode state in
+    ``state`` (``executor.spill_state``)."""
+    run: _Running
+    state: Dict[str, Any]
+    cache_len: Optional[int]         # group to restore into
+    preempted_t: float               # virtual clock (resume-latency anchor)
 
 
 # ------------------------------------------------------------------- engine
@@ -289,6 +356,16 @@ class RAPEngine:
         self._t0 = 0.0
         self._skew = 0.0
         self._budget = self.cfg.budget_bytes
+        # elastic-budget state
+        self._preempted: Dict[str, _Preempted] = {}
+        self._budget_trace: Any = None
+        self._run_budget = self.cfg.budget_bytes
+        self._budget_events: List[Tuple[float, float]] = []
+        self._resume_samples: List[float] = []
+        self._itl_preempted_samples: List[float] = []
+        self._preempted_count = 0
+        self._spilled_bytes = 0.0
+        self._stall_ticks = 0
 
     def _now(self) -> float:
         return (time.perf_counter() - self._t0) + self._skew
@@ -333,32 +410,58 @@ class RAPEngine:
     # ------------------------------------------------------------- serving
     def run(self, requests: List[EngineRequest], *,
             budget_bytes: Optional[float] = None,
-            budget_trace: Any = None) -> EngineReport:
-        """Serve a trace to completion and report aggregate stats."""
-        if budget_trace is not None:
-            raise NotImplementedError(
-                "time-varying budgets with preemption are ROADMAP queue 1, "
-                "item 7")
+            budget_trace: Any = None, on_tick: Any = None) -> EngineReport:
+        """Serve a trace to completion and report aggregate stats.
+
+        ``budget_trace`` makes the device budget time-varying: a list of
+        ``(t_seconds, budget_bytes)`` breakpoints, piecewise constant on the
+        run's virtual clock and applied at the start of the first tick at or
+        after each breakpoint, or a callable ``now → budget_bytes``
+        evaluated once per tick at tick start (a tick-counting callable,
+        ``scenarios.TickStaircase``, shocks at a fixed tick whatever a tick
+        costs). The pool is sized once from the base budget: the trace
+        gates admission and triggers preemption.
+
+        ``on_tick(engine)`` runs once per tick in the host phase, after the
+        launch and before arrivals: the seam fault-injection harnesses use
+        to cancel requests mid-horizon."""
         budget = self.cfg.budget_bytes if budget_bytes is None else budget_bytes
         self.pool = self._make_pool(budget)
         if self._paged:
             self.executor.bind_pool(self.pool, self.cfg.max_len)
         self.executor.evict_all()             # a previous run's occupants
-        self._budget = budget
+        self._budget = self._run_budget = budget
+        if budget_trace is not None and not callable(budget_trace):
+            budget_trace = sorted((float(t), float(v))
+                                  for t, v in budget_trace)
+        self._budget_trace = budget_trace
+        self._budget_events = ([(0.0, float(budget))]
+                               if budget_trace is not None else [])
         self._pending = sorted(requests, key=lambda r: r.arrival_t)
         self.scheduler.clear()
         self._running.clear()
         self._prefilling.clear()
+        self._preempted.clear()
         self._results = []
         self._ttft_samples, self._itl_samples = [], []
+        self._resume_samples, self._itl_preempted_samples = [], []
         self._frag_samples = []
         self._decode_iters = 0
+        self._preempted_count = 0
+        self._spilled_bytes = 0.0
+        self._stall_ticks = 0
         launch_s0 = self.executor.launch_s
         self._skew = 0.0
         self._t0 = time.perf_counter()
-        while (self._pending or len(self.scheduler) or self._running
-               or self._prefilling):
-            self._tick()
+        try:
+            while (self._pending or len(self.scheduler) or self._running
+                   or self._prefilling or self._preempted):
+                self._tick(on_tick)
+        except BaseException:
+            # a run that raises must not leak pool entries, spill copies or
+            # seated slots into the next run on this engine
+            self._abort_cleanup()
+            raise
         makespan = self._now()
         wall = time.perf_counter() - self._t0
         done = [r for r in self._results if r.status == "done"]
@@ -380,22 +483,32 @@ class RAPEngine:
             measured_frag=(float(np.mean(self._frag_samples))
                            if self._frag_samples else 0.0),
             ttft=_lat_summarize(self._ttft_samples),
-            itl=_lat_summarize(self._itl_samples))
+            itl=_lat_summarize(self._itl_samples),
+            preempted_count=self._preempted_count,
+            cancelled=sum(1 for r in self._results
+                          if r.status == "cancelled"),
+            spilled_mb=self._spilled_bytes / 1e6,
+            resume_latency=_lat_summarize(self._resume_samples),
+            itl_preempted=_lat_summarize(self._itl_preempted_samples),
+            budget_events=list(self._budget_events))
 
-    def cancel(self, rid: str) -> bool:
-        raise NotImplementedError("cancel() is ROADMAP queue 1, item 7")
-
-    def _tick(self) -> None:
-        """launch → host phase (arrivals, admission) → finish. A request
-        admitted during the host phase joins decode from the NEXT tick: its
-        slots were free padding when this tick's horizon launched."""
+    def _tick(self, on_tick: Any = None) -> None:
+        """budget → launch → host phase (hook, arrivals, resumes,
+        admission) → finish. A request admitted or resumed during the host
+        phase joins decode from the NEXT tick: its slots were free padding
+        when this tick's horizon launched, and a cancelled request is
+        skipped at fold-back."""
         now = self._now()
+        self._eval_budget(now)
+        self._maybe_preempt(now)
         plan = self.scheduler.schedule(now, running=list(self._running))
         backlog = (len(self.scheduler) > 0
                    or bool(self._pending
                            and self._pending[0].arrival_t <= now))
         launches = self._launch_decode(plan.decode, backlog=backlog)
         # ---- host phase (device work in flight from here to finish) ----
+        if on_tick is not None:
+            on_tick(self)
         while self._pending and self._pending[0].arrival_t <= now:
             req = self._pending.pop(0)
             if (req.rid in self.scheduler or req.rid in self._running
@@ -408,6 +521,10 @@ class RAPEngine:
             cost = req.prompt.shape[0] * (req.prompt.shape[1]
                                           + max(max_new, 1))
             self.scheduler.add(req, cost=cost)
+        # a victim already holds its admission and its partial output:
+        # letting the queue overtake it would turn a preemption into
+        # starvation
+        self._try_resume()
         deferred = None
         for req in self.scheduler.schedule(now).admit:
             verdict = self._try_admit(req)
@@ -415,22 +532,259 @@ class RAPEngine:
                 deferred = req
                 break
             self.scheduler.remove(req.rid)
-        # a deferral with nothing launched, running or prefilling can never
-        # be satisfied: no completion will free what it waits on
+        # a deferral with nothing launched, running, prefilling or preempted
+        # can never be satisfied: no completion or resume frees what it
+        # waits on
         stuck = (deferred is not None and not launches and not self._running
-                 and not self._prefilling)
+                 and not self._prefilling and not self._preempted)
         self._advance_prefills()
         # ---- finish: the tick's one read-back --------------------------
         if launches:
             self._finish_decode(launches)
-        if not self._running and not self._prefilling:
-            if stuck:
+        if self._running or self._prefilling:
+            self._stall_ticks = 0
+        else:
+            self._idle_step(deferred, stuck)
+
+    def _idle_step(self, deferred, stuck: bool) -> None:
+        """Liveness with nothing running or prefilling: fast-forward the
+        virtual clock to the next event that can change admissibility (an
+        arrival or a budget breakpoint), and backstop the cases with no
+        such event (a callable trace that never recovers must not spin
+        forever)."""
+        now = self._now()
+        nxt = self._next_breakpoint(now)
+        if stuck:
+            if nxt is not None:
+                # the budget may recover at the next breakpoint
+                self._skew += max(nxt - now, 0.0) + 1e-9
+            elif callable(self._budget_trace):
+                # callables advance per evaluation: give the shock a bounded
+                # number of idle ticks to recover
+                self._stall_ticks += 1
+                if self._stall_ticks > 256:
+                    self.scheduler.remove(deferred.rid)
+                    self._reject(deferred, "deferred with idle engine "
+                                           "(budget trace never recovered)")
+            else:
                 self.scheduler.remove(deferred.rid)
                 self._reject(deferred, "deferred with idle engine")
-            elif deferred is None and self._pending:
-                # fast-forward the virtual clock across the idle gap
-                self._skew += max(self._pending[0].arrival_t - self._now(),
-                                  0.0) + 1e-9
+        elif deferred is None and self._pending and not self._preempted:
+            # skip the idle gap, stopping at a breakpoint inside it
+            tgt = self._pending[0].arrival_t
+            if nxt is not None:
+                tgt = min(tgt, nxt)
+            self._skew += max(tgt - now, 0.0) + 1e-9
+        elif self._preempted:
+            if nxt is not None:
+                tgt = nxt
+                if self._pending:
+                    tgt = min(tgt, self._pending[0].arrival_t)
+                self._skew += max(tgt - now, 0.0) + 1e-9
+            else:
+                # no breakpoint will raise the budget again: after a
+                # bounded spin, resume ignoring the budget (physical
+                # capacity still checked), so the run drains
+                self._stall_ticks += 1
+                if self._stall_ticks > 8 and not self._force_resume():
+                    raise RuntimeError(
+                        "elastic-budget deadlock: preempted requests cannot "
+                        "be restored even ignoring the budget")
+
+    # ----------------------------------------- elastic budget / preemption
+    def _kv_budget(self) -> float:
+        """The KV share of the current budget: params stay resident through
+        a shock, so shrinking below them leaves zero KV headroom."""
+        return max(self._budget - self.resident_param_bytes, 0.0)
+
+    def _eval_budget(self, now: float) -> None:
+        """Apply the trace at tick start: every breakpoint ≤ now of a list,
+        or one call of a callable. Changes are recorded as (t, bytes)."""
+        tr = self._budget_trace
+        if tr is None:
+            return
+        if callable(tr):
+            b = float(tr(now))
+        else:
+            b = self._run_budget
+            for t, v in tr:
+                if t > now + 1e-12:
+                    break
+                b = v
+        if b != self._budget:
+            self._budget = b
+            self._budget_events.append((now, b))
+
+    def _next_breakpoint(self, now: float) -> Optional[float]:
+        """The next breakpoint of a list trace (None for callables, which
+        advance by being evaluated, and for an exhausted list)."""
+        tr = self._budget_trace
+        if tr is None or callable(tr):
+            return None
+        return next((t for t, _ in tr if t > now + 1e-12), None)
+
+    def _maybe_preempt(self, now: float) -> None:
+        """Shed reserved bytes when the budget shrank below them: preempt
+        victims until the reservations fit the shrunken KV budget less
+        ``spill_headroom_frac``. Only decoding requests are candidates: a
+        chunked prefill finishes its prompt first."""
+        if (not self.cfg.preemption_enabled or self._budget_trace is None
+                or not self._running):
+            return
+        kv_budget = self._kv_budget()
+        if self.pool.bytes_reserved <= kv_budget + 1e-6:
+            return
+        target = kv_budget * (1.0 - self.cfg.spill_headroom_frac)
+        cands = [VictimCandidate(
+                     rid=rid, priority=run.req.priority,
+                     arrival_t=run.req.arrival_t,
+                     remaining_tokens=max(run.max_new - len(run.out), 0),
+                     reserved_bytes=self.pool.request_reserved_bytes(rid))
+                 for rid, run in self._running.items() if not run.pinned]
+        if self.cfg.victim_policy == "arrival":
+            order = sorted(cands, key=lambda c: -c.arrival_t)
+        else:
+            order = self.scheduler.select_victims(cands, now)
+        for cand in order:
+            if self.pool.bytes_reserved <= target + 1e-6:
+                break
+            self._preempt(self._running[cand.rid], now)
+
+    def _preempt(self, run: _Running, now: float) -> None:
+        """Evict one running request with its state: decode state to the
+        host (executor), slots freed, KV pages spilled (pool)."""
+        rid = run.req.rid
+        state = self.executor.spill_state(run.group, run.slots)
+        run.group.evict(run.slots)
+        self._spilled_bytes += self.pool.spill(rid)
+        del self._running[rid]
+        run.preempt_count += 1
+        # paged groups have no cache length: pages make it per slot
+        self._preempted[rid] = _Preempted(
+            run=run, state=state,
+            cache_len=getattr(run.group, "cache_len", None), preempted_t=now)
+        self._preempted_count += 1
+
+    def _try_resume(self) -> None:
+        """Restore the preempted requests the budget has room for, the most
+        important first (victims were shed least important first)."""
+        kv_budget = self._kv_budget()
+        for rid in reversed(list(self._preempted)):
+            self._resume_one(rid, kv_budget)
+
+    def _resume_one(self, rid: str, kv_budget: float, *,
+                    force: bool = False) -> bool:
+        p = self._preempted[rid]
+        if not force:
+            need = self.pool.restore_reserved_bytes(rid)
+            if self.pool.bytes_reserved + need > kv_budget + 1e-6:
+                return False
+        if not self.pool.can_restore(rid):
+            return False
+        b = len(p.run.slots)
+        group = self.executor.group_for(p.run.decision.mask, p.cache_len)
+        free = group.free_slots()
+        if len(free) < b:
+            return False
+        rows = self.pool.restore(rid)
+        slots = free[:b]
+        self.executor.restore_state(group, slots, rid, p.state,
+                                    p.run.decision.mask, rows)
+        run = p.run
+        run.group, run.slots = group, slots
+        if force:
+            run.pinned = True        # liveness: drains, never re-spilled
+        del self._preempted[rid]
+        self._running[rid] = run
+        self._resume_samples.append(self._now() - p.preempted_t)
+        self._stall_ticks = 0
+        return True
+
+    def _force_resume(self) -> bool:
+        """Deadlock backstop: restore the most important preempted request
+        ignoring the budget (physical pages and slots still checked). The
+        resumed run is pinned, so it decodes to completion instead of
+        cycling through spill and resume when the shocked budget cannot
+        host even one request."""
+        return any(self._resume_one(rid, float("inf"), force=True)
+                   for rid in reversed(list(self._preempted)))
+
+    # --------------------------------------------------------- cancellation
+    def cancel(self, rid: str) -> bool:
+        """Cancel a request at any stage — pending, queued, prefilling,
+        decoding mid-horizon, or preempted. True if it was found and
+        cancelled; False for unknown, finished or already cancelled ids
+        (so a double cancel, or a cancel racing a completion, is a no-op).
+        The tokens a cancelled decode generated in its in-flight horizon
+        are dropped: fold-back skips rids no longer running."""
+        for i, req in enumerate(self._pending):
+            if req.rid == rid:
+                self._pending.pop(i)
+                self._record_cancelled(req)
+                return True
+        req = self.scheduler.peek(rid)
+        if req is not None:
+            self.scheduler.remove(rid)
+            self._record_cancelled(req)
+            return True
+        pf = self._prefilling.pop(rid, None)
+        if pf is not None:
+            pf.group.evict(pf.slots)
+            self.pool.free(rid, missing_ok=True)
+            self._record_cancelled(pf.req, decision=pf.decision,
+                                   admitted_t=pf.admitted_t,
+                                   kv_bytes=pf.kv_bytes)
+            return True
+        run = self._running.pop(rid, None)
+        if run is None:
+            p = self._preempted.pop(rid, None)
+            if p is None:
+                return False
+            self.pool.drop_spilled(rid, missing_ok=True)
+            run = p.run
+        else:
+            run.group.evict(run.slots)
+            self.pool.free(rid, missing_ok=True)
+        self._record_cancelled(run.req, decision=run.decision,
+                               admitted_t=run.admitted_t,
+                               kv_bytes=run.kv_bytes, out=run.out,
+                               events=run.events)
+        return True
+
+    def _record_cancelled(self, req: EngineRequest, *, decision=None,
+                          admitted_t: float = -1.0, kv_bytes: float = 0.0,
+                          out=None, events=None) -> None:
+        now = self._now()
+        d = decision
+        self._results.append(RequestResult(
+            rid=req.rid, status="cancelled",
+            tokens=np.stack(out, axis=1) if out else None,
+            mask=d.mask if d is not None else None,
+            arrival_t=req.arrival_t, admitted_t=admitted_t, finished_t=now,
+            queue_delay_s=(admitted_t if admitted_t >= 0.0 else now)
+            - req.arrival_t,
+            decide_s=d.latency_s if d is not None else 0.0,
+            fits=d.fits if d is not None else False,
+            cached_decision=d.cached if d is not None else False,
+            peak_bytes=d.peak_bytes if d is not None else 0.0,
+            kv_bytes=kv_bytes, reason="cancelled",
+            ttft_s=(events[0][0] - req.arrival_t) if events else -1.0))
+
+    def _abort_cleanup(self) -> None:
+        """Release what a raising run holds — live and spilled pool
+        entries, seated slots, the queues — so the next run starts
+        clean."""
+        if self.pool is not None:
+            for rid in self.pool.live_requests():
+                self.pool.free(rid, missing_ok=True)
+            for rid in self.pool.spilled_requests():
+                self.pool.drop_spilled(rid, missing_ok=True)
+        self.executor.evict_all()
+        self._running.clear()
+        self._prefilling.clear()
+        self._preempted.clear()
+        self.scheduler.clear()
+        self._pending = []
 
     # ----------------------------------------------------------- admission
     def _reject(self, req: EngineRequest, reason: str) -> None:
@@ -479,6 +833,20 @@ class RAPEngine:
             capacity_bytes=self.pool.acct.capacity_bytes,
             n_running=len(self._running), now=self._now()))
         kv_bytes = self.mm.state_bytes(d.mask, b, total)
+        if not self._paged:
+            # the slot path charges the bytes its cache stores: an int8
+            # cache holds 1-byte elements plus a scale per (token, head)
+            kv_bytes *= _kv_byte_ratio(d.kv_dtype, self.mcfg)
+        if self._budget_trace is not None and not force:
+            # the pool was sized from the BASE budget and cannot see a
+            # shrink: check the request's worst-case reservation against
+            # the CURRENT budget, or a shock would admit into bytes the
+            # trace just took away and preempt at the next tick
+            pages = (self.pool.pages_for_tokens(b, total) if self._paged
+                     else self.pool.pages_needed(kv_bytes))
+            if (self.pool.bytes_reserved + pages * self.pool.page_bytes
+                    > self._kv_budget() + 1e-6):
+                return "defer"
         if self._paged:
             # page-granular admission: masked mode stores every layer's KV
             # whatever the mask says, so the charge is the worst-case PAGE
@@ -491,18 +859,14 @@ class RAPEngine:
                 return "rejected"
             if not self.pool.can_alloc_tokens(b, total):
                 return "defer"
-        else:
-            # the slot path charges the bytes its cache stores: an int8
-            # cache holds 1-byte elements plus a scale per (token, head)
-            kv_bytes *= _kv_byte_ratio(d.kv_dtype, self.mcfg)
-            if not force:
-                if not self.pool.fits_capacity(kv_bytes):
-                    self._reject(req, f"state {kv_bytes:.0f}B can never fit "
-                                      f"pool capacity "
-                                      f"{self.pool.acct.capacity_bytes:.0f}B")
-                    return "rejected"
-                if not self.pool.can_alloc(kv_bytes):
-                    return "defer"
+        elif not force:
+            if not self.pool.fits_capacity(kv_bytes):
+                self._reject(req, f"state {kv_bytes:.0f}B can never fit "
+                                  f"pool capacity "
+                                  f"{self.pool.acct.capacity_bytes:.0f}B")
+                return "rejected"
+            if not self.pool.can_alloc(kv_bytes):
+                return "defer"
         group = self.executor.group_for(d.mask, cache_len)
         free = group.free_slots()
         if len(free) < b:
@@ -642,9 +1006,12 @@ class RAPEngine:
         d = run.decision
         ttft = run.events[0][0] - run.req.arrival_t
         self._ttft_samples.append(ttft)
+        # a resume gap would poison the ITL of requests never preempted
+        sink = (self._itl_preempted_samples if run.preempt_count
+                else self._itl_samples)
         prev = run.events[0][0]
         for t, n in run.events[1:]:
-            self._itl_samples.extend([(t - prev) / max(n, 1)] * n)
+            sink.extend([(t - prev) / max(n, 1)] * n)
             prev = t
         result = RequestResult(
             rid=run.req.rid, status="done",

@@ -38,8 +38,14 @@ chunked prefill and the decode append). Prompts prefill monolithically or
 in pow2 chunks, one chunk per engine tick (:meth:`PagedExecutor.prefill_begin`
 / :meth:`PagedExecutor.prefill_step`).
 
-Structural mode (compacted stacks, item 8) and spill/restore (item 7) are
-later slices (ROADMAP queue 1) and raise ``NotImplementedError``.
+A preempted request leaves its group through ``spill_state`` (its
+non-pool decode state copied to the host: every slot-cache leaf on the
+local path, position and seed tokens on the paged one, whose pages the
+pool spills) and comes back through ``restore_state`` into free slots of
+an equivalent group, by the same placement a prefill uses.
+
+Structural mode (compacted stacks) is a later slice (ROADMAP queue 1,
+item 8) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -204,13 +210,15 @@ class ModelExecutor:
             g.evict(list(range(g.n_slots)))
 
     def spill_state(self, group, slots: List[int]) -> dict:
-        raise NotImplementedError("spill/restore of a preempted request is "
-                                  "ROADMAP queue 1, item 7")
+        """A preempted request's decode state outside the KV pool, copied
+        to the host (the engine then evicts its slots)."""
+        raise NotImplementedError
 
     def restore_state(self, group, slots: List[int], rid: str, state: dict,
                       mask, rows=None) -> None:
-        raise NotImplementedError("spill/restore of a preempted request is "
-                                  "ROADMAP queue 1, item 7")
+        """Reseat a :meth:`spill_state` snapshot in free ``slots`` of
+        ``group`` (``rows``: the re-granted page ids of a paged request)."""
+        raise NotImplementedError
 
     def kv_utilization(self) -> Tuple[float, float]:
         """(used_bytes, physical_bytes) of live KV storage."""
@@ -308,7 +316,7 @@ class SlotGroup:
         if idx is None:
             toks, self.cache = decoder.decode_horizon(
                 self.params, self._mcfg, self.cache, self.tokens, horizon,
-                gates={"mixer": g[0], "ffn": g[1]})
+                gates={"mixer": g[0], "ffn": g[1]}, split_rows=self.n_slots)
             self.tokens = toks[:, -1:].contiguous()
             return toks, None
         iidx = self.iidx(idx)
@@ -318,7 +326,7 @@ class SlotGroup:
         gs = g[:, :, iidx]
         toks, sub = decoder.decode_horizon(
             self.params, self._mcfg, sub, self.tokens[iidx], horizon,
-            gates={"mixer": gs[0], "ffn": gs[1]})
+            gates={"mixer": gs[0], "ffn": gs[1]}, split_rows=self.n_slots)
         for kind, leaves in _state_leaves(sub).items():
             for k, v in leaves.items():
                 self.cache[kind][k][:, iidx] = v
@@ -461,6 +469,31 @@ class LocalExecutor(ModelExecutor):
                          task.cols, S, first_dev)
         task.state = None
         return first
+
+    # ---------------------------------------------------- preemption seam
+    def spill_state(self, group: SlotGroup, slots: List[int]) -> dict:
+        """The request's slot-cache rows — every leaf of every cache kind:
+        attention K/V (and int8 scales), the local-attention ring, SSD and
+        RG-LRU states, conv buffers — plus its position and seed tokens,
+        copied to the host. The copies are blocking and exact, so reseating
+        is bitwise."""
+        iidx = group.iidx(list(slots))
+        cache = {kind: {k: v[:, iidx].cpu() for k, v in leaves.items()}
+                 for kind, leaves in _state_leaves(group.cache).items()}
+        # one request's rows share one position (placed together, stepped
+        # together)
+        return {"cache": cache, "pos": int(group.cache["pos"][slots[0]]),
+                "first": group.tokens[iidx, 0].cpu()}
+
+    def restore_state(self, group: SlotGroup, slots: List[int], rid: str,
+                      state: dict, mask, rows=None) -> None:
+        """Reseat through the ordinary placement: the snapshot's rows have
+        the shapes a monolithic prefill of the request produces."""
+        dev = group.device
+        cache = {kind: {k: v.to(dev) for k, v in leaves.items()}
+                 for kind, leaves in state["cache"].items()}
+        group.place(rid, list(slots), cache, _gate_cols(mask, None),
+                    state["pos"], state["first"].to(dev))
 
     # -------------------------------------------------------------- decode
     def decode_launch(self, group: SlotGroup,
@@ -802,6 +835,27 @@ class PagedExecutor(ModelExecutor):
         group.place(rid, task.slots, rows_np, S, first_dev, first, task.cols)
         return first
 
+    # ---------------------------------------------------- preemption seam
+    def spill_state(self, group: PagedGroup, slots: List[int]) -> dict:
+        """Paged decode state outside the pool is tiny: the write position
+        and the per-row seed token (the page contents travel with
+        ``KVPool.spill``)."""
+        return {"pos": int(group.pos[slots[0]]),
+                "first": group.tokens[np.asarray(slots)].copy()}
+
+    def restore_state(self, group: PagedGroup, slots: List[int], rid: str,
+                      state: dict, mask, rows=None) -> None:
+        """Reseat with the re-granted page ids (``KVPool.restore``'s rows:
+        the same per-row layout, contents written back bitwise): one
+        placement rebuilds table, position, tokens and gates as an
+        unpreempted resident holds them."""
+        if rows is None:
+            rows = self.pool.row_pages(rid)
+        first = np.asarray(state["first"], np.int32)
+        group.place(rid, list(slots), np.asarray(rows, np.int32),
+                    state["pos"], torch.from_numpy(first).to(self.device),
+                    first, _gate_cols(mask, None))
+
     # -------------------------------------------------------------- decode
     def _decode_batch(self, group: PagedGroup) -> List[int]:
         idx = _bucket_batch(group.occupied_slots(), group.free_slots(),
@@ -857,7 +911,8 @@ class PagedExecutor(ModelExecutor):
                                group.tokens_dev[iidx])
         toks, _, pos_out = decoder.paged_decode_horizon(
             self.params, self.mcfg, self._pools(), table, pos, tok[:, None],
-            horizon, gates={"mixer": g[0], "ffn": g[1]})
+            horizon, gates={"mixer": g[0], "ffn": g[1]},
+            split_rows=group.n_slots)
         if full:
             group.pos_dev, group.tokens_dev = pos_out, toks[:, -1].contiguous()
         else:

@@ -34,8 +34,11 @@ admits against.
 Quantized pools (``kv_dtype`` ``"int8"``/``"fp8"``) store int8 or
 float8_e4m3fn pages plus per-(layer, page, kv head) f32 scales.
 
-Spilling a preempted request's pages and scale rows to the host
-(``spill``/``restore``) is a later slice (ROADMAP queue 1, item 7).
+A preempted request leaves the device with :meth:`spill`: its page
+contents and scale rows are copied to host tensors (blocking copies, so
+the pages are free to be granted again the moment the call returns), its
+pages return to the free list, and :meth:`restore` re-grants pages of the
+same per-row layout and writes the copies back bitwise.
 """
 from __future__ import annotations
 
@@ -45,9 +48,11 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.core.memory import MemoryModel, PoolAccounting, PoolExhausted
+from repro_torch.kernels.ref import put_pages, take_pages
 
-__all__ = ["KVPool", "PageAllocation", "TokenAllocation", "PoolExhausted",
-           "resolve_kv_dtype", "default_page_bytes", "KV_DTYPE_NAMES"]
+__all__ = ["KVPool", "PageAllocation", "TokenAllocation", "SpilledAllocation",
+           "PoolExhausted", "resolve_kv_dtype", "default_page_bytes",
+           "KV_DTYPE_NAMES"]
 
 # user-facing kv-dtype names accepted by --kv-dtype and Decision.kv_dtype
 KV_DTYPE_NAMES = ("fp32", "bf16", "int8", "fp8")
@@ -141,6 +146,30 @@ class TokenAllocation:
         return float(self.held_pages * self.page_bytes)
 
 
+@dataclasses.dataclass
+class SpilledAllocation:
+    """A preempted request's host-side allocation record.
+
+    Token-style spills of a physical pool carry the page contents (and,
+    for quantized pools, the scale rows) as host tensors; byte-style spills
+    carry accounting only — the slot executor owns (and spills) the actual
+    cache contents. ``restore`` rebuilds the allocation with the identical
+    per-row page count and writes the host copies back bitwise."""
+    rid: str
+    kind: str                 # "tokens" | "bytes"
+    batch: int
+    seq_tokens: int
+    max_tokens: int
+    pages_per_row: int        # granted pages per row at spill time
+    requested_bytes: float    # byte-kind ledger charge
+    in_use_bytes: float
+    in_use_per_token: float
+    k_host: Optional[torch.Tensor] = None   # [L, held_pages, pt, K, D]
+    v_host: Optional[torch.Tensor] = None
+    k_scales_host: Optional[torch.Tensor] = None   # [L, held_pages, K] f32
+    v_scales_host: Optional[torch.Tensor] = None
+
+
 class KVPool:
     """Slot/page-based KV-cache pool over a global byte budget.
     ``tokens_per_page`` is needed by the token-granular (paged) API only."""
@@ -160,6 +189,8 @@ class KVPool:
         self._free: List[int] = list(range(self.n_pages))
         self._live: Dict[str, PageAllocation] = {}
         self._tok: Dict[str, TokenAllocation] = {}
+        self._spilled: Dict[str, SpilledAllocation] = {}
+        self.spilled_bytes_total = 0.0   # cumulative device bytes spilled
         self._next_overflow_page = self.n_pages  # ids of overcommitted pages
         self._committed_extra = 0   # Σ token allocs (committed − held) pages
         # physical page arrays (allocate_physical): [L, n_pages+1, pt, K, D]
@@ -349,7 +380,7 @@ class KVPool:
         against the physical reservation). ``kv_dtype`` is the request's
         precision ask (``Decision.kv_dtype``): it must match the precision
         the physical pools were allocated in (:meth:`check_kv_dtype`)."""
-        if rid in self._tok or rid in self._live:
+        if rid in self._live or rid in self._tok or rid in self._spilled:
             raise ValueError(f"request {rid!r} already holds an allocation")
         self.check_kv_dtype(rid, kv_dtype)
         batch = max(int(batch), 1)
@@ -440,10 +471,11 @@ class KVPool:
         st = self._tok_state(rid, "row_pages")
         return [list(r) for r in st.rows]
 
-    def free(self, rid: str) -> float:
+    def free(self, rid: str, *, missing_ok: bool = False) -> float:
         """Release a request's pages (either kind of allocation); returns
         the reserved bytes returned. Unknown ids raise a ``ValueError``
-        naming the id and the live set."""
+        naming the id and the live set; ``missing_ok=True`` makes the call
+        idempotent, so a cancel racing a completion cannot double-free."""
         if rid in self._tok:
             st = self._tok.pop(rid)
             for row in st.rows:
@@ -453,6 +485,8 @@ class KVPool:
             return st.reserved_bytes
         alloc = self._live.pop(rid, None)
         if alloc is None:
+            if missing_ok:
+                return 0.0
             raise ValueError(
                 f"free({rid!r}): unknown request id; live allocations: "
                 f"{sorted([*self._live, *self._tok])}")
@@ -461,6 +495,172 @@ class KVPool:
                 self._free.append(p)
         self.acct.release(alloc.reserved_bytes, alloc.requested_bytes)
         return alloc.reserved_bytes
+
+    def live_requests(self) -> List[str]:
+        return [*self._live, *self._tok]
+
+    def request_reserved_bytes(self, rid: str) -> float:
+        """Device bytes currently reserved by ``rid`` — the bytes a
+        preemption of it would free (0.0 for unknown or spilled ids)."""
+        st = self._tok.get(rid)
+        if st is not None:
+            return st.reserved_bytes
+        alloc = self._live.get(rid)
+        return alloc.reserved_bytes if alloc is not None else 0.0
+
+    # ------------------------------------------------------- spill / restore
+    def _gather_pages(self, ids: List[int]):
+        """Host copies of the physical pages (and scale rows) backing
+        ``ids``. ``Tensor.cpu()`` is a blocking copy: when it returns the
+        device pages may be granted and overwritten. Copies of f32, bf16,
+        int8 and fp8 pages are exact, which makes spill → restore
+        bitwise."""
+        idx = (slice(None), torch.tensor(ids, dtype=torch.long,
+                                         device=self.k_pages.device))
+        k = take_pages(self.k_pages, idx).cpu()
+        v = take_pages(self.v_pages, idx).cpu()
+        ks = vs = None
+        if self.k_scales is not None:
+            ks = self.k_scales[idx].cpu()
+            vs = self.v_scales[idx].cpu()
+        return k, v, ks, vs
+
+    def spill(self, rid: str) -> float:
+        """Preempt ``rid``: copy its physical page contents (plus
+        quantization scale rows) to a host-side store, return its device
+        pages to the free list, and release its commitment and ledger
+        charge. Returns the reserved bytes released. Byte-style (slot
+        executor) allocations release accounting only — the executor spills
+        the cache contents itself. :meth:`restore` rebuilds the allocation
+        bitwise; :meth:`drop_spilled` discards it (cancellation)."""
+        st = self._tok.pop(rid, None)
+        if st is not None:
+            ids = [p for row in st.rows for p in row]
+            k = v = ks = vs = None
+            if self.k_pages is not None and ids:
+                k, v, ks, vs = self._gather_pages(ids)
+            self._free.extend(ids)
+            self._committed_extra -= st.committed_pages - st.held_pages
+            self.acct.release(st.reserved_bytes, st.in_use_bytes)
+            self._spilled[rid] = SpilledAllocation(
+                rid=rid, kind="tokens", batch=st.batch,
+                seq_tokens=st.seq_tokens, max_tokens=st.max_tokens,
+                pages_per_row=len(st.rows[0]), requested_bytes=0.0,
+                in_use_bytes=st.in_use_bytes,
+                in_use_per_token=st.in_use_per_token,
+                k_host=k, v_host=v, k_scales_host=ks, v_scales_host=vs)
+            self.spilled_bytes_total += st.reserved_bytes
+            return st.reserved_bytes
+        alloc = self._live.pop(rid, None)
+        if alloc is None:
+            raise ValueError(
+                f"spill({rid!r}): unknown request id; live allocations: "
+                f"{sorted([*self._live, *self._tok])}")
+        for p in alloc.pages:
+            if p < self.n_pages:         # overflow pages evaporate
+                self._free.append(p)
+        self.acct.release(alloc.reserved_bytes, alloc.requested_bytes)
+        self._spilled[rid] = SpilledAllocation(
+            rid=rid, kind="bytes", batch=0, seq_tokens=0, max_tokens=0,
+            pages_per_row=0, requested_bytes=alloc.requested_bytes,
+            in_use_bytes=0.0, in_use_per_token=0.0)
+        self.spilled_bytes_total += alloc.reserved_bytes
+        return alloc.reserved_bytes
+
+    def _spilled_state(self, rid: str, op: str) -> SpilledAllocation:
+        sp = self._spilled.get(rid)
+        if sp is None:
+            raise ValueError(
+                f"{op}({rid!r}): unknown request id; spilled requests: "
+                f"{sorted(self._spilled)}")
+        return sp
+
+    def restore_reserved_bytes(self, rid: str) -> float:
+        """Worst-case device bytes a :meth:`restore` of ``rid`` re-takes
+        (the admission commitment for token spills, the page-rounded
+        request for byte spills) — what the engine's elastic-budget check
+        must find headroom for before resuming."""
+        sp = self._spilled_state(rid, "restore_reserved_bytes")
+        if sp.kind == "bytes":
+            return float(self.pages_needed(sp.requested_bytes)
+                         * self.page_bytes)
+        return float(self.pages_for_tokens(sp.batch, sp.max_tokens)
+                     * self.page_bytes)
+
+    def can_restore(self, rid: str) -> bool:
+        """Whether the pool physically has the pages (and ledger headroom)
+        to restore ``rid`` right now."""
+        sp = self._spilled.get(rid)
+        if sp is None:
+            return False
+        if sp.kind == "bytes":
+            need = self.pages_needed(sp.requested_bytes)
+            return (need <= len(self._free)
+                    and self.acct.can_reserve(need * self.page_bytes))
+        return (self.pages_for_tokens(sp.batch, sp.max_tokens)
+                <= len(self._free) - self._committed_extra)
+
+    def restore(self, rid: str) -> Optional[List[List[int]]]:
+        """Re-admit a spilled request: re-grant pages with the identical
+        per-row layout, write the host page copies (and scale rows) back
+        bitwise, and re-take the admission commitment. Returns the new
+        per-row page ids (None for byte-style spills). Raises
+        :class:`PoolExhausted` when the pool cannot host it yet — the
+        caller retries when capacity frees."""
+        sp = self._spilled_state(rid, "restore")
+        if sp.kind == "bytes":
+            del self._spilled[rid]
+            try:
+                self.alloc(rid, sp.requested_bytes)
+            except Exception:
+                self._spilled[rid] = sp      # stay restorable on failure
+                raise
+            return None
+        committed = self.pages_for_tokens(sp.batch, sp.max_tokens)
+        if committed > len(self._free) - self._committed_extra:
+            raise PoolExhausted(
+                f"restore({rid!r}) commits {committed} pages, "
+                f"{len(self._free) - self._committed_extra} admissible "
+                f"({len(self._free)} free − {self._committed_extra} "
+                f"committed) of {self.n_pages} total")
+        rows = [[self._free.pop() for _ in range(sp.pages_per_row)]
+                for _ in range(sp.batch)]
+        if self.k_pages is not None and sp.pages_per_row:
+            dev = self.k_pages.device
+            idx = (slice(None),
+                   torch.tensor([p for row in rows for p in row],
+                                dtype=torch.long, device=dev))
+            put_pages(self.k_pages, idx, sp.k_host.to(dev))
+            put_pages(self.v_pages, idx, sp.v_host.to(dev))
+            if self.k_scales is not None:
+                self.k_scales[idx] = sp.k_scales_host.to(dev)
+                self.v_scales[idx] = sp.v_scales_host.to(dev)
+        st = TokenAllocation(
+            rid=rid, batch=sp.batch, seq_tokens=sp.seq_tokens,
+            max_tokens=sp.max_tokens, rows=rows, page_bytes=self.page_bytes,
+            tokens_per_page=self.tokens_per_page,
+            in_use_bytes=sp.in_use_bytes,
+            in_use_per_token=sp.in_use_per_token)
+        self._committed_extra += committed - st.held_pages
+        self.acct.grow(st.reserved_bytes, st.in_use_bytes)
+        self._tok[rid] = st
+        del self._spilled[rid]
+        return [list(r) for r in rows]
+
+    def drop_spilled(self, rid: str, *, missing_ok: bool = False) -> bool:
+        """Discard a spilled request's host copy (cancellation while
+        preempted). Idempotent under ``missing_ok``, mirroring
+        :meth:`free`."""
+        if self._spilled.pop(rid, None) is None:
+            if missing_ok:
+                return False
+            raise ValueError(
+                f"drop_spilled({rid!r}): unknown request id; spilled "
+                f"requests: {sorted(self._spilled)}")
+        return True
+
+    def spilled_requests(self) -> List[str]:
+        return list(self._spilled)
 
     # ---------------------------------------------------------------- stats
     def stats(self) -> Dict[str, float]:
@@ -479,4 +679,6 @@ class KVPool:
             "fragmentation": self.acct.fragmentation(),
             "overcommit_events": float(self.acct.overcommit_events),
             "in_use_scale": float(self.acct.in_use_scale),
+            "spilled_requests": float(len(self._spilled)),
+            "spilled_bytes_total": float(self.spilled_bytes_total),
         }

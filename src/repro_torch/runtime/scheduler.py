@@ -36,8 +36,20 @@ import collections
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["Scheduler", "SchedulerOutput", "FIFOScheduler", "SJFScheduler",
-           "PriorityScheduler", "SCHEDULERS", "make_scheduler"]
+__all__ = ["Scheduler", "SchedulerOutput", "VictimCandidate",
+           "FIFOScheduler", "SJFScheduler", "PriorityScheduler",
+           "SCHEDULERS", "make_scheduler"]
+
+
+@dataclasses.dataclass(frozen=True)
+class VictimCandidate:
+    """One *running* request offered to :meth:`Scheduler.select_victims`
+    when the engine must shed reserved bytes under a shrinking budget."""
+    rid: str
+    priority: int             # EngineRequest.priority (lower = sooner)
+    arrival_t: float
+    remaining_tokens: int     # decode tokens still owed
+    reserved_bytes: float     # device bytes a preemption would free
 
 
 @dataclasses.dataclass
@@ -78,6 +90,12 @@ class Scheduler:
     def remove(self, rid: str) -> None:
         self._waiting.pop(rid, None)
 
+    def peek(self, rid: str):
+        """The waiting EngineRequest for ``rid``, or None — the engine's
+        cancellation path needs the request object to record the result."""
+        entry = self._waiting.get(rid)
+        return entry.req if entry is not None else None
+
     def clear(self) -> None:
         self._waiting.clear()
 
@@ -90,6 +108,25 @@ class Scheduler:
     # ------------------------------------------------------------- ordering
     def _key(self, entry: _Entry, now: float) -> Tuple:
         raise NotImplementedError
+
+    # ------------------------------------------------------------ victims
+    def _victim_priority(self, cand: VictimCandidate, now: float) -> float:
+        """Effective priority of a running request for victim selection
+        (lower = more important = preempted LAST). The base schedulers
+        have no priority notion, so every candidate ties at 0.0 and the
+        tiebreaks of :meth:`select_victims` decide."""
+        return 0.0
+
+    def select_victims(self, cands: Sequence[VictimCandidate],
+                       now: float) -> List[VictimCandidate]:
+        """Order running requests for preemption under a budget shock:
+        lowest effective priority first, then most remaining work (the
+        request furthest from done yields, so the least completed compute
+        is set aside), then newest arrival. The engine preempts a prefix of
+        this order until reserved bytes fit the shrunken budget."""
+        return sorted(cands,
+                      key=lambda c: (-self._victim_priority(c, now),
+                                     -c.remaining_tokens, -c.arrival_t))
 
     def schedule(self, now: float,
                  running: Sequence[str] = ()) -> SchedulerOutput:
@@ -153,12 +190,22 @@ class PriorityScheduler(Scheduler):
                 f"{aging_s!r} (use float('inf') to disable aging)")
         self.aging_s = float(aging_s)
 
+    def _aged(self, priority: float, arrival_t: float, now: float) -> float:
+        waited = max(now - arrival_t, 0.0)
+        return priority - (waited / self.aging_s
+                           if self.aging_s != float("inf") else 0.0)
+
     def _key(self, entry: _Entry, now: float) -> Tuple:
-        prio = getattr(entry.req, "priority", 0)
-        waited = max(now - getattr(entry.req, "arrival_t", 0.0), 0.0)
-        aged = prio - (waited / self.aging_s if self.aging_s != float("inf")
-                       else 0.0)
-        return (aged, entry.seq)
+        return (self._aged(getattr(entry.req, "priority", 0),
+                           getattr(entry.req, "arrival_t", 0.0), now),
+                entry.seq)
+
+    def _victim_priority(self, cand: VictimCandidate, now: float) -> float:
+        """Victim selection reuses the aging seam: a request's effective
+        priority improves the longer it has been in the system, so an old
+        low-tier request is not the automatic victim of every shock — the
+        same bounded-starvation contract admission has."""
+        return self._aged(cand.priority, cand.arrival_t, now)
 
 
 SCHEDULERS: Dict[str, type] = {

@@ -53,14 +53,28 @@ def test_memory_model_bytes_equal(i):
 
 
 def test_kv_pool_bookkeeping_equal():
-    """One random alloc/extend/free sequence through both pools: the same
-    page ids, commitments and ledger at every step."""
+    """One random alloc/extend/free/spill/restore sequence through both
+    pools: the same page ids, commitments and ledger at every step."""
     kw = dict(page_bytes=4096, tokens_per_page=8)
     tp, jp = kv_pool.KVPool(40 * 4096, **kw), jpool.KVPool(40 * 4096, **kw)
     rng = np.random.default_rng(0)
-    live = []
-    for step in range(60):
-        op = rng.integers(0, 3)
+    live, spilled = [], []
+    for step in range(80):
+        op = rng.integers(0, 5)
+        if op == 3 and live:
+            rid = live.pop(int(rng.integers(len(live))))
+            assert tp.spill(rid) == jp.spill(rid)
+            spilled.append(rid)
+            continue
+        if op == 4 and spilled:
+            rid = spilled[0]
+            assert tp.can_restore(rid) == jp.can_restore(rid)
+            assert (tp.restore_reserved_bytes(rid)
+                    == jp.restore_reserved_bytes(rid))
+            if tp.can_restore(rid):
+                assert tp.restore(rid) == jp.restore(rid)
+                live.append(spilled.pop(0))
+            continue
         if op == 0:
             b, n = int(rng.integers(1, 3)), int(rng.integers(1, 20))
             mx = n + int(rng.integers(0, 12))
@@ -82,8 +96,8 @@ def test_kv_pool_bookkeeping_equal():
             assert tp.free(rid) == jp.free(rid)
         for rid in live:
             assert tp.row_pages(rid) == jp.row_pages(rid)
-        assert tp.stats() == {k: v for k, v in jp.stats().items()
-                              if not k.startswith("spilled")}
+        assert tp.stats() == jp.stats()
+    assert tp.spilled_requests() == jp.spilled_requests()
 
 
 def test_resolve_kv_dtype_maps_to_torch():

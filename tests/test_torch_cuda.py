@@ -728,3 +728,84 @@ def test_scan_wrappers_refuse_bf16_and_strided(cuda):
     y, fin = ssd.ssd_cuda(*args, 256)
     y_ref, fin_ref = ssd.ssd_ref(*args, 256)
     torch.testing.assert_close(y, y_ref, atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,kv_dtype", [("paged", None), ("paged", "int8"),
+                                           ("paged", "fp8"), ("local", None)])
+def test_shocked_trace_equals_unshocked_on_the_card(cuda, kind, kv_dtype):
+    """A 4-layer f32 model served on the card with and without a budget
+    shock that preempts (pages or slot-cache rows spilled to the host and
+    restored): every request's tokens are equal, and the pool drains."""
+    from repro_torch.core import masks, memory
+    from repro_torch.core.policy import DensePolicy
+    from repro_torch.runtime import (EngineConfig, EngineRequest,
+                                     LocalExecutor, PagedExecutor, RAPEngine,
+                                     TickStaircase)
+    cfg = get_smoke_config("llama2-7b").replace(n_layers=4)
+    model = registry.build(cfg)
+    params = model.init(0, cuda)
+    mm = memory.build_memory_model(cfg)
+    toks = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (1, 24)).astype(np.int32)
+    full = masks.full_mask(cfg.n_layers)
+    budget = mm.param_bytes(full) + 2.5 * mm.state_bytes(full, 1, 26)
+    make = PagedExecutor if kind == "paged" else LocalExecutor
+    reps = []
+    for shock in (False, True):
+        eng = RAPEngine(model, params, DensePolicy(mm), EngineConfig(
+            mode="masked", max_new_tokens=6, max_active=4, max_len=32,
+            budget_bytes=budget, tokens_per_page=8, kv_dtype=kv_dtype,
+            decode_horizon=2),
+            executor=make(model, params, max_active=4, kv_dtype=kv_dtype))
+        kv = budget - eng.resident_param_bytes
+        frac = (eng.resident_param_bytes + 0.2 * kv) / budget
+        reps.append(eng.run(
+            [EngineRequest(rid=f"r{i}", prompt=toks[:, : (16 if i % 2
+                                                           else 24)])
+             for i in range(8)],
+            budget_trace=(TickStaircase(budget, [(3, 1.0), (10, frac),
+                                                 (0, 1.0)])
+                          if shock else None)))
+    ref, rep = reps
+    assert rep.preempted_count > 0
+    want = {r.rid: r.tokens for r in ref.results}
+    assert len(want) == 8 and {r.status for r in rep.results} == {"done"}
+    for r in rep.results:
+        assert np.array_equal(r.tokens, want[r.rid]), r.rid
+    assert rep.pool["reserved_bytes"] == 0
+    assert rep.pool["spilled_requests"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_rows_keep_their_bits_under_split_rows(cuda, dtype):
+    """With ``split_rows`` at the slot width, a row of either decode kernel
+    gives the same bits whether it is launched with 8 rows, 4 or alone
+    (llama2-7b's 32 heads over 272 token slots: 3 splits for 8 rows, 5 for
+    4 or 1 when the launch picks), and the dense ≡ paged twin holds."""
+    g = torch.Generator().manual_seed(1)
+    B, H, K, D, pt, S = 8, 32, 32, 128, 16, 272
+    maxp = S // pt
+    q = torch.randn(B, 1, H, D, generator=g).to(dtype).to(cuda)
+    kp = torch.randn(B * maxp, pt, K, D, generator=g).to(dtype).to(cuda)
+    vp = torch.randn(B * maxp, pt, K, D, generator=g).to(dtype).to(cuda)
+    table = torch.arange(B * maxp, dtype=torch.int32,
+                         device=cuda).reshape(B, maxp)
+    lengths = torch.tensor([S - 7, 60, 130, 200, 17, 250, 99, 180],
+                           dtype=torch.int32, device=cuda)
+    kd = kp[table.long()].reshape(B, S, K, D)
+    vd = vp[table.long()].reshape(B, S, K, D)
+    valid = torch.arange(S, device=cuda)[None, :] < lengths[:, None]
+    paged = lambda r: pdec.paged_decode_attention_cuda(
+        q[r], kp, vp, table[r], lengths[r], split_rows=B)
+    dense = lambda r: dec.decode_attention_cuda(q[r], kd[r], vd[r],
+                                                valid[r], split_rows=B)
+    for run in (paged, dense):
+        ref = run(slice(0, B))
+        for width in (4, 1):
+            got = torch.cat([run(slice(i, i + width))
+                             for i in range(0, B, width)])
+            assert torch.equal(got, ref)
+    if dtype == torch.float32:
+        assert torch.equal(paged(slice(0, 4)), dense(slice(0, 4)))
