@@ -77,7 +77,24 @@ Phases, each fatal on failure:
                 losses finite, at least one TD update, and 32 flash and 32
                 GLU launches per scoring forward and no other launch during
                 training; then serve 1's checks for the trained controller;
- 11. shock    — ``scenarios.run_budget_shock`` on llama2-7b at full width
+ 11. serve 8  — serve 1 with ``--mode structural --bucket-quant pow2``:
+                each request runs in its mask's retained-layer bucket
+                (whole layers, pow2 row counts, the exact mask as gates):
+                serve 1's checks, a bucket on every pruned request, at most
+                ceil(log2 32) + 1 = 6 bucket signatures, and every kernel
+                launched once per row of the layout each call ran (flash
+                and GLU per prefill row, paged decode and GLU per
+                decode-step row). On serve 1's grid the policy keeps more
+                than 16 layers, which pow2 rounds up to all 32; so the same
+                trace runs again on a grid of 0.6 (the policy cuts about
+                40% of the peak) in ``--bucket-quant layer`` buckets, which
+                must hold a bucket of fewer than 32 layers (fewer than 32
+                launches per prefill);
+ 12. serve 9  — serve 6 (recurrentgemma-9b, slot caches) with ``--mode
+                structural`` (exact buckets: rows without a mixer or an
+                FFN): serve 1's checks, the launches each call's layout
+                implies (``rglru``, flash, dense decode, GLU), none paged;
+ 13. shock    — ``scenarios.run_budget_shock`` on llama2-7b at full width
                 (DensePolicy, 12 requests, 8 slots) on paged bf16 pages,
                 paged int8 pages and ``--executor local`` slot caches:
                 preemptions and spilled MB > 0, completions in the shock and
@@ -91,7 +108,11 @@ Phases, each fatal on failure:
 
 The reference phase also serves a small fp32 trace (TF32 off) with and
 without a budget shock on paged f32 and int8 pools and on slot caches:
-tokens must be equal.
+tokens must be equal. Its structural runs hold small f32 models on the card
+against the same models on the CPU, tokens equal: two requests whose masks
+drop different layers (one bucket signature, two gather keys) on both
+executors, a structural paged int8 trace under a budget shock, and a small
+mamba2 trace through half-pruned layouts.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a GPU, or without the rest of
@@ -104,6 +125,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -135,6 +157,15 @@ SERVE6_ARGV = [a if a != "llama2-7b" else "recurrentgemma-9b"
 # MDP bring the replay buffer past its batch of 64 transitions at seed 0
 SERVE7_ARGV = [("6" if prev == "--episodes" else a)
                for prev, a in zip([None] + SERVE_ARGV, SERVE_ARGV)]
+# structural mode: serve 1 in pow2 whole-layer buckets, and serve 6 in exact
+# buckets (heterogeneous layouts with half-pruned rows)
+SERVE8_ARGV = SERVE_ARGV + ["--mode", "structural", "--bucket-quant", "pow2"]
+# serve 8 on an admission grid of 0.6 in whole-layer buckets: the grid of
+# 0.3 keeps too many blocks for pow2 to leave any layer out
+SERVE8_LAYER_ARGV = [("0.6" if prev == "--budget-quantum" else a)
+                     for prev, a in zip([None] + SERVE_ARGV, SERVE_ARGV)] + [
+    "--mode", "structural", "--bucket-quant", "layer"]
+SERVE9_ARGV = SERVE6_ARGV + ["--mode", "structural"]
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2, "torch.float16": 2e-2}
 
 
@@ -976,6 +1007,117 @@ def reference_shock(torch, device: str = "cuda") -> None:
                                  f"differs from the unshocked one")
 
 
+def fixed_mask_policy(mm, seq):
+    """A policy handing out the masks of ``seq`` in order, the last one
+    repeating (a keep-mask that cannot depend on the device's numbers)."""
+    from repro_torch.core.policy import Decision, PruningPolicy
+
+    class Fixed(PruningPolicy):
+        name = "fixed"
+
+        def __init__(self):
+            self.mm, self.i = mm, 0
+
+        def observe(self, state):
+            m = np.array(seq[min(self.i, len(seq) - 1)], copy=True)
+            self.i += 1
+            peak = self.mm.peak_bytes(m, state.batch, state.total_len)
+            return Decision(mask=m, steps=0, peak_bytes=peak,
+                            fits=peak <= state.budget_bytes, latency_s=0.0)
+    return Fixed()
+
+
+def _drop(L, *rows, mixer_only=()):
+    m = np.ones(2 * L, bool)
+    for i in rows:
+        m[i] = m[L + i] = False
+    for i in mixer_only:
+        m[i] = False
+    return m
+
+
+def structural_reference(torch) -> None:
+    """Structural traces of small f32 models (4 layers, TF32 off), the
+    kernels on the card against the plain versions on the CPU, tokens
+    equal: two requests on one slot each whose masks drop layer 0 and
+    layer 1 (one bucket signature, two gather keys) on both executors; a
+    paged int8 pool under a budget shock that preempts, in a pow2 bucket
+    of 2 rows (one of them mixer-pruned) below the pool's 4 layers, so
+    spill and restore move pool layers [0, 2) and their scale rows;
+    mamba2 in exact buckets with a mixer-pruned row (a row with neither
+    block) beside a dropped one."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import masks, memory
+    from repro_torch.models import registry
+    from repro_torch.runtime import (EngineConfig, EngineRequest,
+                                     LocalExecutor, PagedExecutor, RAPEngine,
+                                     TickStaircase)
+    alias = [_drop(4, 0), _drop(4, 1)]
+    # name, arch, executor, KV precision, bucket_quant, slots, requests,
+    # the share of the KV headroom a shock cuts (0: no shock), masks
+    runs = (("aliasing, paged", "llama2-7b", "paged", None, "layer", 1, 2, 0,
+             alias),
+            ("aliasing, local", "llama2-7b", "local", None, "none", 1, 2, 0,
+             alias),
+            ("paged int8, pow2, shock", "llama2-7b", "paged", "int8", "pow2",
+             4, 8, 0.8, [_drop(4, 1, 2, mixer_only=(3,))]),
+            ("mamba2, local", "mamba2-370m", "local", None, "none", 4, 8, 0,
+             [_drop(4, 3, mixer_only=(1,))]))
+    for name, arch, kind, kv, quant, slots, n, cut, seq in runs:
+        cfg = get_smoke_config(arch).replace(n_layers=4)
+        model = registry.build(cfg)
+        cpu_params = model.init(0, "cpu")
+        mm = memory.build_memory_model(cfg)
+        full = masks.full_mask(4)
+        budget = mm.param_bytes(full) + 2.5 * mm.state_bytes(full, 1, 26)
+        toks = torch.randint(0, cfg.vocab_size, (1, 24),
+                             generator=torch.Generator().manual_seed(10))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = _tree_to(cpu_params, dev)
+            make = PagedExecutor if kind == "paged" else LocalExecutor
+            eng = RAPEngine(model, params, fixed_mask_policy(mm, seq),
+                            EngineConfig(
+                                mode="structural", max_new_tokens=6,
+                                max_active=slots, max_len=32,
+                                budget_bytes=budget, tokens_per_page=8,
+                                kv_dtype=kv, decode_horizon=2,
+                                bucket_quant=quant),
+                            executor=make(model, params, mode="structural",
+                                          max_active=slots, kv_dtype=kv,
+                                          bucket_quant=quant))
+            trace = None
+            if cut:
+                kvb = budget - eng.resident_param_bytes
+                trace = TickStaircase(budget, [
+                    (2, 1.0), (10, (eng.resident_param_bytes
+                                    + (1 - cut) * kvb) / budget), (0, 1.0)])
+            rep = eng.run([EngineRequest(
+                rid=f"r{i}", prompt=toks[:, : (16 if i % 2 else 24)].numpy())
+                for i in range(n)], budget_trace=trace)
+            out[dev] = ({r.rid: r.tokens for r in rep.results},
+                        {r.rid: r.bucket for r in rep.results},
+                        rep.preempted_count, eng.executor.stats())
+        same = (out["cuda"][0].keys() == out["cpu"][0].keys()
+                and all(np.array_equal(out["cuda"][0][k], t)
+                        for k, t in out["cpu"][0].items()))
+        st = out["cuda"][3]
+        print(f"  reference structural ({name}): {len(out['cuda'][0])} "
+              f"requests, buckets of {sorted({len(b) for b in out['cuda'][1].values()})} "
+              f"layers, {st['groups']} groups of {st['bucket_signatures']} "
+              f"signature(s), {out['cuda'][2]} preempted; tokens equal to "
+              f"the CPU's: {same}")
+        if (not same or out["cuda"][1] != out["cpu"][1]
+                or any(b == () for b in out["cuda"][1].values())
+                or (cut and out["cuda"][2] < 1)
+                or (quant == "pow2"
+                    and max(len(b) for b in out["cuda"][1].values()) >= 4)
+                or (name.startswith("aliasing")
+                    and (st["groups"], st["bucket_signatures"]) != (2, 1))):
+            raise AssertionError(f"the structural reference ({name}) "
+                                 f"failed its checks")
+
+
 def shock_requests(cfg, n: int = 8, max_new: int = 16):
     """``n`` batch-1 requests, all arriving at t = 0 (so admission does not
     depend on the card's speed), prompts of 64-256 tokens from the seeded
@@ -1253,7 +1395,11 @@ def serve_phase(torch, ops, card: str, argv) -> dict:
                "decide_ms": decides,
                "decide_s_total": sum(r.decide_s for r in done),
                "launch_s": rep.launch_s, "launches": counts,
-               "decode_iters": rep.decode_iters}
+               "decode_iters": rep.decode_iters,
+               "mode": engine.cfg.mode,
+               "bucket_layers": [len(r.bucket) for r in done],
+               "pruned_without_bucket": sum(r.bucket == () for r in pruned),
+               "bucket_stats": ex.stats()}
     print(f"  serve [{card}]: {rep.tokens_per_s:.2f} tok/s over "
           f"{rep.generated_tokens} tokens; ttft p50/p99 "
           f"{summary['ttft_ms']['p50']:.1f}/{summary['ttft_ms']['p99']:.1f} "
@@ -1305,6 +1451,99 @@ def serial_phase(torch, ops, card: str, argv) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return summary
+
+
+# the decoder entry points whose layout decides a serve's launches
+RECORDED = ("forward", "prefill", "prefill_chunk", "paged_prefill_chunk",
+            "decode_step", "paged_decode_step")
+
+
+class LayoutRecorder:
+    """Wraps the decoder's entry points while a serve runs and records, per
+    call, its name, its layout (None: the config's) and, for a paged
+    decode step, whether its pool is quantized."""
+
+    def __init__(self):
+        from repro_torch.models import decoder
+        self.decoder, self.calls, self._orig = decoder, [], {}
+
+    def __enter__(self):
+        for name in RECORDED:
+            orig = self._orig[name] = getattr(self.decoder, name)
+
+            def wrapped(*a, _name=name, _orig=orig, **kw):
+                quant = _name == "paged_decode_step" and "ks" in a[2]
+                self.calls.append((_name, kw.get("layout"), quant))
+                return _orig(*a, **kw)
+            setattr(self.decoder, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(self.decoder, name, orig)
+
+
+def layout_launches(cfg, calls) -> dict:
+    """The launches ``calls`` imply: a forward or prefill launches flash,
+    ssd or rglru once per row with that mixer; a slot decode step the
+    dense decode kernel, a paged one the paged kernel (its fused-dequant
+    body on a quantized pool) once per attention row; every call the GLU
+    once per row with an FFN (chunk attention is plain torch, as are the
+    recurrent decode steps)."""
+    from repro_torch.models import decoder
+    want = dict.fromkeys(("fused_glu", "paged_decode_attention",
+                          "paged_decode_attention_quant", "flash_attention",
+                          "decode_attention", "ssd", "rglru"), 0)
+    for name, layout, quant in calls:
+        rows = layout or decoder.default_layout(cfg)
+        n = lambda *kinds: sum(s.mixer in kinds for s in rows)
+        if name in ("forward", "prefill"):
+            want["flash_attention"] += n("attn", "local_attn")
+            want["ssd"] += n("ssd")
+            want["rglru"] += n("rglru")
+        elif name == "decode_step":
+            want["decode_attention"] += n("attn", "local_attn")
+        elif name == "paged_decode_step":
+            want["paged_decode_attention_quant" if quant
+                 else "paged_decode_attention"] += n("attn")
+        want["fused_glu"] += sum(s.ffn is not None for s in rows)
+    return want
+
+
+def structural_phase(torch, ops, card: str, argv,
+                     base: Optional[dict] = None) -> dict:
+    """A structural serve (``serve_phase`` with the decoder's calls
+    recorded): serve 1's checks, a bucket on every pruned request, and
+    each kernel launched exactly as often as the layouts of the calls
+    imply; its tok/s, TTFT and ITL are printed, beside those of the masked
+    serve ``base`` of the same trace where one is given."""
+    from repro_torch.configs import get_config
+    arch = argv[argv.index("--arch") + 1]
+    with LayoutRecorder() as rec:
+        s = serve_phase(torch, ops, card, argv)
+    want = layout_launches(get_config(arch), rec.calls)
+    got = s["launches"]
+    rows = sorted({len(lay) for _, lay, _ in rec.calls if lay})
+    half = sum(any(r.mixer is None or (r.ffn is None and arch != "mamba2-370m")
+                   for r in lay) for _, lay, _ in rec.calls if lay)
+    print(f"  {len(rec.calls)} decoder calls, layouts of {rows} rows "
+          f"({half} calls through half-pruned rows); bucket stats "
+          f"{s['bucket_stats']}; request buckets of {s['bucket_layers']} "
+          f"layers")
+    print(f"  launches {got}, the layouts imply {want}")
+    for key, label in (("tok_per_s", "tok/s"), ("ttft_ms", "ttft p50 ms"),
+                       ("itl_ms", "itl p50 ms")):
+        pick = (lambda r: r[key]) if key == "tok_per_s" else (
+            lambda r: r[key]["p50"])
+        masked = ("" if base is None
+                  else f", masked (same trace) {pick(base):.2f}")
+        print(f"  {label} [{card}]: structural {pick(s):.2f}{masked}")
+    if (s["mode"] != "structural" or s["pruned_without_bucket"]
+            or got != want or not rows):
+        raise AssertionError(f"the structural serve ({arch}) failed its "
+                             f"checks")
+    s["layout_rows"] = rows
+    return s
 
 
 def check_recurrent_launches(what: str, arch: str, counts: dict) -> None:
@@ -1388,6 +1627,7 @@ def main() -> None:
     reference_phase(torch)
     recurrent_reference(torch)
     reference_shock(torch)
+    structural_reference(torch)
     print(f"reference: {time.perf_counter() - t0:.1f} s")
     print("serve:")
     s1 = serve_phase(torch, ops, card, SERVE_ARGV)
@@ -1424,13 +1664,33 @@ def main() -> None:
     c5 = serve_phase(torch, ops, card, SERVE5_ARGV)["launches"]
     check_recurrent_launches("serve 5", "mamba2-370m", c5)
     print("serve 6:")
-    c6 = serve_phase(torch, ops, card, SERVE6_ARGV)["launches"]
+    s6 = serve_phase(torch, ops, card, SERVE6_ARGV)
+    c6 = s6["launches"]
     check_recurrent_launches("serve 6", "recurrentgemma-9b", c6)
     print("serve 7:")
     t0 = time.perf_counter()
     s7 = train_phase(torch, ops, card)
     c7 = s7["launches"]
     print(f"  serve 7: {time.perf_counter() - t0:.1f} s")
+    print("serve 8:")
+    s8 = structural_phase(torch, ops, card, SERVE8_ARGV, s1)
+    sig = s8["bucket_stats"]["bucket_signatures"]
+    print(f"  serve 8: {sig} bucket signatures (pow2 bound 6), buckets of "
+          f"{sorted(set(s8['bucket_layers']))} of 32 layers")
+    if sig > 6:
+        raise AssertionError("serve 8 minted more signatures than the pow2 "
+                             "ladder holds")
+    c8 = s8["launches"]
+    print("serve 8, layer buckets on a grid of 0.6:")
+    s8l = structural_phase(torch, ops, card, SERVE8_LAYER_ARGV)
+    small = min(s8l["bucket_layers"])
+    print(f"  serve 8 (layer): smallest bucket {small} of 32 layers, "
+          f"{s8l['launches']['flash_attention']} flash launches")
+    if small >= 32:
+        raise AssertionError("serve 8 (layer) ran no bucket below 32 layers")
+    print("serve 9:")
+    s9 = structural_phase(torch, ops, card, SERVE9_ARGV, s6)
+    c9 = s9["launches"]
     print("shock:")
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
@@ -1441,8 +1701,10 @@ def main() -> None:
             "ssd": c5, "rglru": c6}
     for e in entries:
         e["launches"] = home.get(e["name"], c1)[e["name"]]
-        for i, c in enumerate((c1, c2, c3, c4, c5, c6, c7), start=1):
+        for i, c in enumerate((c1, c2, c3, c4, c5, c6, c7, c8, c9),
+                              start=1):
             e[f"launches_serve{i}"] = c[e["name"]]
+        e["launches_serve8_layer_grid06"] = s8l["launches"][e["name"]]
         e["launches_serve7_training"] = s7["train_launches"][e["name"]]
         for name, run in shock.items():
             e[f"launches_{name.replace(' ', '_')}"] = run["launches"][

@@ -1,7 +1,8 @@
 """Serving launcher: RAP-managed inference over a synthetic workload trace.
 
-  python -m repro_torch.launch.serve --executor {local,paged} --mode masked \
-      --policy rl --episodes 0 --requests 6 [--kv-dtype int8] \
+  python -m repro_torch.launch.serve --executor {local,paged} \
+      --mode {structural,masked} [--bucket-quant pow2] --policy rl \
+      --episodes 0 --requests 6 [--kv-dtype int8] \
       [--max-prefill-tokens 64] [--budget-trace staircase]
   python -m repro_torch.launch.serve --serial --mode masked --requests 2
 
@@ -16,7 +17,11 @@ trace of (batch, prompt) requests. Two serving paths:
 
   * default — continuous batching through ``RAPEngine``: one shared KV
     pool with admission control, every in-flight request decoding together
-    in horizons. ``--executor local`` (the default) keeps dense slot caches
+    in horizons. ``--mode structural`` (the default) runs each request in
+    its mask's retained-layer bucket (``--bucket-quant`` snaps masks onto a
+    ladder of whole-layer buckets first; the paged executor floors
+    ``none`` at ``layer``), ``--mode masked`` runs all layers with the mask
+    as 0/1 gates. ``--executor local`` (the default) keeps dense slot caches
     and decodes through the dense decode kernel; ``--executor paged`` keeps
     a page pool and decodes through the paged decode kernel.
     ``--kv-dtype`` picks the KV precision (int8 slot caches are dequantized
@@ -35,8 +40,8 @@ trace of (batch, prompt) requests. Two serving paths:
 
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead (for tests). Without a GPU and without ``--device cpu`` it
-raises. Structural mode, the sharded executor and the static baselines
-are later slices (ROADMAP queue 1).
+raises. The sharded executor and the static baselines are later slices
+(ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -51,7 +56,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="the arch's reduced SMOKE config")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--mode", choices=("structural", "masked"),
-                    default="masked")
+                    default="structural",
+                    help="structural = each request runs its retained "
+                         "layers (a group per bucket); masked = all layers, "
+                         "the mask as per-slot 0/1 gates")
     ap.add_argument("--policy", default="rl", help="rl | dense")
     ap.add_argument("--scheduler", choices=("fifo", "sjf", "priority"),
                     default="fifo")
@@ -110,6 +118,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="preempt running requests when the budget trace "
                          "drops (--no-enable-preemption: only new "
                          "admissions are gated)")
+    ap.add_argument("--bucket-quant", choices=("none", "layer", "pow2"),
+                    default="none",
+                    help="structural bucket quantization (DESIGN.md §9): "
+                         "snap decision masks onto whole-layer buckets before "
+                         "minting one — the exact mask runs as 0/1 gates "
+                         "inside it, with the same tokens — so an adaptive "
+                         "policy mints a bounded set; 'pow2' bounds it at "
+                         "ceil(log2 L)+1 layouts. The paged executor floors "
+                         "'none' at 'layer'")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -127,9 +144,6 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
     if args.serial and args.executor != "local":
         ap.error(f"--executor {args.executor} drives the batching engine; "
                  f"drop --serial")
-    if args.mode != "masked":
-        raise NotImplementedError("--mode structural is ROADMAP queue 1, "
-                                  "item 8")
     import time
 
     import numpy as np
@@ -213,9 +227,11 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
               f"(pool {kv_cap / 1e6:.1f}MB vs {slots} dense requests "
               f"{slots * dense_req / 1e6:.1f}MB)")
     make = PagedExecutor if args.executor == "paged" else LocalExecutor
-    executor = make(model, params, max_active=slots, kv_dtype=kv_dtype)
+    executor = make(model, params, mode=args.mode, max_active=slots,
+                    kv_dtype=kv_dtype, bucket_quant=args.bucket_quant)
     engine = RAPEngine(model, params, policy, EngineConfig(
-        mode="masked", max_new_tokens=args.max_new, max_active=slots,
+        mode=args.mode, bucket_quant=args.bucket_quant,
+        max_new_tokens=args.max_new, max_active=slots,
         max_len=max_total, budget_bytes=budget, kv_dtype=kv_dtype,
         decode_horizon=args.decode_horizon,
         budget_quantum_frac=args.budget_quantum,
@@ -259,7 +275,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
                   f"queue {r.queue_delay_s * 1e3:.0f}ms  "
                   f"decide {r.decide_s * 1e3:.0f}ms"
                   f"{' (memo)' if r.cached_decision else ''}  "
-                  f"ttft {r.ttft_s * 1e3:.0f}ms  fits={r.fits}")
+                  f"ttft {r.ttft_s * 1e3:.0f}ms  fits={r.fits}"
+                  f"{f'  bucket {len(r.bucket)} layers' if r.bucket else ''}")
         else:
             print(f"{r.rid}: {r.status.upper()} ({r.reason})")
     print(f"engine: {rep.tokens_per_s:.1f} tok/s, {rep.generated_tokens} "
@@ -288,6 +305,7 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
           f"{rep.pool['fragmentation']:.2f}, measured frag "
           f"{rep.measured_frag:.2f}, overcommits "
           f"{int(rep.pool['overcommit_events'])}")
+    print("bucket stats:", executor.stats())
     return engine, rep
 
 

@@ -10,7 +10,12 @@ pattern-group scan (``_forward_pattern_groups``, a compile-size device with
 the same math). RAP's masked mode multiplies each residual branch by a 0/1
 gate: ``gates`` = {"mixer": [L] or [L, B], "ffn": ...}; the [L, B] form
 gives every batch row its own keep-mask (continuous batching, and the
-batched GSI scoring forward).
+batched GSI scoring forward). Every entry point also takes a ``layout``
+(default :func:`default_layout`): structural mode runs a retained-layer
+layout (``repro_torch.core.masks``) whose rows may lack a mixer or an FFN
+(a half-pruned layer; a mamba2 row can lack both) — such a block is
+skipped — and whose gates, caches and page-pool layers are indexed by
+layout row; an empty layout runs no layer.
 
 Decode runs against a slot cache (:func:`init_cache`: per kind, a dense
 ``[n, B, S_max, K, Dh]`` attention cache — model-dtype or int8 with
@@ -80,22 +85,24 @@ def check_supported(cfg) -> None:
             f"and non-RMSNorm models are ROADMAP queue 1, items 11-14")
 
 
-def is_attn_layout(cfg) -> bool:
-    """Uniform all-attention layout: the only kind with a positional KV
-    write frontier, so the only one chunked prefill and page pools serve."""
-    layout = default_layout(cfg)
+def is_attn_layout(cfg, layout=None) -> bool:
+    """Uniform all-attention layout (``layout``, default the config's): the
+    only kind with a positional KV write frontier, so the only one chunked
+    prefill and page pools serve. A half-pruned row breaks uniformity."""
+    layout = default_layout(cfg) if layout is None else layout
     return bool(layout) and all(s.mixer == "attn" and s.ffn == layout[0].ffn
                                 for s in layout)
 
 
-def require_attn_layout(cfg, what: str) -> None:
+def require_attn_layout(cfg, what: str, layout=None) -> None:
     """Raise unless ``what`` (a path that pages or chunks the KV cache) can
-    serve ``cfg``."""
+    serve ``layout`` (default the config's) of ``cfg``."""
     check_supported(cfg)
-    if not is_attn_layout(cfg):
+    if not is_attn_layout(cfg, layout):
+        layout = default_layout(cfg) if layout is None else layout
         raise NotImplementedError(
             f"{what} serves uniform all-attention layouts; {cfg.name!r} mixes "
-            f"{sorted({str(s.mixer) for s in default_layout(cfg)})} — "
+            f"{sorted({str(s.mixer) for s in layout})} — "
             f"heterogeneous models serve on slot caches (LocalExecutor: "
             f"prefill, decode_step)")
 
@@ -177,9 +184,11 @@ def _window(cfg, slot: LayerSlot) -> int:
 
 
 def _block(params, cfg, slot: LayerSlot, i: int, h, gates, mixer_out):
-    """Residual updates of layer ``i`` around its mixer output: the gated
-    mixer branch, then the gated FFN branch (none in mamba2)."""
-    h = h + _bgate(gates["mixer"][i], h) * mixer_out
+    """Residual updates of layout row ``i`` around its mixer output: the
+    gated mixer branch (none for a pruned mixer, ``mixer_out`` None), then
+    the gated FFN branch (none in mamba2 or for a pruned FFN)."""
+    if mixer_out is not None:
+        h = h + _bgate(gates["mixer"][i], h) * mixer_out
     if slot.ffn is None:
         return h
     pf = tree_slice(params["stacks"][slot.ffn], slot.ffn_idx)
@@ -203,15 +212,19 @@ def _cache_indices(layout) -> List[int]:
 
 
 # -------------------------------------------------------------------- forward
-def forward(params, cfg, tokens, *, gates=None, unembed: bool = True):
+def forward(params, cfg, tokens, *, gates=None, unembed: bool = True,
+            layout=None):
     """Full-sequence forward. Returns (logits f32 [B,S,Vp], None);
     ``unembed=False`` returns the pre-final-norm hidden state instead."""
     check_supported(cfg)
-    layout = default_layout(cfg)
+    layout = default_layout(cfg) if layout is None else layout
     gates = gates or _ones_gates(len(layout), tokens.device)
     h = _embed(params, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for i, slot in enumerate(layout):
+        if slot.mixer is None:
+            h = _block(params, cfg, slot, i, h, gates, None)
+            continue
         pm = _mixer_params(params, slot)
         hn = layers.apply_norm(cfg, pm["norm"], h)
         if slot.mixer == "rglru":
@@ -229,8 +242,9 @@ def forward(params, cfg, tokens, *, gates=None, unembed: bool = True):
 
 # ---------------------------------------------------------------------- cache
 def init_cache(cfg, batch: int, max_len: int, kv_dtype=None,
-               device=None) -> dict:
-    """Zeroed decode state for every stateful kind of the layout, plus
+               device=None, layout=None) -> dict:
+    """Zeroed decode state for every stateful kind of ``layout`` (default
+    the config's; one cache row per layout row with that mixer), plus
     ``"pos": 0``: ``"attn"`` {"k","v"} [n, batch, max_len, K, Dh] in
     ``kv_dtype`` (default the model dtype; ``torch.int8`` adds per-(token,
     head) scales), ``"local_attn"`` the same with ``min(attn_window,
@@ -238,7 +252,7 @@ def init_cache(cfg, batch: int, max_len: int, kv_dtype=None,
     conv buffers."""
     check_supported(cfg)
     n: Dict[str, int] = {}
-    for s in default_layout(cfg):
+    for s in default_layout(cfg) if layout is None else layout:
         n[s.mixer] = n.get(s.mixer, 0) + 1
     cache: dict = {"pos": 0}
     if n.get("attn"):
@@ -271,7 +285,7 @@ def _store_window(entry: dict, ci: int, k, v) -> None:
 
 
 def prefill(params, cfg, tokens, max_len: int, *, gates=None,
-            kv_dtype=None) -> Tuple[torch.Tensor, dict]:
+            kv_dtype=None, layout=None) -> Tuple[torch.Tensor, dict]:
     """Process the prompt; return (last-position logits [B,Vp], cache) with
     cache :func:`init_cache` ``(B, max_len, kv_dtype)`` holding the
     prompt's K/V in positions [0, S) (encoded by ``store_kv``; a local
@@ -280,14 +294,18 @@ def prefill(params, cfg, tokens, max_len: int, *, gates=None,
     prompt shorter than K-1), and ``"pos"`` = S. Each recurrent state comes
     from the same scan call that computes the layer's output."""
     check_supported(cfg)
-    layout = default_layout(cfg)
+    layout = default_layout(cfg) if layout is None else layout
     B, S = tokens.shape
     gates = gates or _ones_gates(len(layout), tokens.device)
     h = _embed(params, cfg, tokens)
     positions = torch.arange(S, device=h.device)[None, :]
-    cache = init_cache(cfg, B, max_len, kv_dtype or h.dtype, h.device)
+    cache = init_cache(cfg, B, max_len, kv_dtype or h.dtype, h.device,
+                       layout)
     cidx = _cache_indices(layout)
     for i, slot in enumerate(layout):
+        if slot.mixer is None:
+            h = _block(params, cfg, slot, i, h, gates, None)
+            continue
         pm = _mixer_params(params, slot)
         hn = layers.apply_norm(cfg, pm["norm"], h)
         ci = cidx[i]
@@ -317,7 +335,7 @@ def prefill(params, cfg, tokens, max_len: int, *, gates=None,
 
 # ------------------------------------------------------------ chunked prefill
 def prefill_chunk(params, cfg, cache: dict, tokens, start: int, *,
-                  gates=None) -> torch.Tensor:
+                  gates=None, layout=None) -> torch.Tensor:
     """One prompt chunk against a partly filled slot cache.
 
     cache: {"attn": {"k","v"} [L, B, S_max, K, Dh]} (an int8 cache adds
@@ -325,9 +343,9 @@ def prefill_chunk(params, cfg, cache: dict, tokens, start: int, *,
     absolute offset ``start``.
     Running a prompt chunk by chunk and reading the last chunk's logits
     gives :func:`prefill`'s logits. Returns last-position logits [B, Vp]
-    and sets ``cache["pos"]``."""
-    require_attn_layout(cfg, "chunked prefill")
-    layout = default_layout(cfg)
+    and sets ``cache["pos"]``. Uniform all-attention ``layout`` s only."""
+    require_attn_layout(cfg, "chunked prefill", layout)
+    layout = default_layout(cfg) if layout is None else layout
     gates = gates or _ones_gates(len(layout), tokens.device)
     h = _embed(params, cfg, tokens)
     for i, slot in enumerate(layout):
@@ -342,16 +360,17 @@ def prefill_chunk(params, cfg, cache: dict, tokens, start: int, *,
 
 def paged_prefill_chunk(params, cfg, pools: dict, page_table, tokens,
                         start: int, *, scratch_page: int,
-                        gates=None) -> torch.Tensor:
+                        gates=None, layout=None) -> torch.Tensor:
     """Paged sibling of :func:`prefill_chunk`: one prompt chunk written
     straight into granted pages.
 
     pools: {"k","v"} [L, n_pages, page_tokens, K, Dh] (quantized pools add
     {"ks","vs"} [L, n_pages, K]), updated in place; page_table: int32
-    [B, max_pages]; tokens: [B, C] at absolute offset ``start``. Returns
-    last-position logits [B, Vp]."""
-    require_attn_layout(cfg, "paged prefill")
-    layout = default_layout(cfg)
+    [B, max_pages]; tokens: [B, C] at absolute offset ``start``. A layout
+    of L' rows writes pool layers [0, L'). Returns last-position logits
+    [B, Vp]."""
+    require_attn_layout(cfg, "paged prefill", layout)
+    layout = default_layout(cfg) if layout is None else layout
     gates = gates or _ones_gates(len(layout), tokens.device)
     h = _embed(params, cfg, tokens)
     for i, slot in enumerate(layout):
@@ -372,7 +391,8 @@ def _pool_layer(pools: dict, i: int) -> dict:
 
 # --------------------------------------------------------------------- decode
 def decode_step(params, cfg, cache: dict, tokens, *, gates=None,
-                split_rows: int = 0) -> Tuple[torch.Tensor, dict]:
+                split_rows: int = 0,
+                layout=None) -> Tuple[torch.Tensor, dict]:
     """One autoregressive step against a slot cache (updated in place).
 
     ``cache["pos"]`` is a scalar (the one-shot path: the whole batch at one
@@ -384,12 +404,15 @@ def decode_step(params, cfg, cache: dict, tokens, *, gates=None,
     count the decode kernel's split-KV cut is chosen for. Returns (logits
     [B, 1, Vp], cache) with ``cache["pos"]`` advanced by one."""
     check_supported(cfg)
-    layout = default_layout(cfg)
+    layout = default_layout(cfg) if layout is None else layout
     gates = gates or _ones_gates(len(layout), tokens.device)
     pos = cache["pos"]
     h = _embed(params, cfg, tokens)
     cidx = _cache_indices(layout)
     for i, slot in enumerate(layout):
+        if slot.mixer is None:
+            h = _block(params, cfg, slot, i, h, gates, None)
+            continue
         pm = _mixer_params(params, slot)
         hn = layers.apply_norm(cfg, pm["norm"], h)
         ci = cidx[i]
@@ -411,7 +434,7 @@ def decode_step(params, cfg, cache: dict, tokens, *, gates=None,
 
 
 def decode_horizon(params, cfg, cache: dict, tokens, horizon: int, *,
-                   gates=None, split_rows: int = 0
+                   gates=None, split_rows: int = 0, layout=None
                    ) -> Tuple[torch.Tensor, dict]:
     """``horizon`` greedy :func:`decode_step` s with the argmax token fed
     back on the device (the loop form of JAX's ``lax.scan``): nothing is
@@ -424,7 +447,7 @@ def decode_horizon(params, cfg, cache: dict, tokens, horizon: int, *,
     toks = []
     for _ in range(horizon):
         logits, cache = decode_step(params, cfg, cache, tok, gates=gates,
-                                    split_rows=split_rows)
+                                    split_rows=split_rows, layout=layout)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         toks.append(nxt)
         tok = nxt[:, None]
@@ -432,18 +455,20 @@ def decode_horizon(params, cfg, cache: dict, tokens, horizon: int, *,
 
 
 def paged_decode_step(params, cfg, pools: dict, page_table, pos, tokens, *,
-                      gates=None, split_rows: int = 0) -> torch.Tensor:
+                      gates=None, split_rows: int = 0,
+                      layout=None) -> torch.Tensor:
     """One autoregressive step against a paged KV pool.
 
     pools: {"k","v"} page arrays [L, n_pages, page_tokens, K, Dh] —
     quantized pools add {"ks","vs"} scales [L, n_pages, K] — updated in
     place (one new token per row); page_table: int32 [B, max_pages]; pos:
     int32 [B] per-row write positions; tokens: [B, 1]. Gates may be [L] or
-    [L, B]. ``split_rows`` as in :func:`decode_step`. Returns logits
-    [B, 1, Vp].
+    [L, B]. ``split_rows`` as in :func:`decode_step`. A uniform
+    all-attention ``layout`` of L' rows reads and writes pool layers
+    [0, L'). Returns logits [B, 1, Vp].
     """
-    require_attn_layout(cfg, "paged decode")
-    layout = default_layout(cfg)
+    require_attn_layout(cfg, "paged decode", layout)
+    layout = default_layout(cfg) if layout is None else layout
     gates = gates or _ones_gates(len(layout), tokens.device)
     h = _embed(params, cfg, tokens)
     for i, slot in enumerate(layout):
@@ -456,7 +481,8 @@ def paged_decode_step(params, cfg, pools: dict, page_table, pos, tokens, *,
 
 
 def paged_decode_horizon(params, cfg, pools: dict, page_table, pos, tokens,
-                         horizon: int, *, gates=None, split_rows: int = 0):
+                         horizon: int, *, gates=None, split_rows: int = 0,
+                         layout=None):
     """``horizon`` greedy paged decode steps with the argmax token fed back
     on the device (the loop form of JAX's ``lax.scan``): nothing is read
     back to the host inside the loop. The page table is constant across
@@ -469,7 +495,8 @@ def paged_decode_horizon(params, cfg, pools: dict, page_table, pos, tokens,
     toks = []
     for _ in range(horizon):
         logits = paged_decode_step(params, cfg, pools, page_table, pos, tok,
-                                   gates=gates, split_rows=split_rows)
+                                   gates=gates, split_rows=split_rows,
+                                   layout=layout)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         toks.append(nxt)
         tok = nxt[:, None]

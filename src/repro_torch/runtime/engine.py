@@ -56,8 +56,13 @@ every request against the budget exactly as given, grows capacity for an
 oversize request when nothing runs, and records an overcommit instead of
 queueing.
 
-Structural mode is a later slice (ROADMAP queue 1, item 8) and raises
-``NotImplementedError``.
+``mode="structural"`` runs each request in its mask's bucket (the
+executor's retained-layer group, ``bucket_quant`` snapping masks onto a
+ladder). Under strict admission a request first tries *bucket affinity*
+(:meth:`RAPEngine._sticky_decision`): an existing group whose minting mask
+fits the remaining budget hosts it without a policy decision, so a
+drifting pool level does not mint a bucket per admission. Results carry
+the group's bucket signature (``()`` in masked mode).
 """
 from __future__ import annotations
 
@@ -100,7 +105,7 @@ def _kv_byte_ratio(kv_dtype, mcfg) -> float:
 # ------------------------------------------------------------------- config
 @dataclasses.dataclass
 class EngineConfig:
-    mode: str = "masked"              # masked (structural: ROADMAP item 8)
+    mode: str = "masked"              # masked | structural
     max_new_tokens: int = 16
     max_active: int = 8               # decode slots (decode batch)
     max_len: int = 256                # prompt + generated tokens per row
@@ -140,13 +145,26 @@ class EngineConfig:
     # "scheduler": Scheduler.select_victims (SLO tiers + aging under
     # PriorityScheduler); "arrival": the newest running request first
     victim_policy: str = "scheduler"
+    # structural mode (DESIGN.md §9): snap every decision mask onto a ladder
+    # of whole-layer keep-sets before its bucket is minted (none | layer |
+    # pow2, masks.quantize_mask); the exact mask runs as gates inside the
+    # bucket, with the same tokens. Paged executors floor "none" at "layer"
+    bucket_quant: str = "none"
+    # cap on live structural groups of the default LocalExecutor (0 = no
+    # cap): idle groups past it are dropped, least recently used first.
+    # Groups share the full param stacks, so it bounds slot-cache bytes only
+    max_structural_groups: int = 0
 
     def __post_init__(self):
-        if self.mode == "structural":
-            raise NotImplementedError(
-                "structural mode is ROADMAP queue 1, item 8")
-        if self.mode != "masked":
+        if self.mode not in ("masked", "structural"):
             raise ValueError(f"unknown mode {self.mode!r}")
+        if self.bucket_quant not in ("none", "layer", "pow2"):
+            raise ValueError(f"unknown bucket_quant {self.bucket_quant!r}; "
+                             f"expected none|layer|pow2")
+        if self.max_structural_groups < 0:
+            raise ValueError(f"max_structural_groups must be >= 0, got "
+                             f"{self.max_structural_groups!r} (0 disables "
+                             f"the cap)")
         if self.admission not in ("strict", "force"):
             raise ValueError(f"unknown admission {self.admission!r}")
         if self.len_buckets not in ("max", "pow2"):
@@ -217,6 +235,8 @@ class RequestResult:
     reason: str = ""
     # time to first token, measured from ARRIVAL (-1.0 when no token came)
     ttft_s: float = -1.0
+    # the hosting group's bucket signature (structural mode), else ()
+    bucket: Tuple = ()
 
 
 @dataclasses.dataclass
@@ -278,6 +298,7 @@ class _Running:
     # a budget too small for even one request drains it instead of
     # re-spilling it at the next tick
     pinned: bool = False
+    bucket: Tuple = ()
 
 
 @dataclasses.dataclass
@@ -292,6 +313,7 @@ class _Prefilling:
     kv_bytes: float
     max_new: int
     task: Any
+    bucket: Tuple = ()
 
 
 @dataclasses.dataclass
@@ -328,7 +350,14 @@ class RAPEngine:
         self.executor = executor if executor is not None else LocalExecutor(
             model, params, mode=self.cfg.mode,
             max_active=self.cfg.max_active, kv_dtype=self.cfg.kv_dtype,
-            decode_buckets=self.cfg.decode_buckets)
+            decode_buckets=self.cfg.decode_buckets,
+            bucket_quant=self.cfg.bucket_quant,
+            max_groups=self.cfg.max_structural_groups)
+        ex_mode = getattr(self.executor, "mode", self.cfg.mode)
+        if ex_mode != self.cfg.mode:
+            raise ValueError(
+                f"the executor was built for mode={ex_mode!r} but "
+                f"EngineConfig.mode={self.cfg.mode!r}")
         self._paged = bool(getattr(self.executor, "paged", False))
         if self._paged and self.cfg.admission != "strict":
             raise ValueError(
@@ -733,7 +762,7 @@ class RAPEngine:
             self.pool.free(rid, missing_ok=True)
             self._record_cancelled(pf.req, decision=pf.decision,
                                    admitted_t=pf.admitted_t,
-                                   kv_bytes=pf.kv_bytes)
+                                   kv_bytes=pf.kv_bytes, bucket=pf.bucket)
             return True
         run = self._running.pop(rid, None)
         if run is None:
@@ -748,12 +777,12 @@ class RAPEngine:
         self._record_cancelled(run.req, decision=run.decision,
                                admitted_t=run.admitted_t,
                                kv_bytes=run.kv_bytes, out=run.out,
-                               events=run.events)
+                               events=run.events, bucket=run.bucket)
         return True
 
     def _record_cancelled(self, req: EngineRequest, *, decision=None,
                           admitted_t: float = -1.0, kv_bytes: float = 0.0,
-                          out=None, events=None) -> None:
+                          out=None, events=None, bucket: Tuple = ()) -> None:
         now = self._now()
         d = decision
         self._results.append(RequestResult(
@@ -768,7 +797,8 @@ class RAPEngine:
             cached_decision=d.cached if d is not None else False,
             peak_bytes=d.peak_bytes if d is not None else 0.0,
             kv_bytes=kv_bytes, reason="cancelled",
-            ttft_s=(events[0][0] - req.arrival_t) if events else -1.0))
+            ttft_s=(events[0][0] - req.arrival_t) if events else -1.0,
+            bucket=bucket))
 
     def _abort_cleanup(self) -> None:
         """Release what a raising run holds — live and spilled pool
@@ -827,11 +857,13 @@ class RAPEngine:
         if quantum > 0 and not force:
             eff = np.floor(eff / quantum + 1e-9) * quantum
         cache_len = self._cache_len(total)
-        d = self.policy.observe(PolicyState(
-            batch=b, total_len=total, budget_bytes=eff,
-            reserved_bytes=self.pool.bytes_reserved,
-            capacity_bytes=self.pool.acct.capacity_bytes,
-            n_running=len(self._running), now=self._now()))
+        d = self._sticky_decision(b, total, eff, cache_len)
+        if d is None:
+            d = self.policy.observe(PolicyState(
+                batch=b, total_len=total, budget_bytes=eff,
+                reserved_bytes=self.pool.bytes_reserved,
+                capacity_bytes=self.pool.acct.capacity_bytes,
+                n_running=len(self._running), now=self._now()))
         kv_bytes = self.mm.state_bytes(d.mask, b, total)
         if not self._paged:
             # the slot path charges the bytes its cache stores: an int8
@@ -873,6 +905,7 @@ class RAPEngine:
             return "defer"
         slots = free[:b]
         admitted_t = self._now()
+        bucket = group.key if self.cfg.mode == "structural" else ()
         prompt = np.asarray(req.prompt, np.int32)
         chunked = (self.cfg.max_prefill_tokens > 0
                    and self.executor.supports_chunked_prefill(group))
@@ -892,7 +925,7 @@ class RAPEngine:
             self._prefilling[req.rid] = _Prefilling(
                 req=req, decision=d, group=group, slots=slots,
                 admitted_t=admitted_t, kv_bytes=kv_bytes, max_new=max_new,
-                task=self.executor.prefill_begin(
+                bucket=bucket, task=self.executor.prefill_begin(
                     group, slots, req.rid, prompt, d.mask,
                     max_chunk=self.cfg.max_prefill_tokens))
             return "admitted"
@@ -908,11 +941,46 @@ class RAPEngine:
         run = _Running(req=req, decision=d, group=group, slots=slots,
                        admitted_t=admitted_t, kv_bytes=kv_bytes,
                        max_new=max_new, out=[first],
-                       events=[(self._now(), 1)])
+                       events=[(self._now(), 1)], bucket=bucket)
         self._running[req.rid] = run
         if run.max_new <= len(run.out):
             self._complete(run)
         return "admitted"
+
+    def _sticky_decision(self, b: int, total: int, eff: float,
+                         cache_len: int) -> Optional[Decision]:
+        """Bucket affinity (structural mode, strict admission): an existing
+        group with ``b`` free slots whose minting mask's peak fits the
+        remaining budget ``eff`` and whose state the pool can still grant
+        hosts the request without a policy decision — the one keeping the
+        most blocks wins. Without it a drifting pool level mints a new
+        bucket per admission. Slot groups must also match ``cache_len``;
+        paged groups host any length."""
+        if self.cfg.mode != "structural" or self.cfg.admission != "strict":
+            return None
+        best = None
+        for group in self.executor.groups():
+            if group.mask is None or len(group.free_slots()) < b:
+                continue
+            if not self._paged and group.cache_len != cache_len:
+                continue
+            peak = self.mm.peak_bytes(group.mask, b, total)
+            if peak > eff:
+                continue
+            if self._paged:
+                if not self.pool.can_alloc_tokens(b, total):
+                    continue
+            elif not self.pool.can_alloc(
+                    self.mm.state_bytes(group.mask, b, total)):
+                continue
+            kept = int(group.mask.sum())
+            if best is None or kept > best[0]:
+                best = (kept, group, peak)
+        if best is None:
+            return None
+        _, group, peak = best
+        return Decision(mask=group.mask.copy(), steps=0, peak_bytes=peak,
+                        fits=True, latency_s=0.0, cached=True)
 
     def _advance_prefills(self) -> None:
         """Advance every in-flight chunked prefill by ONE chunk; a prefill
@@ -927,7 +995,8 @@ class RAPEngine:
             run = _Running(req=pf.req, decision=pf.decision, group=pf.group,
                            slots=pf.slots, admitted_t=pf.admitted_t,
                            kv_bytes=pf.kv_bytes, max_new=pf.max_new,
-                           out=[first], events=[(self._now(), 1)])
+                           out=[first], events=[(self._now(), 1)],
+                           bucket=pf.bucket)
             self._running[rid] = run
             if run.max_new <= len(run.out):
                 self._complete(run)
@@ -1020,7 +1089,8 @@ class RAPEngine:
             admitted_t=run.admitted_t, finished_t=now,
             queue_delay_s=run.admitted_t - run.req.arrival_t,
             decide_s=d.latency_s, fits=d.fits, cached_decision=d.cached,
-            peak_bytes=d.peak_bytes, kv_bytes=run.kv_bytes, ttft_s=ttft)
+            peak_bytes=d.peak_bytes, kv_bytes=run.kv_bytes, ttft_s=ttft,
+            bucket=run.bucket)
         self._results.append(result)
         del self._running[run.req.rid]
         self.policy.feedback(result)

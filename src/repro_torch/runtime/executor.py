@@ -2,7 +2,7 @@
 
 The engine decides *who* runs (scheduler) and *what shape* they run in
 (pruning policy); a :class:`ModelExecutor` owns *how* the chosen masks
-execute. Two backends, both in masked mode:
+execute. Two backends, each in masked or structural mode:
 
   * :class:`LocalExecutor` — slot-batched caches. A :class:`SlotGroup`
     holds the decoder's cache (``decoder.init_cache``) with ``n_slots``
@@ -24,8 +24,9 @@ execute. Two backends, both in masked mode:
     through a per-request page table and the paged decode kernel.
 
 Decode state is device-resident: a group keeps its cache (or page-table
-rows), positions, seed tokens and ``[2, L, n_slots]`` gates as device
-tensors, updated in place at placement, eviction and page grants. A horizon
+rows), positions, seed tokens and ``[2, L, n_slots]`` gates (L: the
+group's layout rows) as device tensors, updated in place at placement,
+eviction and page grants. A horizon
 of H greedy tokens is a loop of H decode steps launched back to back on the
 current CUDA stream with the argmax token fed back on the device; the host
 reads the ``[B, H]`` tokens once, in ``decode_finish`` (the counterpart of
@@ -44,8 +45,21 @@ local path, position and seed tokens on the paged one, whose pages the
 pool spills) and comes back through ``restore_state`` into free slots of
 an equivalent group, by the same placement a prefill uses.
 
-Structural mode (compacted stacks) is a later slice (ROADMAP queue 1,
-item 8) and raises ``NotImplementedError``.
+Masked mode runs every request on all L layers with its mask as per-slot
+0/1 gates. Structural mode runs a group per *bucket*: the request's mask
+is snapped onto a ladder (``bucket_quant``, ``masks.quantize_mask``) and
+the group is keyed by the exact retained rows (``masks.gather_key``) —
+never by the bucket signature alone, which would serve a mask with
+another mask's layers (DESIGN.md §9). A bucket of L' rows holds L' cache
+layers (slot path) or reads and writes pool layers [0, L') of its
+request's pages (paged path; the pool stays full depth), and its layout
+(``masks.retained_layout``) indexes the retained rows of the *full* param
+stacks: the decoder slices each row out of its stack anyway, so a
+compacted copy of the weights (JAX's ``compact_params``) would buy
+nothing. The request's exact mask rides per-slot gates over the bucket's
+rows (``gate_rows``; all ones on an exact bucket's present blocks),
+which gives the bits of the exact structural drop in a quantized bucket
+too.
 """
 from __future__ import annotations
 
@@ -56,6 +70,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import masks as masks_lib
 from repro_torch.kernels.ref import put_pages
 from repro_torch.models import attention, decoder
 from repro_torch.runtime.kv_pool import resolve_kv_dtype
@@ -127,6 +142,19 @@ def _gate_cols(mask, gate_rows: Optional[np.ndarray]) -> np.ndarray:
     if gate_rows is not None:
         gm, gf = gm[gate_rows], gf[gate_rows]
     return np.stack([gm, gf])
+
+
+def _structural_group(cfg, mask, bucket_quant: str) -> Tuple[Tuple, dict]:
+    """The structural group hosting ``mask``: (its gather key, the group's
+    fields — bucket signature, minting mask, layout over the full stacks
+    and the original row behind each layout row). ``mask`` (not the
+    quantized bucket mask) is what bucket affinity reuses: a rounded-up
+    mask would make affinity adopt a less-pruned decision."""
+    qmask = masks_lib.quantize_mask(cfg, mask, bucket_quant)
+    return masks_lib.gather_key(cfg, qmask), dict(
+        key=masks_lib.bucket_key(cfg, qmask), mask=np.array(mask, copy=True),
+        layout=masks_lib.retained_layout(cfg, qmask),
+        gate_rows=masks_lib.keep_rows(cfg, qmask))
 
 
 def _gate_tensors(cols: np.ndarray, device) -> dict:
@@ -230,8 +258,11 @@ class ModelExecutor:
 
 # ------------------------------------------------------------------- local
 class SlotGroup:
-    """One slot-batched decode family sharing a dense cache: the full
-    params with per-slot gates (masked mode), minted per cache length.
+    """One slot-batched decode family sharing a dense cache, minted per
+    cache length: in masked mode all L layers with per-slot gates
+    (``key`` "masked"); in structural mode one bucket's ``layout`` (its
+    bucket signature is ``key``, the mask that minted it ``mask``), gated
+    over its ``gate_rows``.
 
     All decode state — the cache (every leaf of every kind with the slot
     axis at 1, e.g. ``cache["attn"]["k"] [L_attn, n_slots, cache_len, K,
@@ -244,8 +275,13 @@ class SlotGroup:
     host mirror of the positions for the engine's bookkeeping."""
 
     def __init__(self, params, cfg_model, n_slots: int, cache_len: int,
-                 kv_dtype, device):
+                 kv_dtype, device, *, key="masked", layout=None, mask=None,
+                 gate_rows=None):
         self.params = params
+        self.key = key
+        self.layout = layout            # None: the config's L layers
+        self.mask = mask
+        self.gate_rows = gate_rows
         self.n_slots = n_slots
         self.cache_len = cache_len
         self.device = device
@@ -253,13 +289,15 @@ class SlotGroup:
         # slots held by an in-flight chunked prefill
         self.reserved: set = set()
         self.cache = decoder.init_cache(cfg_model, n_slots, cache_len,
-                                        kv_dtype, device)
+                                        kv_dtype, device, layout)
         self.cache["pos"] = torch.zeros(n_slots, dtype=torch.int32,
                                         device=device)
         self.tokens = torch.zeros(n_slots, 1, dtype=torch.int32,
                                   device=device)
-        self.gates_dev = torch.ones(2, cfg_model.n_layers, n_slots,
-                                    device=device)
+        # one gate row per layout row
+        self.gates_dev = torch.ones(
+            2, cfg_model.n_layers if layout is None else len(layout), n_slots,
+            device=device)
         self.pos = np.zeros(n_slots, np.int64)
         self._mcfg = cfg_model
         self._iidx_cache: Dict[Tuple[int, ...], torch.Tensor] = {}
@@ -316,7 +354,8 @@ class SlotGroup:
         if idx is None:
             toks, self.cache = decoder.decode_horizon(
                 self.params, self._mcfg, self.cache, self.tokens, horizon,
-                gates={"mixer": g[0], "ffn": g[1]}, split_rows=self.n_slots)
+                gates={"mixer": g[0], "ffn": g[1]}, split_rows=self.n_slots,
+                layout=self.layout)
             self.tokens = toks[:, -1:].contiguous()
             return toks, None
         iidx = self.iidx(idx)
@@ -326,7 +365,8 @@ class SlotGroup:
         gs = g[:, :, iidx]
         toks, sub = decoder.decode_horizon(
             self.params, self._mcfg, sub, self.tokens[iidx], horizon,
-            gates={"mixer": gs[0], "ffn": gs[1]}, split_rows=self.n_slots)
+            gates={"mixer": gs[0], "ffn": gs[1]}, split_rows=self.n_slots,
+            layout=self.layout)
         for kind, leaves in _state_leaves(sub).items():
             for k, v in leaves.items():
                 self.cache[kind][k][:, iidx] = v
@@ -336,25 +376,32 @@ class SlotGroup:
 
 
 class LocalExecutor(ModelExecutor):
-    """Slot-batched execution, masked mode: one :class:`SlotGroup` per
-    cache length, each with ``max_active`` slots.
+    """Slot-batched execution: one :class:`SlotGroup` per cache length
+    (masked mode) or per (gather key, cache length) (structural mode),
+    each with ``max_active`` slots.
 
     ``kv_dtype`` takes the canonical precision names (``fp32``/``bf16``/
     ``int8``) or a torch dtype: an int8 slot cache stores per-(token, kv
     head) scales (``attention.kv_quant``) and is dequantized to the model
     dtype before the decode kernel, as in JAX. Decode steps the occupied
     slots in the smallest bucket of ``decode_buckets`` that holds them.
-    ``groups_minted`` counts the groups (dense caches) created."""
+    ``groups_minted`` counts the groups (dense caches) created.
+
+    Structural mode quantizes each mask by ``bucket_quant`` (none | layer
+    | pow2) before keying its group; ``max_groups`` > 0 caps the
+    structural groups, evicting idle ones (neither occupied nor reserved)
+    least recently used first when a new one is minted — busy groups are
+    never evicted, so the count may overshoot while all are busy."""
 
     def __init__(self, model, params, *, mode: str = "masked",
                  max_active: int = 8, kv_dtype=None,
-                 decode_buckets: Sequence[int] = (1, 2, 4, 8)):
-        if mode == "structural":
-            raise NotImplementedError(
-                "structural mode (compacted layer stacks) is ROADMAP "
-                "queue 1, item 8")
-        if mode != "masked":
+                 decode_buckets: Sequence[int] = (1, 2, 4, 8),
+                 bucket_quant: str = "none", max_groups: int = 0):
+        if mode not in ("masked", "structural"):
             raise ValueError(f"unknown mode {mode!r}")
+        if bucket_quant not in ("none", "layer", "pow2"):
+            raise ValueError(f"unknown bucket_quant {bucket_quant!r}; "
+                             f"expected none|layer|pow2")
         decoder.check_supported(model.cfg)
         _, store, quantized, _ = resolve_kv_dtype(kv_dtype)
         if quantized and not decoder.is_attn_layout(model.cfg):
@@ -369,39 +416,77 @@ class LocalExecutor(ModelExecutor):
         self.mcfg = model.cfg
         self.params = params
         self.device = params["embed"].device
+        self.mode = mode
+        self.bucket_quant = bucket_quant
+        self.max_groups = int(max_groups)
         self.max_active = int(max_active)
         self.kv_dtype = store if store is not None else model.cfg.torch_dtype()
         self.decode_buckets = tuple(int(b) for b in decode_buckets or ())
         self.launch_s = 0.0
         self.groups_minted = 0
-        self._groups: Dict[int, SlotGroup] = {}     # by cache length
+        # ("masked" | gather key, cache length) -> group, least recently
+        # used first
+        self._groups: Dict[Tuple, SlotGroup] = {}
 
     # ------------------------------------------------------------ capacity
+    def _invalidate(self) -> None:
+        """The one invalidation path: every group (and its cache) drops."""
+        self._groups.clear()
+
     def set_max_active(self, n_slots: int) -> None:
         """A new slot count changes every cache's slot axis: every group
         drops."""
         if int(n_slots) == self.max_active:
             return
         self.max_active = int(n_slots)
-        self._groups.clear()
+        self._invalidate()
 
     def drop_groups(self) -> None:
-        self._groups.clear()
+        self._invalidate()
 
     # -------------------------------------------------------------- groups
     def groups(self) -> List[SlotGroup]:
         return list(self._groups.values())
 
+    def _evict_idle(self) -> None:
+        """Make room under ``max_groups`` before a structural group is
+        minted: drop idle structural groups, least recently used first."""
+        if self.max_groups <= 0:
+            return
+        n = sum(1 for k in self._groups if k[0] != "masked")
+        while n >= self.max_groups:
+            idle = [k for k, g in self._groups.items()
+                    if k[0] != "masked" and not g.occupied()
+                    and not g.reserved]
+            if not idle:
+                break
+            del self._groups[idle[0]]
+            n -= 1
+
     def group_for(self, mask: np.ndarray,
                   cache_len: Optional[int] = None) -> SlotGroup:
-        """The masked group of ``cache_len`` tokens (masks ride per-slot
-        gates), minted on first use."""
-        group = self._groups.get(int(cache_len))
+        """The group of ``cache_len`` tokens hosting ``mask``, minted on
+        first use: the masked group (masks ride per-slot gates), or the
+        structural group of the mask's bucket."""
+        if self.mode == "masked":
+            gkey = ("masked", int(cache_len))
+            group = self._groups.get(gkey)
+            if group is None:
+                group = self._groups[gkey] = SlotGroup(
+                    self.params, self.mcfg, self.max_active,
+                    int(cache_len), self.kv_dtype, self.device)
+                self.groups_minted += 1
+            return group
+        rkey, kw = _structural_group(self.mcfg, mask, self.bucket_quant)
+        gkey = (rkey, int(cache_len))
+        group = self._groups.pop(gkey, None)
         if group is None:
-            group = self._groups[int(cache_len)] = SlotGroup(
-                self.params, self.mcfg, self.max_active,
-                int(cache_len), self.kv_dtype, self.device)
+            self._evict_idle()
+            group = SlotGroup(self.params, self.mcfg, self.max_active,
+                              int(cache_len), self.kv_dtype, self.device,
+                              **kw)
             self.groups_minted += 1
+        self._groups[gkey] = group      # (re)inserted last: LRU order
         return group
 
     # ------------------------------------------------------------- prefill
@@ -410,13 +495,13 @@ class LocalExecutor(ModelExecutor):
         """Prefill the request into a request-sized cache, seat it in
         ``slots`` and return the first sampled tokens ``[b]``."""
         b, S = prompt.shape
-        cols = _gate_cols(mask, None)
+        cols = _gate_cols(mask, group.gate_rows)
         t0 = time.perf_counter()
         logits, cache = decoder.prefill(
             self.params, self.mcfg, torch.from_numpy(
                 np.asarray(prompt, np.int32)).to(self.device),
             group.cache_len, gates=_gate_tensors(cols, self.device),
-            kv_dtype=self.kv_dtype)
+            kv_dtype=self.kv_dtype, layout=group.layout)
         first_dev = torch.argmax(logits, dim=-1).to(torch.int32)
         first = first_dev.cpu().numpy()
         self.launch_s += time.perf_counter() - t0
@@ -427,8 +512,9 @@ class LocalExecutor(ModelExecutor):
     def supports_chunked_prefill(self, group: SlotGroup) -> bool:
         """Chunked prefill resumes a positional KV write frontier: only
         uniform all-attention layouts have one (recurrent state cannot be
-        re-entered mid-prompt), so other layouts prefill monolithically."""
-        return decoder.is_attn_layout(self.mcfg)
+        re-entered mid-prompt), so other layouts — a half-pruned bucket's
+        among them — prefill monolithically."""
+        return decoder.is_attn_layout(self.mcfg, group.layout)
 
     def prefill_begin(self, group: SlotGroup, slots: List[int], rid: str,
                       prompt: np.ndarray, mask: np.ndarray, *,
@@ -439,11 +525,11 @@ class LocalExecutor(ModelExecutor):
         group.reserved.update(slots)
         return _PrefillTask(
             group=group, slots=list(slots), rid=rid, prompt=prompt,
-            cols=_gate_cols(mask, None),
+            cols=_gate_cols(mask, group.gate_rows),
             widths=chunk_widths(prompt.shape[1], max_chunk),
             state=decoder.init_cache(self.mcfg, prompt.shape[0],
                                      group.cache_len, self.kv_dtype,
-                                     self.device))
+                                     self.device, group.layout))
 
     def prefill_step(self, task: _PrefillTask) -> Optional[np.ndarray]:
         """Run the task's next chunk; returns the first sampled tokens
@@ -456,7 +542,8 @@ class LocalExecutor(ModelExecutor):
             self.params, self.mcfg, task.state,
             torch.from_numpy(task.prompt[:, task.pos:task.pos + c]).to(
                 self.device), task.pos,
-            gates=_gate_tensors(task.cols, self.device))
+            gates=_gate_tensors(task.cols, self.device),
+            layout=task.group.layout)
         task.pos += c
         task.step += 1
         if not task.done:
@@ -492,8 +579,9 @@ class LocalExecutor(ModelExecutor):
         dev = group.device
         cache = {kind: {k: v.to(dev) for k, v in leaves.items()}
                  for kind, leaves in state["cache"].items()}
-        group.place(rid, list(slots), cache, _gate_cols(mask, None),
-                    state["pos"], state["first"].to(dev))
+        group.place(rid, list(slots), cache,
+                    _gate_cols(mask, group.gate_rows), state["pos"],
+                    state["first"].to(dev))
 
     # -------------------------------------------------------------- decode
     def decode_launch(self, group: SlotGroup,
@@ -545,13 +633,25 @@ class LocalExecutor(ModelExecutor):
         return used, phys
 
     def stats(self) -> Dict[str, int]:
+        """Group counts: ``structural_buckets`` distinct gather keys,
+        ``bucket_signatures`` distinct layouts (what ``bucket_quant``
+        bounds), ``resident_param_stacks`` compacted copies of the weights
+        held (none: every group runs on the full stacks)."""
         return {"groups": len(self._groups),
-                "groups_minted": self.groups_minted}
+                "groups_minted": self.groups_minted,
+                "structural_buckets": len({k for k, _ in self._groups
+                                           if k != "masked"}),
+                "bucket_signatures": len({g.key for g in self._groups.values()
+                                          if g.key != "masked"}),
+                "resident_param_stacks": 0}
 
 
 # ------------------------------------------------------------------- paged
 class PagedGroup:
     """One paged decode family: occupancy + page tables, no slot cache.
+    Masked mode has one (``key`` "masked", all L layers); structural mode
+    one per bucket, with its ``layout``, minting ``mask`` and
+    ``gate_rows``.
 
     Owns the per-slot decode state around the pool's pages — int32
     page-table rows, write positions, next tokens and gates — as device
@@ -560,7 +660,12 @@ class PagedGroup:
     the engine's bookkeeping."""
 
     def __init__(self, cfg_model, n_slots: int, max_row_pages: int,
-                 scratch_page: int, device):
+                 scratch_page: int, device, *, key="masked", layout=None,
+                 mask=None, gate_rows=None):
+        self.key = key
+        self.layout = layout            # None: the config's L layers
+        self.mask = mask
+        self.gate_rows = gate_rows
         self.n_slots = n_slots
         self.max_row_pages = max_row_pages
         self.scratch_page = scratch_page
@@ -576,8 +681,9 @@ class PagedGroup:
         self.pos_dev = torch.zeros(n_slots, dtype=torch.int32, device=device)
         self.tokens_dev = torch.zeros(n_slots, dtype=torch.int32,
                                       device=device)
-        self.gates_dev = torch.ones(2, cfg_model.n_layers, n_slots,
-                                    device=device)
+        self.gates_dev = torch.ones(
+            2, cfg_model.n_layers if layout is None else len(layout), n_slots,
+            device=device)
         self._iidx_cache: Dict[Tuple[int, ...], torch.Tensor] = {}
 
     def free_slots(self) -> List[int]:
@@ -642,7 +748,7 @@ class PagedGroup:
 
 
 class PagedExecutor(ModelExecutor):
-    """Physically paged KV execution, masked mode.
+    """Physically paged KV execution, masked or structural.
 
     The engine's :class:`~repro_torch.runtime.kv_pool.KVPool` owns the
     page tensors (``bind_pool`` allocates them on this executor's device at
@@ -666,19 +772,28 @@ class PagedExecutor(ModelExecutor):
     ``int8``/``fp8``) or a torch dtype: quantized precisions store int8 /
     float8_e4m3fn pages plus per-(page, kv head) scales, quantize on every
     write seam, and decode through the fused-dequant kernel.
+
+    Structural mode keys one group per gather key over the shared pool; a
+    bucket of L' rows reads and writes pool layers [0, L') of its
+    request's pages (pages are request-exclusive, so the upper layers are
+    never read). The paged decoder serves uniform layouts only, so
+    ``bucket_quant`` floors at "layer": every bucket is whole-layer, and
+    a half-pruned layer runs as a 0 gate.
     """
 
     paged = True
 
     def __init__(self, model, params, *, mode: str = "masked",
                  max_active: int = 8, kv_dtype=None,
-                 decode_buckets: Sequence[int] = (1, 2, 4, 8)):
-        if mode == "structural":
-            raise NotImplementedError(
-                "structural mode (compacted layer stacks) is ROADMAP "
-                "queue 1, item 8")
-        if mode != "masked":
+                 decode_buckets: Sequence[int] = (1, 2, 4, 8),
+                 bucket_quant: str = "none"):
+        if mode not in ("masked", "structural"):
             raise ValueError(f"unknown mode {mode!r}")
+        if bucket_quant not in ("none", "layer", "pow2"):
+            raise ValueError(f"unknown bucket_quant {bucket_quant!r}; "
+                             f"expected none|layer|pow2")
+        if mode == "structural" and bucket_quant == "none":
+            bucket_quant = "layer"
         name, store, quantized, _ = resolve_kv_dtype(kv_dtype)
         decoder.require_attn_layout(model.cfg, "PagedExecutor")
         self.model = model
@@ -686,6 +801,7 @@ class PagedExecutor(ModelExecutor):
         self.params = params
         self.device = params["embed"].device
         self.mode = mode
+        self.bucket_quant = bucket_quant
         self.max_active = int(max_active)
         self.kv_dtype_name = name            # canonical, None = model dtype
         self.kv_quantized = quantized
@@ -737,17 +853,21 @@ class PagedExecutor(ModelExecutor):
 
     def group_for(self, mask: np.ndarray,
                   cache_len: Optional[int] = None) -> PagedGroup:
-        """ONE group hosts every request: pages make cache length a
-        per-slot property (``cache_len`` is ignored), and masks ride
-        per-slot gates."""
+        """Pages make cache length a per-slot property (``cache_len`` is
+        ignored): in masked mode ONE group hosts every request (masks ride
+        per-slot gates), in structural mode one group per bucket."""
         if self.pool is None:
             raise RuntimeError("PagedExecutor has no bound pool — the "
                                "engine calls bind_pool() per run")
-        group = self._groups.get("masked")
+        if self.mode == "masked":
+            rkey, kw = "masked", {}
+        else:
+            rkey, kw = _structural_group(self.mcfg, mask, self.bucket_quant)
+        group = self._groups.get(rkey)
         if group is None:
-            group = self._groups["masked"] = PagedGroup(
+            group = self._groups[rkey] = PagedGroup(
                 self.mcfg, self.max_active, self.max_row_pages,
-                self.pool.scratch_page, self.device)
+                self.pool.scratch_page, self.device, **kw)
         return group
 
     # ------------------------------------------------------------- prefill
@@ -762,13 +882,15 @@ class PagedExecutor(ModelExecutor):
         cfg, pt = self.mcfg, self.pool.tokens_per_page
         rows_np = np.asarray(self.pool.row_pages(rid), np.int32)  # [b, npg]
         npg = rows_np.shape[1]
-        cols = _gate_cols(mask, None)
+        cols = _gate_cols(mask, group.gate_rows)
         t0 = time.perf_counter()
         logits, cache = decoder.prefill(
             self.params, cfg, torch.from_numpy(
                 np.asarray(prompt, np.int32)).to(self.device),
-            npg * pt, gates=_gate_tensors(cols, self.device))
-        shape = (cfg.n_layers, b, npg, pt, cfg.n_kv_heads, cfg.dh)
+            npg * pt, gates=_gate_tensors(cols, self.device),
+            layout=group.layout)
+        Lp = cols.shape[1]                  # layout rows: pool layers [0, Lp)
+        shape = (Lp, b, npg, pt, cfg.n_kv_heads, cfg.dh)
         rows = torch.from_numpy(rows_np).to(self.device).long()
         # in-place scatter into the pool (positions past S carry zeros)
         pools = self._pools()
@@ -776,8 +898,8 @@ class PagedExecutor(ModelExecutor):
             kv = cache["attn"][pk].reshape(shape)
             if self.kv_quantized:
                 kv, sc = attention.page_quant(kv.float(), pools[pk].dtype)
-                pools[sk][:, rows] = sc
-            put_pages(pools[pk], (slice(None), rows), kv)
+                pools[sk][:Lp, rows] = sc
+            put_pages(pools[pk], (slice(0, Lp), rows), kv)
         first_dev = torch.argmax(logits, dim=-1).to(torch.int32)
         first = first_dev.cpu().numpy()
         self.launch_s += time.perf_counter() - t0
@@ -786,8 +908,9 @@ class PagedExecutor(ModelExecutor):
 
     # ----------------------------------------------------- chunked prefill
     def supports_chunked_prefill(self, group: PagedGroup) -> bool:
-        # the constructor pins uniform all-attention models: exactly what
-        # the paged chunk path serves, at any pool precision
+        # the constructor pins uniform all-attention models and structural
+        # buckets are whole-layer: exactly what the paged chunk path serves,
+        # at any pool precision
         return True
 
     def prefill_begin(self, group: PagedGroup, slots: List[int], rid: str,
@@ -799,7 +922,8 @@ class PagedExecutor(ModelExecutor):
         prompt = np.asarray(prompt, np.int32)
         group.reserved.update(slots)
         return _PrefillTask(group=group, slots=list(slots), rid=rid,
-                            prompt=prompt, cols=_gate_cols(mask, None),
+                            prompt=prompt,
+                            cols=_gate_cols(mask, group.gate_rows),
                             widths=chunk_widths(prompt.shape[1], max_chunk))
 
     def prefill_step(self, task: _PrefillTask) -> Optional[np.ndarray]:
@@ -823,7 +947,7 @@ class PagedExecutor(ModelExecutor):
             torch.from_numpy(task.prompt[:, task.pos:task.pos + c]).to(
                 self.device), task.pos,
             scratch_page=self.pool.scratch_page,
-            gates=_gate_tensors(task.cols, self.device))
+            gates=_gate_tensors(task.cols, self.device), layout=group.layout)
         task.pos += c
         task.step += 1
         if not task.done:
@@ -854,7 +978,7 @@ class PagedExecutor(ModelExecutor):
         first = np.asarray(state["first"], np.int32)
         group.place(rid, list(slots), np.asarray(rows, np.int32),
                     state["pos"], torch.from_numpy(first).to(self.device),
-                    first, _gate_cols(mask, None))
+                    first, _gate_cols(mask, group.gate_rows))
 
     # -------------------------------------------------------------- decode
     def _decode_batch(self, group: PagedGroup) -> List[int]:
@@ -912,7 +1036,7 @@ class PagedExecutor(ModelExecutor):
         toks, _, pos_out = decoder.paged_decode_horizon(
             self.params, self.mcfg, self._pools(), table, pos, tok[:, None],
             horizon, gates={"mixer": g[0], "ffn": g[1]},
-            split_rows=group.n_slots)
+            split_rows=group.n_slots, layout=group.layout)
         if full:
             group.pos_dev, group.tokens_dev = pos_out, toks[:, -1].contiguous()
         else:
@@ -963,4 +1087,9 @@ class PagedExecutor(ModelExecutor):
         return used, self.pool.bytes_reserved
 
     def stats(self) -> Dict[str, int]:
-        return {"groups": len(self._groups)}
+        """Group counts, as :meth:`LocalExecutor.stats`."""
+        return {"groups": len(self._groups),
+                "structural_buckets": sum(k != "masked" for k in self._groups),
+                "bucket_signatures": len({g.key for g in self._groups.values()
+                                          if g.key != "masked"}),
+                "resident_param_stacks": 0}

@@ -9,9 +9,9 @@ or not (the pool records the overcommit instead of queueing). Slot caches
 are minted per power-of-two length (``len_buckets="pow2"``), so a long
 prompt gets its own long-cache group and short serves keep theirs.
 
-Masked mode only: the mask becomes per-slot 0/1 gates on the full model.
-Structural mode (compacted stacks, JAX's default) is ROADMAP queue 1,
-item 8.
+Two modes: ``structural`` (the default, as in JAX) runs the request in
+its mask's retained-layer bucket — a group per (gather key, cache length)
+— and ``masked`` runs all L layers with the mask as per-slot 0/1 gates.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ class ServeResult:
     fits: bool
     decide_s: float
     infer_s: float
-    bucket: Tuple                # () in masked mode
+    bucket: Tuple                # the bucket signature; () in masked mode
     compiled_new: bool           # this serve minted a new slot group (the
                                  # port's one-time cost; nothing compiles)
 
@@ -47,11 +47,7 @@ class RAPServer:
         if policy is None or not isinstance(policy, PruningPolicy):
             raise TypeError(f"RAPServer requires a PruningPolicy, got "
                             f"{type(policy).__name__}")
-        if mode == "structural":
-            raise NotImplementedError(
-                "structural mode (compacted layer stacks) is ROADMAP "
-                "queue 1, item 8; pass mode='masked'")
-        if mode != "masked":
+        if mode not in ("structural", "masked"):
             raise ValueError(f"unknown mode {mode!r}")
         self.model = model
         self.cfg = model.cfg
@@ -79,9 +75,10 @@ class RAPServer:
         return ServeResult(
             tokens=r.tokens, mask=r.mask, peak_bytes=r.peak_bytes,
             budget_bytes=budget_bytes, fits=r.fits, decide_s=r.decide_s,
-            infer_s=max(report.wall_s - r.decide_s, 0.0), bucket=(),
+            infer_s=max(report.wall_s - r.decide_s, 0.0), bucket=r.bucket,
             compiled_new=self._engine.executor.groups_minted > minted)
 
     def stats(self) -> Dict[str, int]:
-        return {"structural_buckets": 0,
-                "masked_groups": self._engine.executor.stats()["groups"]}
+        ex = self._engine.executor
+        return {"structural_buckets": ex.stats()["structural_buckets"],
+                "masked_groups": sum(g.key == "masked" for g in ex.groups())}

@@ -809,3 +809,141 @@ def test_decode_rows_keep_their_bits_under_split_rows(cuda, dtype):
             assert torch.equal(got, ref)
     if dtype == torch.float32:
         assert torch.equal(paged(slice(0, 4)), dense(slice(0, 4)))
+
+
+def _fixed_mask_engine(model, params, kind, masks_seq, *, budget, kv_dtype,
+                       bucket_quant="none"):
+    """A structural engine whose policy hands out ``masks_seq`` in order
+    (the last one repeating), one slot per group."""
+    from repro_torch.core import memory
+    from repro_torch.core.policy import Decision, PruningPolicy
+    from repro_torch.runtime import (EngineConfig, LocalExecutor,
+                                     PagedExecutor, RAPEngine)
+
+    class Fixed(PruningPolicy):
+        name = "fixed"
+
+        def __init__(self, mm):
+            self.mm, self.i = mm, 0
+
+        def observe(self, state):
+            m = masks_seq[min(self.i, len(masks_seq) - 1)].copy()
+            self.i += 1
+            peak = self.mm.peak_bytes(m, state.batch, state.total_len)
+            return Decision(mask=m, steps=0, peak_bytes=peak,
+                            fits=peak <= state.budget_bytes, latency_s=0.0)
+
+    make = PagedExecutor if kind == "paged" else LocalExecutor
+    return RAPEngine(model, params, Fixed(memory.build_memory_model(
+        model.cfg)), EngineConfig(
+        mode="structural", max_new_tokens=6, max_active=2, max_len=32,
+        budget_bytes=budget, tokens_per_page=8, kv_dtype=kv_dtype,
+        decode_horizon=2, bucket_quant=bucket_quant),
+        executor=make(model, params, mode="structural", max_active=2,
+                      kv_dtype=kv_dtype, bucket_quant=bucket_quant))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,kv_dtype,quant",
+                         [("paged", None, "pow2"), ("paged", "int8", "layer"),
+                          ("local", None, "none"), ("local", None, "pow2")])
+def test_structural_trace_card_matches_cpu(cuda, kind, kv_dtype, quant):
+    """A 4-layer f32 model served in structural mode on the card and on the
+    CPU: a two-row bucket, masks dropping different layers (one bucket
+    signature, two gather keys) and a half-pruned layer, the tokens
+    equal."""
+    from repro_torch.core import masks, memory
+    from repro_torch.runtime import EngineRequest
+    cfg = get_smoke_config("llama2-7b").replace(n_layers=4)
+    model = registry.build(cfg)
+    cpu_params = model.init(0, "cpu")
+    L = cfg.n_layers
+    # two rows first, so a pow2 bucket stays below the pool's L layers
+    two = masks.full_mask(L)
+    two[[0, 2, L, L + 2]] = False
+    seq = [two]
+    for drop in (0, 1, 2):
+        m = masks.full_mask(L)
+        m[drop] = m[L + drop] = False
+        seq.append(m)
+    half = masks.full_mask(L)
+    half[1] = False
+    seq.append(half)
+    toks = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, 26)).astype(np.int32)
+    mm = memory.build_memory_model(cfg)
+    full = masks.full_mask(L)
+    budget = mm.param_bytes(full) + 4 * mm.state_bytes(full, 1, 32)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = _tree_to(cpu_params, dev)
+        eng = _fixed_mask_engine(model, params, kind, seq, budget=budget,
+                                 kv_dtype=kv_dtype, bucket_quant=quant)
+        rep = eng.run([EngineRequest(rid=f"r{i}",
+                                     prompt=toks[:, : 16 + 2 * i])
+                       for i in range(6)])
+        assert {r.status for r in rep.results} == {"done"}
+        out[str(dev)] = {r.rid: (r.tokens, r.bucket) for r in rep.results}
+    for rid, (t, b) in out["cpu"].items():
+        assert np.array_equal(out["cuda"][rid][0], t), rid
+        assert out["cuda"][rid][1] == b != ()
+    assert min(len(b) for _, b in out["cpu"].values()) == 2
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-370m",
+                                  "recurrentgemma-9b"])
+def test_structural_launches_follow_the_layout(cuda, arch):
+    """A retained layout launches each kernel once per row that has its
+    block: flash / ssd / rglru per mixer row and the GLU per FFN row in a
+    prefill; the decode kernel per attention row and the GLU per FFN row
+    in a decode step (slot caches, and pages for llama)."""
+    from repro_torch.core import masks
+    from repro_torch.kernels import ops
+    n = {"llama2-7b": 4, "mamba2-370m": 4, "recurrentgemma-9b": 6}[arch]
+    cfg = get_smoke_config(arch).replace(n_layers=n)
+    params = registry.build(cfg).init(0, cuda)
+    m = masks.full_mask(n)
+    m[1] = False
+    m[n + 2] = False
+    m[3] = m[n + 3] = False
+    lay = masks.retained_layout(cfg, m)
+    count = lambda *kinds: sum(s.mixer in kinds for s in lay)
+    n_ffn = sum(s.ffn is not None for s in lay)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), device=cuda)
+    ops.reset_launches()
+    logits, cache = decoder.prefill(params, cfg, toks, 32, layout=lay)
+    got = ops.launch_counts()
+    assert got["flash_attention"] == count("attn", "local_attn")
+    assert got["ssd"] == count("ssd") and got["rglru"] == count("rglru")
+    assert got["fused_glu"] == n_ffn
+    ops.reset_launches()
+    first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    decoder.decode_horizon(params, cfg, cache, first, 3, layout=lay)
+    got = ops.launch_counts()
+    assert got["decode_attention"] == 3 * count("attn", "local_attn")
+    assert got["fused_glu"] == 3 * n_ffn
+    assert got["paged_decode_attention"] == 0
+    if arch == "llama2-7b":
+        # a whole-layer (paged) bucket: pool layers [0, L') of the pages
+        qm = masks.quantize_mask(cfg, m, "layer")
+        play = masks.retained_layout(cfg, qm)
+        L2, pt = len(play), 8
+        pools = {k: torch.zeros(cfg.n_layers, 9, pt, cfg.n_kv_heads, cfg.dh,
+                                device=cuda) for k in ("k", "v")}
+        table = torch.arange(8, dtype=torch.int32,
+                             device=cuda).reshape(2, 4)
+        pos = torch.full((2,), 20, dtype=torch.int32, device=cuda)
+        ops.reset_launches()
+        decoder.paged_decode_horizon(params, cfg, pools, table, pos, first,
+                                     3, layout=play)
+        got = ops.launch_counts()
+        assert got["paged_decode_attention"] == 3 * L2
+        assert got["fused_glu"] == 3 * L2 and got["decode_attention"] == 0
+        assert bool((pools["k"][L2:] == 0).all())

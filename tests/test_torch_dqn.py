@@ -220,7 +220,7 @@ def test_serve_trains_then_serves_on_cpu(capsys):
     from repro_torch.launch import serve
     eng, rep = serve.main(["--smoke", "--device", "cpu", "--episodes", "2",
                            "--requests", "3", "--max-prompt", "32",
-                           "--max-new", "4"])
+                           "--max-new", "4", "--mode", "masked"])
     out = capsys.readouterr().out
     assert "training RAP controller (2 episodes)" in out
     assert "reward: first=" in out and "s/episode" in out

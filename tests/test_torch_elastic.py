@@ -534,7 +534,7 @@ def test_serve_budget_trace_staircase_on_cpu(capsys, monkeypatch, executor):
     argv = ["--smoke", "--device", "cpu", "--requests", "1",
             "--pool-requests", "1.0", "--max-prompt", "64", "--max-new",
             "128", "--decode-horizon", "1", "--policy", "dense",
-            "--executor", executor]
+            "--executor", executor, "--mode", "masked"]
     _, ref = serve.main(argv)
     _, rep = serve.main(argv + ["--budget-trace", "staircase"])
     out = capsys.readouterr().out

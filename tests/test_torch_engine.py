@@ -41,8 +41,7 @@ from repro_torch.core import controller, masks, memory
 from repro_torch.core.policy import DensePolicy, RLPolicy, make_policy
 from repro_torch.models import registry
 from repro_torch.runtime import (EngineConfig, EngineRequest, KVPool,
-                                 PagedExecutor, RAPEngine, RAPServer,
-                                 chunk_widths)
+                                 PagedExecutor, RAPEngine, chunk_widths)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -163,7 +162,7 @@ def test_serve_entry_point_on_cpu(capsys):
     from repro_torch.launch import serve
     eng, rep = serve.main(["--smoke", "--device", "cpu", "--requests", "3",
                            "--max-prompt", "32", "--max-new", "4",
-                           "--policy", "dense"])
+                           "--policy", "dense", "--mode", "masked"])
     assert all(r.status == "done" for r in rep.results)
     assert rep.generated_tokens == sum(r.tokens.size for r in rep.results)
     assert "tok/s" in capsys.readouterr().out
@@ -179,15 +178,10 @@ def test_serve_without_gpu_raises(monkeypatch):
 def test_later_slices_raise(served):
     s = served
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="item 8"):
-        EngineConfig(mode="structural")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        RAPServer(s["tm"], s["tp"], DensePolicy(s["mm"]), mode="structural")
     with pytest.raises(NotImplementedError, match="item 10"):
         make_policy("shortgpt", mm=s["mm"])
-    for argv in (["--executor", "sharded"], ["--mode", "structural"]):
-        with pytest.raises(NotImplementedError):
-            serve.main(["--smoke", "--device", "cpu"] + argv)
+    with pytest.raises(NotImplementedError):
+        serve.main(["--smoke", "--device", "cpu", "--executor", "sharded"])
 
 
 def test_pool_allocates_on_the_given_device():

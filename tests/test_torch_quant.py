@@ -330,7 +330,8 @@ def test_serve_entry_point(argv, capsys):
     from repro_torch.launch import serve
     eng, rep = serve.main(["--smoke", "--device", "cpu", "--requests", "3",
                            "--max-prompt", "32", "--max-new", "4",
-                           "--policy", "dense", "--executor", "paged"] + argv)
+                           "--policy", "dense", "--executor", "paged",
+                           "--mode", "masked"] + argv)
     assert all(r.status == "done" for r in rep.results)
     assert rep.generated_tokens == sum(r.tokens.size for r in rep.results)
     out = capsys.readouterr().out

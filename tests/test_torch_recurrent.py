@@ -510,7 +510,8 @@ def test_attention_only_paths_refuse_the_layout(name):
 def test_serve_entry_point_recurrent(arch, capsys):
     from repro_torch.launch import serve
     argv = ["--smoke", "--device", "cpu", "--arch", arch, "--requests", "3",
-            "--max-prompt", "32", "--max-new", "4", "--policy", "dense"]
+            "--max-prompt", "32", "--max-new", "4", "--policy", "dense",
+            "--mode", "masked"]
     eng, rep = serve.main(argv)
     assert isinstance(eng.executor, LocalExecutor)
     assert all(r.status == "done" and r.tokens.shape[1] == 4

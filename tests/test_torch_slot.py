@@ -392,7 +392,7 @@ def test_serve_entry_point_local(argv, capsys):
     from repro_torch.launch import serve
     eng, rep = serve.main(["--smoke", "--device", "cpu", "--requests", "3",
                            "--max-prompt", "32", "--max-new", "4",
-                           "--policy", "dense"] + argv)
+                           "--policy", "dense", "--mode", "masked"] + argv)
     assert isinstance(eng.executor, LocalExecutor)
     assert all(r.status == "done" for r in rep.results)
     assert all(r.tokens.shape[1] == 4 for r in rep.results)
