@@ -104,7 +104,31 @@ Phases, each fatal on failure:
                 steps with do not change its sums), and one request's pages
                 and scale rows through spill → restore bitwise; then
                 ``run_cancellation_storm`` on paged bf16: at least a quarter
-                cancelled, no live request, no leaked page.
+                cancelled, no live request, no leaked page;
+ 14. grads    — (after the kernels) the gradients of a loss through each
+                forward kernel (``ops.KernelGrad``: flash in f32 and bf16
+                with GQA, a window, a softcap and recurrentgemma's width;
+                the GLU in swiglu and geglu; ``ssd``; ``rglru``) against
+                the plain version's autograd on the card (``GRAD_TOL``),
+                one launch each; every decode kernel refuses an input
+                that requires grad;
+ 15. serve 10 — serve 1 with ``--policy llmpruner``: the Taylor order is
+                one forward and backward of the whole model (32 flash and
+                32 GLU launches), its saliency finite for all 64 blocks,
+                then serve 1's checks;
+ 16. serve 11 — serve 1 in structural mode with ``--policy shortgpt
+                --bucket-quant layer``: serve 8's checks (the cosine
+                probe's own launches apart) and a bucket under 32 layers;
+ 17. train    — ``launch.train --smoke`` for 20 steps, rerun to 40: it
+                resumes from step 20; llama2-7b at full width and 2
+                layers (bf16 params, f32 moments; B = 4, S = 256, remat):
+                6 steps, and 3 with an async checkpoint that a fresh
+                ``Trainer`` restores and runs to 6 — losses bitwise equal
+                under ``torch.use_deterministic_algorithms``; ms a step,
+                tokens/s, peak memory, the checkpoint's bytes and write
+                time, launches a step; then ``benchmarks.common.subject()``
+                (RAP_SUBJECT, 300 steps) with its held-out ppl. The
+                checkpoint directories are removed.
 
 The reference phase also serves a small fp32 trace (TF32 off) with and
 without a budget shock on paged f32 and int8 pools and on slot caches:
@@ -112,7 +136,9 @@ tokens must be equal. Its structural runs hold small f32 models on the card
 against the same models on the CPU, tokens equal: two requests whose masks
 drop different layers (one bucket signature, two gather keys) on both
 executors, a structural paged int8 trace under a budget shock, and a small
-mamba2 trace through half-pruned layouts.
+mamba2 trace through half-pruned layouts. Its training run holds three
+SMOKE f32 train steps (remat) on the card against the CPU, and
+``taylor_saliency`` and ``block_cosines`` likewise.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a GPU, or without the rest of
@@ -166,6 +192,14 @@ SERVE8_LAYER_ARGV = [("0.6" if prev == "--budget-quantum" else a)
                      for prev, a in zip([None] + SERVE_ARGV, SERVE_ARGV)] + [
     "--mode", "structural", "--bucket-quant", "layer"]
 SERVE9_ARGV = SERVE6_ARGV + ["--mode", "structural"]
+# the static baselines on serve 1's trace: LLMPruner's Taylor order (one
+# forward and backward of the whole model), and ShortGPT's whole-layer
+# order in structural layer buckets
+SERVE10_ARGV = [("llmpruner" if prev == "--policy" else a)
+                for prev, a in zip([None] + SERVE_ARGV, SERVE_ARGV)]
+SERVE11_ARGV = [("shortgpt" if prev == "--policy" else a)
+                for prev, a in zip([None] + SERVE_ARGV, SERVE_ARGV)] + [
+    "--mode", "structural", "--bucket-quant", "layer"]
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2, "torch.float16": 2e-2}
 
 
@@ -1398,6 +1432,8 @@ def serve_phase(torch, ops, card: str, argv) -> dict:
                "decode_iters": rep.decode_iters,
                "mode": engine.cfg.mode,
                "bucket_layers": [len(r.bucket) for r in done],
+               "dropped_layers": [[i for i in range(L) if not (
+                   r.mask[i] or r.mask[L + i])] for r in done],
                "pruned_without_bucket": sum(r.bucket == () for r in pruned),
                "bucket_stats": ex.stats()}
     print(f"  serve [{card}]: {rep.tokens_per_s:.2f} tok/s over "
@@ -1511,18 +1547,23 @@ def layout_launches(cfg, calls) -> dict:
 
 
 def structural_phase(torch, ops, card: str, argv,
-                     base: Optional[dict] = None) -> dict:
+                     base: Optional[dict] = None,
+                     probe: Optional["Observed"] = None) -> dict:
     """A structural serve (``serve_phase`` with the decoder's calls
     recorded): serve 1's checks, a bucket on every pruned request, and
     each kernel launched exactly as often as the layouts of the calls
-    imply; its tok/s, TTFT and ITL are printed, beside those of the masked
-    serve ``base`` of the same trace where one is given."""
+    imply (less the launches of a policy's ``probe``, which runs the
+    decoder's blocks itself); its tok/s, TTFT and ITL are printed, beside
+    those of the masked serve ``base`` of the same trace where one is
+    given."""
     from repro_torch.configs import get_config
     arch = argv[argv.index("--arch") + 1]
     with LayoutRecorder() as rec:
         s = serve_phase(torch, ops, card, argv)
     want = layout_launches(get_config(arch), rec.calls)
-    got = s["launches"]
+    got = dict(s["launches"])
+    for call in probe.calls if probe is not None else ():
+        got = {k: v - call["launches"][k] for k, v in got.items()}
     rows = sorted({len(lay) for _, lay, _ in rec.calls if lay})
     half = sum(any(r.mixer is None or (r.ffn is None and arch != "mamba2-370m")
                    for r in lay) for _, lay, _ in rec.calls if lay)
@@ -1578,57 +1619,544 @@ def check_recurrent_launches(what: str, arch: str, counts: dict) -> None:
                              f"layout: {counts} against {want}")
 
 
-def main() -> None:
-    import torch
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke: no CUDA device")
-    src = ROOT / "src"
-    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
-        sys.exit("chip_smoke: run from a checkout of the repository "
-                 "(src/repro_torch not found beside this file)")
-    sys.path.insert(0, str(src))
-    from repro_torch.kernels import build, ops
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_decode_attention as pdec
-    from repro_torch.kernels import rglru, ssd, swiglu
-    from repro_torch.models import attention
+# --------------------------------------------------------------- gradients
+# the kernels' gradient cases, each through ``ops.KernelGrad`` on the card
+# against the autograd of the plain version on the card; the loss
+# sum(w · out) + ½ sum(out²) feeds the kernel's own output into the
+# upstream gradient, so its forward error shows in the gradients.
+# Tolerance: the largest |Δ| over an input's gradient, relative to that
+# gradient's largest magnitude — 1e-4 in f32 (TF32 off; two f32 sums in
+# other orders), 3e-2 in bf16 (the kernel's output differs from the plain
+# version's by up to a bf16 rounding, which the backward carries)
+GRAD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 3e-2}
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    print(f"card: {card}")
-    t_start = t0 = time.perf_counter()
-    lib = build.build()
-    print(f"build: {len(build.SOURCES)} kernel sources with nvcc in "
-          f"{time.perf_counter() - t0:.1f} s -> {lib}")
 
-    print("kernels vs plain versions:")
+def grad_check(torch, ops, kernel: str, label: str, fn, plain, inputs,
+               dt) -> float:
+    """One gradient case: the loss through ``fn`` (the ``ops`` dispatcher,
+    which must launch ``kernel`` once) and through ``plain`` on the same
+    card inputs; returns the largest relative gradient error."""
+    g = torch.Generator(device="cuda").manual_seed(97)
+    ws = {}
+
+    def grads(f):
+        xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        out = f(*xs)
+        o = (out[0] if isinstance(out, tuple) else out).float()
+        if "w" not in ws:
+            ws["w"] = torch.randn(o.shape, generator=g, device="cuda")
+        loss = (ws["w"] * o).sum() + 0.5 * (o * o).sum()
+        return torch.autograd.grad(loss, xs)
+
+    before = getattr(ops, kernel).launches
+    got = grads(fn)
+    launched = getattr(ops, kernel).launches - before
+    want = grads(plain)
+    rel = max(float((a.float() - b.float()).abs().max())
+              / max(float(b.float().abs().max()), 1e-30)
+              for a, b in zip(got, want))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    tol = GRAD_TOL[str(dt)]
+    ok = rel <= tol and finite and launched == 1
+    print(f"  grad {label}: max|Δ|/max|g| {rel:.3e} over {len(got)} inputs "
+          f"(tol {tol}), {launched} launch {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"grad {label}: the kernel's gradient path "
+                             f"disagrees with the plain version's autograd "
+                             f"({rel}, {launched} launches)")
+    return rel
+
+
+def grad_cases(torch, ops, fa, swiglu, ssd, rglru) -> dict:
+    """The gradients through the four forward kernels (flash in f32 and
+    bf16, GQA, a window, a softcap, recurrentgemma's width; the GLU in
+    swiglu and geglu at llama2-7b's and recurrentgemma-9b's widths; ssd
+    over two chunks at mamba2's width; rglru); returns, per kernel, the
+    largest relative error and the case count."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rnd = lambda *s, dt=torch.float32, scale=1.0: (
+        torch.randn(*s, generator=g, device="cuda") * scale).to(dt)
+    out = {}
+
+    def note(kernel, rel):
+        e = out.setdefault(kernel, {"grad_max_rel_err": 0.0,
+                                    "grad_cases": 0})
+        e["grad_max_rel_err"] = max(e["grad_max_rel_err"], rel)
+        e["grad_cases"] += 1
+
+    for B, S, H, K, D, w, cap, dt in [
+            (2, 128, 8, 8, 64, 0, 0.0, torch.float32),
+            (1, 256, 32, 32, 128, 0, 0.0, torch.bfloat16),   # llama2-7b
+            (2, 100, 32, 8, 128, 0, 0.0, torch.bfloat16),    # GQA, ragged
+            (1, 200, 8, 2, 64, 48, 0.0, torch.float32),      # window
+            (1, 96, 8, 4, 64, 0, 30.0, torch.float32),       # softcap
+            (1, 264, 16, 1, 256, 0, 0.0, torch.bfloat16)]:   # griffin
+        kw = dict(window=w, softcap=cap)
+        note("flash_attention", grad_check(
+            torch, ops, "flash_attention",
+            f"flash B={B} S={S} H={H} K={K} D={D} window={w} cap={cap} {dt}",
+            lambda q, k, v: ops.flash_attention(q, k, v, **kw),
+            lambda q, k, v: fa.attention_ref(q, k, v, **kw),
+            (rnd(B, S, H, D, dt=dt), rnd(B, S, K, D, dt=dt),
+             rnd(B, S, K, D, dt=dt)), dt))
+    for T, F, act, dt in [(256, 688, "swiglu", torch.float32),
+                          (512, 11008, "swiglu", torch.bfloat16),
+                          (264, 12288, "geglu", torch.bfloat16),
+                          (37, 11007, "geglu", torch.float32)]:
+        note("fused_glu", grad_check(
+            torch, ops, "fused_glu", f"fused_glu T={T} F={F} {act} {dt}",
+            lambda h: ops.fused_glu(h, act),
+            lambda h: swiglu.glu_ref(h, act), (rnd(T, 2 * F, dt=dt),), dt))
+    xh, log_a, Bm, Cm, a, b = scan_inputs(torch, 2, 128, 8, 64, 128, 512,
+                                          seed=71)
+    note("ssd", grad_check(
+        torch, ops, "ssd", "ssd B=2 T=128 H=8 P=64 N=128 chunk=64 f32",
+        lambda *x: ops.ssd(*x, 64), lambda *x: ssd.ssd_ref(*x, 64),
+        (xh, log_a, Bm, Cm), torch.float32))
+    note("rglru", grad_check(
+        torch, ops, "rglru", "rglru B=2 T=128 W=512 f32", ops.rglru,
+        rglru.rglru_ref, (a, b), torch.float32))
+    return out
+
+
+def decode_refuses_grad(torch, ops) -> None:
+    """Each decode kernel raises on a card input that requires grad while
+    grad mode is on, and launches nothing."""
+    q = torch.randn(2, 1, 4, 32, device="cuda", requires_grad=True)
+    k = torch.randn(2, 16, 4, 32, device="cuda")
+    pages = torch.randn(5, 8, 4, 32, device="cuda")
+    table = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([16, 9], dtype=torch.int32, device="cuda")
+    codes = pages.to(torch.int8)
+    scales = torch.ones(5, 4, device="cuda")
+    calls = {
+        "decode_attention": lambda: ops.decode_attention(
+            q, k, k, torch.ones(16, dtype=torch.bool, device="cuda")),
+        "paged_decode_attention": lambda: ops.paged_decode_attention(
+            q, pages, pages, table, lengths),
+        "paged_decode_attention_quant": lambda: ops.paged_decode_attention(
+            q, codes, codes, table, lengths, k_scales=scales,
+            v_scales=scales)}
+    for name, call in calls.items():
+        before = getattr(ops, name).launches
+        try:
+            call()
+        except RuntimeError as e:
+            if "no gradient path" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} took an input that requires grad")
+        if getattr(ops, name).launches != before:
+            raise AssertionError(f"{name} launched on a grad input")
+        print(f"  {name}: refuses an input that requires grad, no launch")
+
+
+# ---------------------------------------------------------------- training
+class Observed:
+    """While a phase runs, wrap ``module.name``: its result, seconds (to
+    the card's end) and the launches made inside it."""
+
+    def __init__(self, ops, module, name: str):
+        self.ops, self.module, self.name = ops, module, name
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        orig = self.orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            before = self.ops.launch_counts()
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.calls.append({
+                "result": out, "seconds": time.perf_counter() - t0,
+                "launches": {k: v - before[k] for k, v in
+                             self.ops.launch_counts().items()}})
+            return out
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def training_reference(torch, ops) -> None:
+    """A SMOKE f32 llama2 (TF32 off) through three ``make_train_step``
+    steps on the card (kernels; remat, so each step launches flash and the
+    GLU twice a layer) and on the CPU (plain versions) from the same
+    weights: loss, ``grad_norm`` and params within 1e-4; then
+    ``taylor_saliency`` (1e-4 relative) and ``block_cosines`` (1e-5)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import baselines
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    cfg = get_smoke_config("llama2-7b")
+    model = registry.build(cfg)
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = steps.make_train_step(model, opt, remat=True)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = _tree_to(model.init(0, "cpu"), dev)
+        s = adamw.init(p)
+        ops.reset_launches()
+        mets = []
+        for i in range(3):
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in corpus.batch(4, 64, index=i).items()}
+            p, s, m = step(p, s, b)
+            mets.append({k: float(v) for k, v in m.items()})
+        runs[dev] = (p, mets, ops.launch_counts())
+    want_p = tree.flatten(runs["cpu"][0])
+    p_err = max(max_err(a.cpu(), want_p[k])
+                for k, a in tree.flatten(runs["cuda"][0]).items())
+    m_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for a, b in zip(runs["cuda"][1], runs["cpu"][1])
+                for k in ("loss", "grad_norm"))
+    c = runs["cuda"][2]
+    want = 3 * 2 * cfg.n_layers          # 3 steps, forward + remat
+    print(f"  train steps card vs CPU: losses "
+          f"{[round(m['loss'], 6) for m in runs['cuda'][1]]}, loss and "
+          f"grad_norm max rel |Δ| {m_err:.2e}, params max|Δ| {p_err:.2e} "
+          f"(tol 1e-4); launches {c}")
+    if (m_err > 1e-4 or p_err > 1e-4 or c["flash_attention"] != want
+            or c["fused_glu"] != want):
+        raise AssertionError("the train step on the card disagrees with "
+                             "the CPU")
+    calib = {k: torch.from_numpy(v)
+             for k, v in corpus.batch(2, 64, split="calib").items()}
+    cpu_p = model.init(0, "cpu")
+    gpu_p = _tree_to(cpu_p, "cuda")
+    sal = [baselines.taylor_saliency(model, p, _tree_to(calib, d))
+           for p, d in ((gpu_p, "cuda"), (cpu_p, "cpu"))]
+    cos = [np.r_[baselines.block_cosines(model, p, _tree_to(calib, d))]
+           for p, d in ((gpu_p, "cuda"), (cpu_p, "cpu"))]
+    s_err = float(np.max(np.abs(sal[0] - sal[1]) / np.abs(sal[1])))
+    c_err = float(np.max(np.abs(cos[0] - cos[1])))
+    print(f"  taylor_saliency card vs CPU max rel |Δ| {s_err:.2e} (tol "
+          f"1e-4); block_cosines max|Δ| {c_err:.2e} (tol 1e-5)")
+    if not (s_err <= 1e-4 and c_err <= 1e-5):
+        raise AssertionError("the baselines' probes disagree card vs CPU")
+
+
+def llmpruner_phase(torch, ops, card: str) -> dict:
+    """Serve 10: serve 1 with ``--policy llmpruner``. Its order is one
+    forward and backward of the whole model on the calibration batch
+    (Taylor saliency): 32 flash and 32 GLU launches, the backward the
+    plain derivative; the saliency finite for all 64 blocks."""
+    from repro_torch.core import baselines
+    torch.cuda.reset_peak_memory_stats()
+    with Observed(ops, baselines, "taylor_saliency") as obs:
+        s10 = serve_phase(torch, ops, card, SERVE10_ARGV)
+    (call,) = obs.calls
+    sal, c = call["result"], call["launches"]
+    want = {k: 0 for k in c}
+    want.update(flash_attention=32, fused_glu=32)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  llmpruner order [{card}]: Taylor saliency in "
+          f"{call['seconds']:.2f} s (one forward + backward at full width), "
+          f"peak {peak:.1f} GB allocated in the serve; saliency of "
+          f"{len(sal)} blocks, finite {int(np.isfinite(sal).sum())}, range "
+          f"{np.min(sal):.4g}–{np.max(sal):.4g}; launches {c}")
+    if len(sal) != 64 or not np.isfinite(sal).all() or c != want:
+        raise AssertionError("serve 10's saliency failed its checks")
+    s10.update(order_s=call["seconds"], order_launches=c,
+               peak_gb=peak)
+    return s10
+
+
+def shortgpt_phase(torch, ops, card: str) -> dict:
+    """Serve 11: serve 1 in structural mode with ``--policy shortgpt
+    --bucket-quant layer``: ShortGPT drops whole layers, so buckets lose
+    rows. Serve 8's checks (launches equal the layouts' sums, the cosine
+    probe's own 32 flash and 32 GLU launches apart) and a bucket of fewer
+    than 32 layers."""
+    from repro_torch.core import baselines
+    with Observed(ops, baselines, "block_cosines") as obs:
+        s11 = structural_phase(torch, ops, card, SERVE11_ARGV, probe=obs)
+    (call,) = obs.calls
+    kept = sorted(set(s11["bucket_layers"]))
+    dropped = sorted({tuple(d) for d in s11["dropped_layers"]})
+    print(f"  shortgpt order [{card}]: block cosines in "
+          f"{call['seconds']:.2f} s, launches {call['launches']}; buckets "
+          f"of {kept} layers; whole layers dropped per request: {dropped} "
+          f"(the rest kept)")
+    if (call["launches"]["flash_attention"] != 32
+            or call["launches"]["fused_glu"] != 32 or min(kept) >= 32):
+        raise AssertionError("serve 11 failed its checks")
+    s11.update(order_s=call["seconds"], order_launches=call["launches"])
+    return s11
+
+
+def train_launcher_phase(torch, ckpt: str) -> None:
+    """(a) ``launch.train --smoke`` for 20 steps, then rerun to 40: the
+    rerun resumes from the step-20 checkpoint."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    outs = []
+    for steps in (20, 40):
+        buf = io.StringIO()
+        argv = ["--arch", "llama2-7b", "--smoke", "--steps", str(steps),
+                "--ckpt-dir", ckpt]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            summary = train.main(argv)
+        outs.append(buf.getvalue())
+        lines = buf.getvalue().strip().splitlines()
+        print(f"  launch.train {' '.join(argv[4:])}: {lines[0]} … "
+              f"{lines[-1]} ({time.perf_counter() - t0:.1f} s)")
+        if summary["final_step"] != steps:
+            raise AssertionError(f"launch.train stopped at "
+                                 f"{summary['final_step']}")
+    if ("resumed from checkpoint at step 20" not in outs[1]
+            or "resumed" in outs[0]):
+        raise AssertionError("the rerun of launch.train did not resume")
+    print("  the rerun printed: resumed from checkpoint at step 20")
+
+
+# llama2-7b at full width and a depth of 2 layers: bf16 params, f32
+# moments; B x S tokens a step, remat
+FULL_TRAIN = {"layers": 2, "batch": 4, "seq": 256, "steps": 6, "ckpt": 3}
+
+
+def _full_width_trainer(total: int, ckpt_dir: Optional[str] = None):
+    """A ``Trainer`` of llama2-7b at full width and ``FULL_TRAIN``'s depth,
+    with its corpus."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import Trainer, TrainerConfig
+    f = FULL_TRAIN
+    cfg = get_config("llama2-7b").replace(n_layers=f["layers"])
+    return Trainer(registry.build(cfg),
+                   adamw.AdamWConfig(lr=1e-4, warmup_steps=2,
+                                     total_steps=f["steps"]),
+                   TrainerConfig(total_steps=total, ckpt_dir=ckpt_dir,
+                                 ckpt_every=f["ckpt"], log_every=1,
+                                 remat=True, ckpt_async=True),
+                   device="cuda"), SyntheticCorpus(cfg.vocab_size, seed=0)
+
+
+def _losses(summary) -> dict:
+    return {h["step"]: h["loss"] for h in summary["history"]}
+
+
+def exact_resume(torch, ops, root: str) -> dict:
+    """Under ``torch.use_deterministic_algorithms(True)``: an uninterrupted
+    run of ``FULL_TRAIN``'s steps, then a run that stops at its async
+    checkpoint and a fresh ``Trainer`` that restores it and runs on.
+    Returns both runs' losses, the deterministic steps' times, and the
+    checkpoint's bytes and background write times. (Its own process: the
+    mode needs ``CUBLAS_WORKSPACE_CONFIG`` before the first product, which
+    the rest of this script runs without.)"""
+    import gc
+    import os
+    from repro_torch.checkpoint import manager
+    from repro_torch.data import batch_iterator
+    f = FULL_TRAIN
+    ckpt = os.path.join(root, "full_width")
+    torch.use_deterministic_algorithms(True)
+    ref, corpus = _full_width_trainer(f["steps"])
+    batches = lambda start=0: batch_iterator(corpus, f["batch"], f["seq"],
+                                             start=start)
+    out = ref.run(batches())
+    want = _losses(out)
+    det_times = [h["time_s"] for h in out["history"]][1:]
+    del ref, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Observed(ops, manager, "_write") as writes:
+        first, _ = _full_width_trainer(f["ckpt"], ckpt)
+        got = _losses(first.run(batches()))
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        again, _ = _full_width_trainer(f["steps"], ckpt)
+        if not again.maybe_restore() or again.step != f["ckpt"]:
+            raise AssertionError(f"the fresh Trainer did not restore step "
+                                 f"{f['ckpt']}")
+        got.update(_losses(again.run(batches(again.step))))
+    step_dir = os.path.join(ckpt, f"step_{f['ckpt']:010d}")
+    return {"want": want, "got": got,
+            "ms_per_step_deterministic": 1e3 * float(np.mean(det_times)),
+            "ckpt_bytes": sum(os.path.getsize(os.path.join(step_dir, n))
+                              for n in os.listdir(step_dir)),
+            "ckpt_leaves": len(os.listdir(step_dir)) - 1,
+            "ckpt_write_s": [c["seconds"] for c in writes.calls]}
+
+
+def full_width_training(torch, ops, card: str, root: str) -> dict:
+    """(b) ``Trainer`` on llama2-7b at full width, 2 layers: 6 timed steps
+    (the Trainer's ms a step, one step on CUDA events, tokens/s, peak
+    memory, launches, the plain backward's share of a step); then
+    :func:`exact_resume` in a child process: the restored run's losses
+    equal the uninterrupted run's bit for bit."""
+    import gc
+    import os
+    from repro_torch.data import batch_iterator
+    from repro_torch.runtime.trainer import to_device
+    from repro_torch.tree import flatten
+    f = FULL_TRAIN
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    timed, corpus = _full_width_trainer(f["steps"])
+    cfg = timed.model.cfg
+    out = timed.run(batch_iterator(corpus, f["batch"], f["seq"]))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    times = [h["time_s"] for h in out["history"]][1:]       # past the 1st
+    n_params = sum(x.numel() for x in flatten(timed.params).values())
+    share = plain_backward_share(torch, ops, timed, to_device(next(
+        batch_iterator(corpus, f["batch"], f["seq"])), "cuda"))
+    del timed, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--exact-resume",
+         root], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    if child.returncode != 0:
+        raise AssertionError(f"the exact-resume run failed:\n"
+                             f"{child.stdout[-2000:]}{child.stderr[-4000:]}")
+    ex = json.loads(child.stdout.strip().splitlines()[-1])
+    want = {int(k): v for k, v in ex["want"].items()}
+    got = {int(k): v for k, v in ex["got"].items()}
+    ms = 1e3 * float(np.mean(times))
+    tok_s = f["batch"] * f["seq"] / (ms / 1e3)
+    per_step = {k: v / f["steps"] for k, v in counts.items() if v}
+    print(f"  full width ({cfg.d_model} wide, {cfg.n_heads} heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {f['layers']} layers, "
+          f"{n_params / 1e6:.1f} M params bf16, moments f32) [{card}]: "
+          f"B={f['batch']} S={f['seq']} remat; Trainer {ms:.2f} ms/step "
+          f"(steps 2-{f['steps']}, the host's batch sampling included), "
+          f"{tok_s:.0f} tokens/s; one step on CUDA events "
+          f"{share['step_ms']:.2f} ms, "
+          f"{f['batch'] * f['seq'] / share['step_ms'] * 1e3:.0f} tokens/s; "
+          f"max memory allocated {peak / 1e9:.2f} GB; launches per step "
+          f"{per_step}; under deterministic algorithms "
+          f"{ex['ms_per_step_deterministic']:.2f} ms/step")
+    print(f"  checkpoint at step {f['ckpt']}: {ex['ckpt_bytes'] / 1e9:.3f} "
+          f"GB in {ex['ckpt_leaves']} leaves, background writes "
+          f"{[round(s, 2) for s in ex['ckpt_write_s']]} s")
+    print(f"  losses uninterrupted {want}; checkpointed and restored "
+          f"{got}")
+    print(f"  plain backward of the kernels in one step [{card}]: "
+          f"{share['backward_ms']} ms of {share['step_ms']:.2f} ms "
+          f"({100 * share['share']:.1f}%)")
+    if got != want or not np.isfinite(list(want.values())).all():
+        raise AssertionError("the restored run's losses differ from the "
+                             "uninterrupted run's")
+    if per_step.get("flash_attention") != 2 * f["layers"] or \
+            per_step.get("fused_glu") != 2 * f["layers"]:
+        raise AssertionError(f"launches per step {per_step}: want "
+                             f"{2 * f['layers']} flash and GLU (forward "
+                             f"and remat)")
+    return {"ms_per_step": ms, "tokens_per_s": tok_s, "peak_bytes": peak,
+            "plain_backward": share, "launches": counts,
+            "params": n_params, **{k: ex[k] for k in (
+                "ms_per_step_deterministic", "ckpt_bytes", "ckpt_write_s")}}
+
+
+def plain_backward_share(torch, ops, trainer, batch) -> dict:
+    """One more train step of ``trainer`` with CUDA events around every
+    ``KernelGrad.backward`` (the kernels' plain derivative), by kernel:
+    its ms and its share of the step's ms (events around the step)."""
+    orig = ops.KernelGrad.backward
+    spans = []
+
+    def timed(ctx, *grads):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = orig(ctx, *grads)
+        b.record()
+        spans.append((ctx.plain.__name__, a, b))
+        return out
+
+    ops.KernelGrad.backward = staticmethod(timed)
+    try:
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        trainer._step_fn(trainer.params, trainer.opt_state, batch)
+        b.record()
+        torch.cuda.synchronize()
+    finally:
+        ops.KernelGrad.backward = orig
+    by = {}
+    for name, x, y in spans:
+        by[name] = by.get(name, 0.0) + x.elapsed_time(y)
+    step = a.elapsed_time(b)
+    return {"backward_ms": by, "step_ms": step,
+            "share": sum(by.values()) / step}
+
+
+def subject_phase(torch, ops, root: str) -> dict:
+    """(c) The port's ``benchmarks.common.subject()`` on the card:
+    RAP_SUBJECT, 300 steps of B = 16, S = 128; its loss before training,
+    at steps 100/200/300, and its held-out ppl and accuracy."""
+    import os
+    from repro_torch.benchmarks import common
+    from repro_torch.runtime import Trainer, steps
+    ops.reset_launches()
     t0 = time.perf_counter()
-    timed = {name: decode_timing(torch, dec, pdec, attention, *shape)
-             for name, shape in DECODE_TIMED.items()}
-    entries = [paged_cases(torch, ops, pdec, timed),
-               paged_quant_cases(torch, ops, pdec, attention, timed),
-               glu_cases(torch, ops, swiglu), flash_cases(torch, ops, fa),
-               decode_cases(torch, ops, dec, pdec, attention, timed),
-               ssd_cases(torch, ops, ssd), rglru_cases(torch, ops, rglru)]
-    for e in entries:
-        for t in [e] + [x for x in e.values() if isinstance(x, dict)]:
-            lib_ms = t["library_ms"]
-            busy = (f" (device-only {t['busy_ms']:.4f})"
-                    if "busy_ms" in t else "")
-            print(f"  {e['name']} @ {t['shape']} [{card}]: kernel "
-                  f"{t['ms']:.4f} ms{busy}, plain {t['plain_ms']:.4f} ms, "
-                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
-                  f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms")
-    print(f"kernels: {time.perf_counter() - t0:.1f} s")
-    print("reference:")
-    t0 = time.perf_counter()
-    reference_phase(torch)
-    recurrent_reference(torch)
-    reference_shock(torch)
-    structural_reference(torch)
-    print(f"reference: {time.perf_counter() - t0:.1f} s")
+    with Observed(ops, Trainer, "run") as run:
+        model, params, corpus = common.subject(
+            device="cuda", bench_dir=os.path.join(root, "bench"))
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    hist = {h["step"]: round(h["loss"], 4)
+            for h in run.calls[0]["result"]["history"]}
+    first = {k: torch.from_numpy(v).to("cuda")
+             for k, v in corpus.batch(16, 128, index=0).items()}
+    loss0 = float(steps.make_eval_step(model)(model.init(0, "cuda"),
+                                              first)["loss"])
+    ev = common.evaluate(model, params, common.eval_batches(corpus))
+    print(f"  subject ({model.cfg.name}: {model.cfg.n_layers} layers, "
+          f"d_model {model.cfg.d_model}) trained 300 steps in {secs:.1f} s "
+          f"on the card: loss {loss0:.4f} at step 0, {hist} after; "
+          f"held-out ppl {ev['ppl']:.3f}, acc {ev['acc']:.4f}; launches "
+          f"{counts}")
+    if not (hist[300] < loss0 and np.isfinite(ev["ppl"])
+            and ev["ppl"] < np.exp(loss0) and counts["flash_attention"]):
+        raise AssertionError("the subject model did not train on the card")
+    return {"seconds": secs, "loss0": loss0, "losses": hist, **ev,
+            "launches": counts}
+
+
+def train_phase_full(torch, ops, card: str) -> dict:
+    """The train phase: the launcher's resume, full-width training with an
+    exact resume, and the subject model; the checkpoint directories are
+    removed at the end."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        train_launcher_phase(torch, f"{root}/launcher")
+        print(f"  (a) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        full = full_width_training(torch, ops, card, root)
+        print(f"  (b) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        subj = subject_phase(torch, ops, root)
+        print(f"  (c) {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"full_width": full, "subject": subj}
+
+
+def serves(torch, ops, card: str) -> dict:
+    """Serves 1-9, each with its checks; returns their launch counts
+    (``c1``..``c9``, serve 8's grid-0.6 run ``c8l``, serve 7's training
+    ``c7_train``)."""
     print("serve:")
     s1 = serve_phase(torch, ops, card, SERVE_ARGV)
     c1 = s1["launches"]
@@ -1670,7 +2198,6 @@ def main() -> None:
     print("serve 7:")
     t0 = time.perf_counter()
     s7 = train_phase(torch, ops, card)
-    c7 = s7["launches"]
     print(f"  serve 7: {time.perf_counter() - t0:.1f} s")
     print("serve 8:")
     s8 = structural_phase(torch, ops, card, SERVE8_ARGV, s1)
@@ -1680,7 +2207,6 @@ def main() -> None:
     if sig > 6:
         raise AssertionError("serve 8 minted more signatures than the pow2 "
                              "ladder holds")
-    c8 = s8["launches"]
     print("serve 8, layer buckets on a grid of 0.6:")
     s8l = structural_phase(torch, ops, card, SERVE8_LAYER_ARGV)
     small = min(s8l["bucket_layers"])
@@ -1690,25 +2216,120 @@ def main() -> None:
         raise AssertionError("serve 8 (layer) ran no bucket below 32 layers")
     print("serve 9:")
     s9 = structural_phase(torch, ops, card, SERVE9_ARGV, s6)
-    c9 = s9["launches"]
+    return {"c1": c1, "c2": c2, "c3": c3, "c4": c4, "c5": c5, "c6": c6,
+            "c7": s7["launches"], "c7_train": s7["train_launches"],
+            "c8": s8["launches"], "c8l": s8l["launches"],
+            "c9": s9["launches"]}
+
+
+def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--exact-resume", metavar="DIR",
+                    help=argparse.SUPPRESS)    # the train phase's child
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device")
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        sys.exit("chip_smoke: run from a checkout of the repository "
+                 "(src/repro_torch not found beside this file)")
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pdec
+    from repro_torch.kernels import rglru, ssd, swiglu
+    from repro_torch.models import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.exact_resume:
+        build.build()
+        print(json.dumps(exact_resume(torch, ops, args.exact_resume)))
+        return
+    card = card_line()
+    print(f"card: {card}")
+    t_start = t0 = time.perf_counter()
+    lib = build.build()
+    print(f"build: {len(build.SOURCES)} kernel sources with nvcc in "
+          f"{time.perf_counter() - t0:.1f} s -> {lib}")
+
+    print("kernels vs plain versions:")
+    t0 = time.perf_counter()
+    timed = {name: decode_timing(torch, dec, pdec, attention, *shape)
+             for name, shape in DECODE_TIMED.items()}
+    entries = [paged_cases(torch, ops, pdec, timed),
+               paged_quant_cases(torch, ops, pdec, attention, timed),
+               glu_cases(torch, ops, swiglu), flash_cases(torch, ops, fa),
+               decode_cases(torch, ops, dec, pdec, attention, timed),
+               ssd_cases(torch, ops, ssd), rglru_cases(torch, ops, rglru)]
+    for e in entries:
+        for t in [e] + [x for x in e.values() if isinstance(x, dict)]:
+            lib_ms = t["library_ms"]
+            busy = (f" (device-only {t['busy_ms']:.4f})"
+                    if "busy_ms" in t else "")
+            print(f"  {e['name']} @ {t['shape']} [{card}]: kernel "
+                  f"{t['ms']:.4f} ms{busy}, plain {t['plain_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+                  f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms")
+    print(f"kernels: {time.perf_counter() - t0:.1f} s")
+    print("kernel gradients (KernelGrad) vs the plain versions' autograd:")
+    t0 = time.perf_counter()
+    grads = grad_cases(torch, ops, fa, swiglu, ssd, rglru)
+    decode_refuses_grad(torch, ops)
+    print(f"gradients: {time.perf_counter() - t0:.1f} s")
+    print("reference:")
+    t0 = time.perf_counter()
+    reference_phase(torch)
+    recurrent_reference(torch)
+    reference_shock(torch)
+    structural_reference(torch)
+    training_reference(torch, ops)
+    print(f"reference: {time.perf_counter() - t0:.1f} s")
+    runs = serves(torch, ops, card)
+    print("serve 10:")
+    t0 = time.perf_counter()
+    s10 = llmpruner_phase(torch, ops, card)
+    print(f"  serve 10: {time.perf_counter() - t0:.1f} s")
+    print("serve 11:")
+    t0 = time.perf_counter()
+    s11 = shortgpt_phase(torch, ops, card)
+    print(f"  serve 11: {time.perf_counter() - t0:.1f} s")
+    runs.update(c10=s10["launches"], c11=s11["launches"],
+                c10_order=s10["order_launches"],
+                c11_order=s11["order_launches"])
     print("shock:")
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
     shock = shock_phase(torch, ops, card, get_config("llama2-7b"))
     print(f"  shock and storm: {time.perf_counter() - t0:.1f} s")
+    print("train:")
+    t0 = time.perf_counter()
+    tr = train_phase_full(torch, ops, card)
+    runs.update(c_train_full=tr["full_width"]["launches"],
+                c_train_subject=tr["subject"]["launches"])
+    print(f"  train: {time.perf_counter() - t0:.1f} s")
     # each kernel's launches come from the serve whose path runs it
-    home = {"paged_decode_attention_quant": c2, "decode_attention": c3,
-            "ssd": c5, "rglru": c6}
+    c = runs
+    home = {"paged_decode_attention_quant": c["c2"], "decode_attention":
+            c["c3"], "ssd": c["c5"], "rglru": c["c6"]}
     for e in entries:
-        e["launches"] = home.get(e["name"], c1)[e["name"]]
-        for i, c in enumerate((c1, c2, c3, c4, c5, c6, c7, c8, c9),
-                              start=1):
-            e[f"launches_serve{i}"] = c[e["name"]]
-        e["launches_serve8_layer_grid06"] = s8l["launches"][e["name"]]
-        e["launches_serve7_training"] = s7["train_launches"][e["name"]]
+        e["launches"] = home.get(e["name"], c["c1"])[e["name"]]
+        for i in range(1, 12):
+            e[f"launches_serve{i}"] = c[f"c{i}"][e["name"]]
+        e["launches_serve8_layer_grid06"] = c["c8l"][e["name"]]
+        e["launches_serve7_training"] = c["c7_train"][e["name"]]
+        e["launches_serve10_llmpruner_order"] = c["c10_order"][e["name"]]
+        e["launches_serve11_shortgpt_order"] = c["c11_order"][e["name"]]
+        e["launches_train_full_width"] = c["c_train_full"][e["name"]]
+        e["launches_train_subject"] = c["c_train_subject"][e["name"]]
         for name, run in shock.items():
             e[f"launches_{name.replace(' ', '_')}"] = run["launches"][
                 e["name"]]
+        e.update(grads.get(e["name"], {"grad_max_rel_err": None,
+                                       "grad_cases": 0}))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(f"device: {card}")

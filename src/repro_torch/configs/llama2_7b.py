@@ -19,6 +19,15 @@ CONFIG = ModelConfig(
     tie_embeddings=False,
 )
 
+# the in-repo trainable stand-in for the paper's experiments (same family:
+# RMSNorm + SwiGLU + RoPE decoder): the subject of the benchmarks
+RAP_SUBJECT = CONFIG.replace(
+    name="llama2-7b-subject",
+    n_layers=8, d_model=256, n_heads=8, n_kv_heads=8, head_dim=32, d_ff=688,
+    vocab_size=512, vocab_round_to=64,
+    param_dtype="float32", dtype="float32",
+)
+
 SMOKE = CONFIG.replace(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16, d_ff=176,
     vocab_size=512, vocab_round_to=64,

@@ -6,15 +6,19 @@ of one state are scored in batched forwards: the calibration batch is
 repeated once per candidate and every row carries its candidate's keep-mask
 as per-row ``[L, n_cand·B]`` gates (the counterpart of the JAX package's
 ``vmap``/``lax.map`` over candidate gate vectors), ``chunk`` candidates per
-forward.
+forward. :func:`gsi_rank` is Algorithm 1 (re-score every remaining block
+after each removal); :func:`oneshot_rank` scores the dense model once (the
+RAP^-GSI ablation).
 """
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import masks as masks_lib
 from repro_torch.models.registry import _nll_terms
 
 
@@ -80,3 +84,44 @@ def importance_scores(scores: np.ndarray, current_log_ppl: float) -> np.ndarray:
     imp = np.asarray(scores, np.float64) - float(current_log_ppl)
     imp = np.where(np.isfinite(imp), np.maximum(imp, 0.0), 0.0)
     return imp
+
+
+@dataclasses.dataclass
+class GSIResult:
+    order: list            # blocks in removal order
+    ppl_trace: list        # log-ppl after each removal
+    score_snapshots: list  # [step][2L] candidate scores at each state
+    final_mask: np.ndarray
+
+
+def gsi_rank(model, params, batch, *, stop: Optional[Callable] = None,
+             max_removals: Optional[int] = None, chunk: int = 8,
+             mask: Optional[np.ndarray] = None) -> GSIResult:
+    """Algorithm 1. ``stop(mask) → bool`` ends early (e.g. memory target
+    met); by default it runs until ``max_removals`` (or 2L-2) blocks are
+    gone."""
+    L = model.cfg.n_layers
+    scorer = make_candidate_scorer(model, batch, chunk=chunk)
+    mask = masks_lib.full_mask(L) if mask is None else np.array(mask, copy=True)
+    max_removals = max_removals if max_removals is not None else 2 * L - 2
+
+    order, trace, snaps = [], [], []
+    for _ in range(max_removals):
+        if stop is not None and stop(mask):
+            break
+        scores = scorer(params, mask)
+        snaps.append(scores)
+        k = int(np.argmin(scores))
+        if not np.isfinite(scores[k]):
+            break
+        mask[k] = False
+        order.append(k)
+        trace.append(float(scores[k]))
+    return GSIResult(order, trace, snaps, mask)
+
+
+def oneshot_rank(model, params, batch, *, chunk: int = 8) -> np.ndarray:
+    """One-shot scores on the dense model (the RAP^-GSI ablation):
+    scores[b] = log-ppl with only block b removed; no re-evaluation."""
+    scorer = make_candidate_scorer(model, batch, chunk=chunk)
+    return scorer(params, masks_lib.full_mask(model.cfg.n_layers))

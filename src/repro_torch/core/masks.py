@@ -160,3 +160,13 @@ def quantize_mask(cfg, mask: np.ndarray, mode: str) -> np.ndarray:
     for i in rows:
         out[i] = out[L + i] = True
     return out
+
+
+def mask_param_fraction(cfg, mask: np.ndarray) -> float:
+    """Fraction of block params retained (excludes embeddings) — Table 4."""
+    mix, ffn = cfg.block_param_counts()
+    L = cfg.n_layers
+    m = np.asarray(mask)
+    tot = float(np.sum(mix) + np.sum(ffn))
+    kept = float(np.asarray(mix) @ m[:L] + np.asarray(ffn) @ m[L:])
+    return kept / max(tot, 1.0)

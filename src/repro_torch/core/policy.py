@@ -7,21 +7,28 @@
         ▲                                  │
         └── PruningPolicy.feedback(result) ┘  (after the request completes)
 
-Implementations ported so far: :class:`RLPolicy` (the paper's DQN
-controller, Algorithm 3) and :class:`DensePolicy` (never prunes). The
-static baselines (ShortGPT, LLMPruner, …) are ROADMAP queue 1, item 10.
+Implementations: :class:`RLPolicy` (the paper's DQN controller,
+Algorithm 3), :class:`StaticOrderPolicy` (every static baseline of
+``repro_torch.core.baselines`` — ShortGPT, LLMPruner, MHA-drop, FFN-skip,
+one-shot PPL, random drop: a removal order scored once per served model,
+then each observation removes blocks in that order until the analytical
+peak fits the live budget) and :class:`DensePolicy` (never prunes).
+``make_policy`` builds a registered policy from the serving context
+(model, params, calibration batch, memory model, controller, seed).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, Optional, Tuple
 
+from repro_torch.core import baselines as baselines_lib
 from repro_torch.core import masks as masks_lib
 from repro_torch.core.controller import Decision, RAPController
 from repro_torch.core.memory import MemoryModel
 
 __all__ = ["Decision", "PolicyState", "PruningPolicy", "RLPolicy",
-           "DensePolicy", "POLICIES", "available_policies", "make_policy",
+           "StaticOrderPolicy", "DensePolicy", "POLICIES", "available_policies", "make_policy",
            "register_policy"]
 
 
@@ -95,12 +102,44 @@ class DensePolicy(PruningPolicy):
                                     latency_s=0.0))
 
 
+class StaticOrderPolicy(PruningPolicy):
+    """Prune blocks in a fixed precomputed order until the peak fits.
+
+    The order (the expensive probe: cosine influence, Taylor saliency,
+    Δppl rank, …) is computed once, before construction; each ``observe``
+    is a cheap analytical loop, memoized on the (batch, total,
+    budget / dense peak) grid the RL controller uses."""
+
+    def __init__(self, mm: MemoryModel, order, name: str):
+        self.mm = mm
+        self.order = [int(b) for b in order]
+        self.name = name
+        self._memo: Dict[Tuple, Decision] = {}
+
+    def observe(self, state: PolicyState) -> Decision:
+        t0 = time.perf_counter()
+        bs, sql, budget = state.batch, state.total_len, state.budget_bytes
+        key = (int(bs), int(sql),
+               round(budget / max(self.mm.dense_peak(bs, sql), 1.0), 3))
+        if key in self._memo:
+            d = self._memo[key]
+            return self._stamp(dataclasses.replace(
+                d, mask=d.mask.copy(), cached=True,
+                fits=d.peak_bytes <= budget,
+                latency_s=time.perf_counter() - t0))
+        mask = baselines_lib.prune_by_order(self.order, self.mm, bs, sql,
+                                            budget)
+        peak = self.mm.peak_bytes(mask, bs, sql)
+        d = Decision(mask=mask, steps=int(2 * self.mm.n_layers - mask.sum()),
+                     peak_bytes=peak, fits=peak <= budget,
+                     latency_s=time.perf_counter() - t0)
+        self._memo[key] = dataclasses.replace(d, mask=mask.copy())
+        return self._stamp(d)
+
+
 # ---------------------------------------------------------------- registry
 PolicyBuilder = Callable[..., PruningPolicy]
 POLICIES: Dict[str, PolicyBuilder] = {}
-
-_LATER = ("shortgpt", "mha_drop", "ffn_skip", "llmpruner", "oneshot",
-          "random")
 
 
 def register_policy(name: str):
@@ -115,27 +154,58 @@ def available_policies() -> Tuple[str, ...]:
     return tuple(sorted(POLICIES))
 
 
-def make_policy(name: str, *, controller: Optional[RAPController] = None,
-                mm: Optional[MemoryModel] = None, **_) -> PruningPolicy:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"policy {name!r} is a static baseline, ported with "
-            f"core/baselines.py (ROADMAP queue 1, item 10)")
+def make_policy(name: str, *, model=None, params=None, calib=None,
+                mm: Optional[MemoryModel] = None,
+                controller: Optional[RAPController] = None,
+                seed: int = 0) -> PruningPolicy:
+    """Build a registered policy from the serving context: ``rl`` needs a
+    ``controller``; the static baselines need (model, params, calib, mm)
+    to score their removal order; ``random`` and ``dense`` need only
+    (model,) mm."""
     if name not in POLICIES:
         raise KeyError(f"unknown policy {name!r}; available: "
                        f"{', '.join(available_policies())}")
-    return POLICIES[name](controller=controller, mm=mm)
+    return POLICIES[name](model=model, params=params, calib=calib, mm=mm,
+                          controller=controller, seed=seed)
+
+
+def _require(name, **kwargs):
+    missing = [k for k, v in kwargs.items() if v is None]
+    if missing:
+        raise ValueError(f"policy {name!r} requires {', '.join(missing)}")
 
 
 @register_policy("rl")
 def _build_rl(*, controller=None, **_):
-    if controller is None:
-        raise ValueError("policy 'rl' requires controller")
+    _require("rl", controller=controller)
     return RLPolicy(controller)
 
 
 @register_policy("dense")
 def _build_dense(*, mm=None, **_):
-    if mm is None:
-        raise ValueError("policy 'dense' requires mm")
+    _require("dense", mm=mm)
     return DensePolicy(mm)
+
+
+@register_policy("random")
+def _build_random(*, model=None, mm=None, seed=0, **_):
+    _require("random", model=model, mm=mm)
+    order = baselines_lib.random_drop_order(model, mm, seed=seed)
+    return StaticOrderPolicy(mm, order, "random")
+
+
+def _static_builder(name: str, order_fn):
+    @register_policy(name)
+    def build(*, model=None, params=None, calib=None, mm=None, **_):
+        _require(name, model=model, params=params, calib=calib, mm=mm)
+        return StaticOrderPolicy(mm, order_fn(model, params, calib, mm), name)
+    return build
+
+
+_static_builder("shortgpt", baselines_lib.shortgpt_order)
+_static_builder("mha_drop", baselines_lib.mha_drop_order)
+_static_builder("ffn_skip", baselines_lib.ffn_skip_order)
+_static_builder("llmpruner", baselines_lib.llmpruner_order)
+_static_builder("oneshot",
+                lambda model, params, calib, mm:
+                baselines_lib.oneshot_ppl_order(model, params, calib))

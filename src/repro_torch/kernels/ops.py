@@ -6,10 +6,27 @@ from a CUDA tensor to the plain version. Each wrapper carries a plain
 integer ``launches`` attribute, raised by one exactly where it launches its
 kernel, so a run can show which kernels the main path went through
 (:func:`launch_counts`, :func:`reset_launches`).
+
+Gradients. The four forward kernels (flash attention, the fused GLU,
+``ssd``, ``rglru``) sit in losses: training, LLMPruner's Taylor saliency.
+Their CUDA wrappers write through raw pointers into fresh tensors, which
+autograd cannot see. So when grad mode is on and an input requires grad,
+a CUDA call goes through :class:`KernelGrad`: its forward launches the
+hand-written kernel (the launch counted as always), and its backward
+recomputes the kernel's plain version from the saved inputs and returns
+that version's autograd gradients. The backward is the plain derivative
+because the JAX package has none of its own to port: no Pallas kernel
+there carries a ``custom_vjp``, and its train step and Taylor saliency
+differentiate XLA code. A hand-written backward kernel is optional speed
+work (ROADMAP queue 2). The three decode kernels are never in a loss; on a
+CUDA input that requires grad while grad mode is on they raise rather than
+cut the graph.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
+
+import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
@@ -19,11 +36,66 @@ from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import swiglu as _glu
 
 
+class KernelGrad(torch.autograd.Function):
+    """A kernel call that autograd can differentiate: ``forward`` runs
+    ``kernel(*inputs, **kw)``; ``backward`` runs ``plain(*inputs, **kw)``
+    on the saved inputs under grad mode and returns its gradients.
+    ``kernel`` and ``plain`` compute the same function (a tensor or a
+    tuple of tensors); an output whose gradient is not needed (``ssd``'s
+    final state in a forward that drops it) arrives as ``None`` and is
+    left out. Generic over the pair, so a CPU test can hand it the plain
+    version in the kernel's place."""
+
+    @staticmethod
+    def forward(ctx, kernel: Callable, plain: Callable, kw: dict, *inputs):
+        ctx.plain, ctx.kw = plain, kw
+        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+        return kernel(*inputs, **kw)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n)
+                  for x, n in zip(ctx.saved_tensors, need)]
+            out = ctx.plain(*xs, **ctx.kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+            wrt = [x for x in xs if x.requires_grad]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wrt, [g for _, g in pairs],
+                allow_unused=True))
+        return (None, None, None) + tuple(next(got) if n else None
+                                          for n in need)
+
+
+def _wants_grad(inputs) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+
+
+def _launch(kernel: Callable, plain: Callable, *inputs, **kw):
+    """A CUDA call of ``kernel``: through :class:`KernelGrad` where a loss
+    may be differentiated through it, else as it is."""
+    if _wants_grad(inputs):
+        return KernelGrad.apply(kernel, plain, kw, *inputs)
+    return kernel(*inputs, **kw)
+
+
+def _no_grad_input(name: str, inputs) -> None:
+    """Decode kernels are never differentiated: refuse, not cut the graph."""
+    if _wants_grad(inputs):
+        raise RuntimeError(
+            f"{name} has no gradient path: it serves decode steps, which no "
+            f"loss runs; call it under torch.no_grad() or on detached inputs")
+
+
 def fused_glu(h, activation: str = "swiglu"):
     """h: [..., 2F] fused (gate, up) → act(gate) * up, [..., F]."""
     if h.is_cuda:
         fused_glu.launches += 1
-        return _glu.fused_glu_cuda(h, activation)
+        return _launch(_glu.fused_glu_cuda, _glu.glu_ref, h,
+                       activation=activation)
     return _glu.glu_ref(h, activation)
 
 
@@ -43,6 +115,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
             q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
             softcap=softcap, split_rows=split_rows)
     if q.is_cuda:
+        _no_grad_input("paged_decode_attention", (q, k_pages, v_pages))
         paged_decode_attention.launches += 1
         return _pdec.paged_decode_attention_cuda(
             q, k_pages, v_pages, page_table, lengths, softcap=softcap,
@@ -57,6 +130,8 @@ def paged_decode_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
     """Fused-dequant paged decode: int8/fp8 pages with per-(page, kv head)
     f32 scales ``[n_pages, K]``; otherwise as :func:`paged_decode_attention`."""
     if q.is_cuda:
+        _no_grad_input("paged_decode_attention_quant",
+                       (q, k_pages, v_pages, k_scales, v_scales))
         paged_decode_attention_quant.launches += 1
         return _pdec.paged_decode_attention_quant_cuda(
             q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
@@ -72,6 +147,7 @@ def decode_attention(q, k, v, valid, *, softcap: float = 0.0,
     mask for all rows) or [B,S] (one per row) → [B,1,H,D]. ``split_rows``
     as in :func:`paged_decode_attention`."""
     if q.is_cuda:
+        _no_grad_input("decode_attention", (q, k, v))
         decode_attention.launches += 1
         return _dec.decode_attention_cuda(q, k, v, valid, softcap=softcap,
                                           split_rows=split_rows)
@@ -83,8 +159,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: [B,Sq,H,D]; k/v: [B,Skv,K,D] → [B,Sq,H,D] (q.dtype)."""
     if q.is_cuda:
         flash_attention.launches += 1
-        return _fa.flash_attention_cuda(q, k, v, causal=causal,
-                                        window=window, softcap=softcap)
+        return _launch(_fa.flash_attention_cuda, _fa.attention_ref, q, k, v,
+                       causal=causal, window=window, softcap=softcap)
     return _fa.attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
 
@@ -94,7 +170,8 @@ def ssd(xh, log_a, Bm, Cm, chunk: int = 256):
     f32 and contiguous → (y [B,T,H,P], final state [B,H,P,N]), f32."""
     if xh.is_cuda:
         ssd.launches += 1
-        return _ssd.ssd_cuda(xh, log_a, Bm, Cm, chunk)
+        return _launch(_ssd.ssd_cuda, _ssd.ssd_ref, xh, log_a, Bm, Cm,
+                       chunk=chunk)
     return _ssd.ssd_ref(xh, log_a, Bm, Cm, chunk)
 
 
@@ -102,7 +179,7 @@ def rglru(a, b):
     """h_t = a_t * h_{t-1} + b_t from zero: a, b [B,T,W] f32 → h f32."""
     if a.is_cuda:
         rglru.launches += 1
-        return _rg.rglru_cuda(a, b)
+        return _launch(_rg.rglru_cuda, _rg.rglru_ref, a, b)
     return _rg.rglru_ref(a, b)
 
 

@@ -12,7 +12,11 @@ builds the pruning policy — ``rl`` is the RAP controller (paper
 Algorithm 3), its Q-network trained for ``--episodes`` episodes of the
 pruning MDP (paper Algorithm 2: ``dqn.train`` over ``env.PruneEnv``, whose
 GSI scoring forwards run on the card) or, with 0 episodes, seeded and
-untrained; ``dense`` never prunes — and serves an Azure-like workload
+untrained; ``dense`` never prunes; the static baselines ``shortgpt``,
+``mha_drop``, ``ffn_skip``, ``llmpruner`` (whose Taylor saliency takes one
+forward and backward of the whole model on the card), ``oneshot`` and
+``random`` score one removal order on the calibration batch, then prune in
+it until each request fits — and serves an Azure-like workload
 trace of (batch, prompt) requests. Two serving paths:
 
   * default — continuous batching through ``RAPEngine``: one shared KV
@@ -40,8 +44,7 @@ trace of (batch, prompt) requests. Two serving paths:
 
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead (for tests). Without a GPU and without ``--device cpu`` it
-raises. The sharded executor and the static baselines are later slices
-(ROADMAP queue 1).
+raises. The sharded executor is a later slice (ROADMAP queue 1, item 16).
 """
 from __future__ import annotations
 
@@ -60,7 +63,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="structural = each request runs its retained "
                          "layers (a group per bucket); masked = all layers, "
                          "the mask as per-slot 0/1 gates")
-    ap.add_argument("--policy", default="rl", help="rl | dense")
+    ap.add_argument("--policy", default="rl",
+                    help="pruning policy: rl | dense | shortgpt | llmpruner "
+                         "| mha_drop | ffn_skip | oneshot | random (any "
+                         "registered name)")
     ap.add_argument("--scheduler", choices=("fifo", "sjf", "priority"),
                     default="fifo")
     ap.add_argument("--executor", choices=("local", "paged", "sharded"),
@@ -160,7 +166,7 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import dqn, env as env_lib, masks, memory, workload
     from repro_torch.core.controller import RAPController
-    from repro_torch.core.policy import make_policy
+    from repro_torch.core.policy import available_policies, make_policy
     from repro_torch.data import SyntheticCorpus
     from repro_torch.models import registry
     from repro_torch.runtime import (EngineConfig, EngineRequest,
@@ -203,7 +209,10 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
         policy = make_policy("rl", controller=RAPController(
             model, params, calib, mm, qp))
     else:
-        policy = make_policy(args.policy, mm=mm)
+        print(f"building static policy {args.policy!r} "
+              f"(available: {', '.join(available_policies())})")
+        policy = make_policy(args.policy, model=model, params=params,
+                             calib=calib, mm=mm, seed=args.seed)
 
     reqs = workload.generate(wl)[: args.requests]
     rng = np.random.default_rng(args.seed)

@@ -1,0 +1,87 @@
+"""Training launcher.
+
+  python -m repro_torch.launch.train --arch llama2-7b --smoke \
+      --steps 200 --ckpt-dir /path/to/ckpt [--device cpu]
+
+Trains ``--arch`` (``--smoke``: its reduced config) on the synthetic
+corpus with AdamW, checkpointing in the JAX package's format every
+``--ckpt-every`` steps. The trainer resumes from the latest checkpoint
+automatically: rerunning the same command after a crash (or with more
+``--steps``) continues the run and prints "resumed from checkpoint at step
+N". Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on
+the CPU instead. ``--mesh`` (multi-GPU) is ROADMAP queue 1, item 16.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-trainable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", action="store_true",
+                    help="build a mesh over available devices (multi-GPU: "
+                         "not ported yet)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    """Parse ``argv``, train, print the log; returns ``Trainer.run``'s
+    summary."""
+    args = _parser().parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh: multi-GPU training is ROADMAP queue 1, item 16")
+    import torch
+
+    if args.device == "cpu":
+        device = torch.device("cpu")
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device found; pass --device cpu to "
+                               "run the plain versions on the CPU")
+        device = torch.device(args.device)
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import SyntheticCorpus, batch_iterator
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = registry.build(cfg)
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
+    trainer = Trainer(
+        model,
+        adamw.AdamWConfig(lr=args.lr, total_steps=args.steps),
+        TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                      ckpt_every=args.ckpt_every, seed=args.seed,
+                      log_every=max(args.steps // 20, 1)),
+        on_log=lambda s, m: print(
+            f"step {s:5d}  loss {m['loss']:.4f}  ppl {m['ppl']:.2f}  "
+            f"gnorm {m['grad_norm']:.3f}", flush=True),
+        device=device)
+    start = trainer.step if trainer.maybe_restore() else 0
+    if start:
+        print(f"resumed from checkpoint at step {start}")
+    batches = batch_iterator(corpus, args.batch, args.seq, start=start)
+    summary = trainer.run(batches)
+    print(f"done at step {summary['final_step']}; "
+          f"stragglers observed: {len(summary['straggler_events'])}")
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -33,6 +33,7 @@ import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention, ffn as ffn_mod, layers
 from repro_torch.models import rglru as rglru_mod, ssm as ssm_mod
@@ -183,17 +184,44 @@ def _window(cfg, slot: LayerSlot) -> int:
     return cfg.attn_window if slot.mixer == "local_attn" else 0
 
 
-def _block(params, cfg, slot: LayerSlot, i: int, h, gates, mixer_out):
+def _apply_mixer(kind: str, p, cfg, h, positions):
+    """Norm, then the mixer ``kind`` (``attn``, ``local_attn``, ``rglru``
+    or ``ssd``) over the full sequence: its output [B, S, D]."""
+    hn = layers.apply_norm(cfg, p["norm"], h)
+    if kind == "rglru":
+        return rglru_mod.rglru_mixer(p, cfg, hn)
+    if kind == "ssd":
+        return ssm_mod.ssd_mixer(p, cfg, hn)
+    window = cfg.attn_window if kind == "local_attn" else 0
+    return attention.attention(p, cfg, hn, positions, window=window)[0]
+
+
+def _apply_ffn(kind: str, p, cfg, h):
+    """Norm, then the FFN ``kind`` (``dense``): its output [B, S, D]."""
+    return ffn_mod.ffn(p, cfg, layers.apply_norm(cfg, p["norm"], h))
+
+
+def _checkpointed(fn, remat: bool):
+    """``fn`` rematerialised in the backward (``remat``), else as it is."""
+    if not remat:
+        return fn
+    return lambda *a: torch.utils.checkpoint.checkpoint(
+        fn, *a, use_reentrant=False)
+
+
+def _block(params, cfg, slot: LayerSlot, i: int, h, gates, mixer_out, *,
+           remat: bool = False):
     """Residual updates of layout row ``i`` around its mixer output: the
     gated mixer branch (none for a pruned mixer, ``mixer_out`` None), then
-    the gated FFN branch (none in mamba2 or for a pruned FFN)."""
+    the gated FFN branch (none in mamba2 or for a pruned FFN; recomputed
+    in the backward under ``remat``)."""
     if mixer_out is not None:
         h = h + _bgate(gates["mixer"][i], h) * mixer_out
     if slot.ffn is None:
         return h
     pf = tree_slice(params["stacks"][slot.ffn], slot.ffn_idx)
-    hn = layers.apply_norm(cfg, pf["norm"], h)
-    return h + _bgate(gates["ffn"][i], h) * ffn_mod.ffn(pf, cfg, hn)
+    out = _checkpointed(lambda x: _apply_ffn(slot.ffn, pf, cfg, x), remat)(h)
+    return h + _bgate(gates["ffn"][i], h) * out
 
 
 def _cache_indices(layout) -> List[int]:
@@ -213,28 +241,26 @@ def _cache_indices(layout) -> List[int]:
 
 # -------------------------------------------------------------------- forward
 def forward(params, cfg, tokens, *, gates=None, unembed: bool = True,
-            layout=None):
+            layout=None, remat: bool = False):
     """Full-sequence forward. Returns (logits f32 [B,S,Vp], None);
-    ``unembed=False`` returns the pre-final-norm hidden state instead."""
+    ``unembed=False`` returns the pre-final-norm hidden state instead.
+    ``remat`` recomputes each mixer and each FFN block in the backward
+    (``torch.utils.checkpoint``, the twin of JAX's per-block
+    ``jax.checkpoint``): activation memory of one block at a time, at the
+    cost of a second forward — and a second launch of its kernels."""
     check_supported(cfg)
     layout = default_layout(cfg) if layout is None else layout
     gates = gates or _ones_gates(len(layout), tokens.device)
     h = _embed(params, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for i, slot in enumerate(layout):
-        if slot.mixer is None:
-            h = _block(params, cfg, slot, i, h, gates, None)
-            continue
-        pm = _mixer_params(params, slot)
-        hn = layers.apply_norm(cfg, pm["norm"], h)
-        if slot.mixer == "rglru":
-            out = rglru_mod.rglru_mixer(pm, cfg, hn)
-        elif slot.mixer == "ssd":
-            out = ssm_mod.ssd_mixer(pm, cfg, hn)
-        else:
-            out, _ = attention.attention(pm, cfg, hn, positions,
-                                         window=_window(cfg, slot))
-        h = _block(params, cfg, slot, i, h, gates, out)
+        out = None
+        if slot.mixer is not None:
+            pm = _mixer_params(params, slot)
+            out = _checkpointed(
+                lambda x, pm=pm, kind=slot.mixer: _apply_mixer(
+                    kind, pm, cfg, x, positions), remat)(h)
+        h = _block(params, cfg, slot, i, h, gates, out, remat=remat)
     if not unembed:
         return h, None
     return _unembed(params, cfg, h), None

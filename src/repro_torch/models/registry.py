@@ -2,20 +2,26 @@
 the dense, ``ssm`` (mamba2) and ``hybrid`` (recurrentgemma) families.
 
 ``build(cfg)`` returns a ``Model`` with:
-  init(seed, device)                 → params
-  loss(params, batch, gates=None)    → (scalar loss, aux)  [teacher-forced LM]
-  logits(params, batch, gates=None)  → [B, S, Vp] f32
+  init(seed, device)                 → params ("meta": shapes only, the
+                                       twin of ``jax.eval_shape``)
+  loss(params, batch, gates=None, remat=False, layout=None)
+                                     → (scalar loss, aux)  [teacher-forced LM]
+  logits(params, batch, gates=None, remat=False, layout=None)
+                                     → [B, S, Vp] f32
   prefill(params, batch, max_len, gates=None, kv_dtype=None)
                                      → (last_logits, slot cache)
   decode(params, cache, tokens, gates=None) → (logits [B,1,Vp], cache)
 
-Batches are dicts of tensors with ``tokens`` / ``labels``.
+Batches are dicts of tensors with ``tokens`` / ``labels`` (and an optional
+``loss_mask``). From ``CHUNKED_CE_MIN_SEQ`` tokens the loss takes the
+chunked cross-entropy, as JAX's does.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import decoder
 
@@ -27,6 +33,9 @@ class Model(NamedTuple):
     logits: Callable
     prefill: Callable
     decode: Callable
+
+
+CHUNKED_CE_MIN_SEQ = 2048
 
 
 def _nll_terms(logits, labels, vocab_size: int):
@@ -50,21 +59,60 @@ def cross_entropy(logits, labels, vocab_size: int, mask=None):
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+def chunked_cross_entropy(unembed_fn, h, labels, vocab_size: int,
+                          mask=None, chunk: int = 512):
+    """Mean next-token CE without the whole ``[B, S, V]`` logits: one
+    sequence chunk at a time, each rematerialised in the backward
+    (``torch.utils.checkpoint``), so the peak holds one ``[B, chunk, V]``
+    block. h: [B, S, D] pre-final-norm hidden; ``unembed_fn(h_chunk)`` →
+    logits chunk. Position t predicts ``labels[:, t + 1]``; the last
+    position is masked. The chunk halves until it divides S."""
+    B, S, _ = h.shape
+    labels_next = torch.cat([labels[:, 1:], labels.new_zeros(B, 1)], dim=1)
+    w = torch.ones(B, S, dtype=torch.float32, device=h.device)
+    w[:, -1] = 0.0
+    if mask is not None:
+        w = w * torch.cat([mask[:, 1:].float(),
+                           w.new_zeros(B, 1)], dim=1)
+    cs = chunk
+    while cs > 1 and S % cs:
+        cs //= 2
+
+    def one(h_c, l_c, w_c):
+        nll = _nll_terms(unembed_fn(h_c), l_c, vocab_size)
+        return torch.sum(nll * w_c)
+
+    nll = sum(torch.utils.checkpoint.checkpoint(
+        one, h[:, c0:c0 + cs], labels_next[:, c0:c0 + cs],
+        w[:, c0:c0 + cs], use_reentrant=False) for c0 in range(0, S, cs))
+    return nll / torch.clamp(w.sum(), min=1.0)
+
+
 def _lm_build(cfg) -> Model:
     decoder.check_supported(cfg)
 
     def init(seed: int = 0, device="cuda"):
-        gen = torch.Generator(device=device).manual_seed(int(seed))
+        # a meta template draws nothing: its generator may live anywhere
+        gdev = "cpu" if torch.device(device).type == "meta" else device
+        gen = torch.Generator(device=gdev).manual_seed(int(seed))
         return decoder.init_params(gen, cfg, device)
 
-    def logits(params, batch, gates=None):
-        out, _ = decoder.forward(params, cfg, batch["tokens"], gates=gates)
+    def logits(params, batch, gates=None, remat=False, layout=None):
+        out, _ = decoder.forward(params, cfg, batch["tokens"], gates=gates,
+                                 remat=remat, layout=layout)
         return out
 
-    def loss(params, batch, gates=None):
+    def loss(params, batch, gates=None, remat=False, layout=None):
         labels = batch["labels"]
         mask = batch.get("loss_mask")
-        lg = logits(params, batch, gates)[:, :-1]
+        if labels.shape[1] >= CHUNKED_CE_MIN_SEQ:
+            h, _ = decoder.forward(params, cfg, batch["tokens"], gates=gates,
+                                   remat=remat, layout=layout, unembed=False)
+            l = chunked_cross_entropy(
+                lambda hc: decoder._unembed(params, cfg, hc), h, labels,
+                cfg.vocab_size, mask)
+            return l, {"loss": l, "ppl": torch.exp(l)}
+        lg = logits(params, batch, gates, remat, layout)[:, :-1]
         if mask is not None:
             mask = mask[:, 1:]
         l = cross_entropy(lg, labels[:, 1:], cfg.vocab_size, mask)

@@ -7,7 +7,9 @@ defaults to 0.95, ``eps`` is added outside the square root, the clip
 scale is ``min(1, clip / (‖g‖ + 1e-9))`` (torch's clip uses 1e-6), bias
 correction takes the step as f32, and the schedule is constant, cosine or
 linear with a linear warmup. Parameters are (possibly nested) dicts of
-tensors; the moments are f32 dicts of the same structure.
+tensors; the moments are f32 dicts of the same structure, on the
+parameters' device, and so is the step counter: an update on the card
+reads nothing back to the host.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.tree import flatten
 
 
 class AdamWState(NamedTuple):
@@ -45,10 +49,9 @@ def _tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    return [tree]
+def _leaves(params) -> list:
+    """The leaves in the JAX package's order (dict keys sorted)."""
+    return list(flatten(params).values())
 
 
 def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -71,7 +74,8 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init(params) -> AdamWState:
     zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
-    return AdamWState(step=torch.zeros((), dtype=torch.int32),
+    device = _leaves(params)[0].device
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       mu=_tree_map(zeros, params),
                       nu=_tree_map(zeros, params))
 

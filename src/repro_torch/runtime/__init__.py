@@ -1,6 +1,6 @@
 """Serving runtime: KV pool, scheduler, executors, engine, one-shot server,
-fault-injection scenarios."""
-from repro_torch.runtime import scenarios
+fault-injection scenarios; the step functions and the trainer."""
+from repro_torch.runtime import scenarios, steps
 from repro_torch.runtime.engine import (EngineConfig, EngineReport,
                                         EngineRequest, RAPEngine,
                                         RequestResult)
@@ -21,8 +21,9 @@ from repro_torch.runtime.scheduler import (SCHEDULERS, FIFOScheduler,
                                            SchedulerOutput, SJFScheduler,
                                            VictimCandidate, make_scheduler)
 from repro_torch.runtime.server import RAPServer, ServeResult
+from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-__all__ = ["RAPEngine", "EngineConfig", "EngineRequest", "EngineReport",
+__all__ = ["steps", "Trainer", "TrainerConfig", "RAPEngine", "EngineConfig", "EngineRequest", "EngineReport",
            "RequestResult", "KVPool", "PageAllocation", "TokenAllocation",
            "SpilledAllocation", "PoolExhausted", "Scheduler",
            "SchedulerOutput", "FIFOScheduler", "SJFScheduler",

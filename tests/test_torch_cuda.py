@@ -947,3 +947,180 @@ def test_structural_launches_follow_the_layout(cuda, arch):
         assert got["paged_decode_attention"] == 3 * L2
         assert got["fused_glu"] == 3 * L2 and got["decode_attention"] == 0
         assert bool((pools["k"][L2:] == 0).all())
+
+
+# --------------------------------------------------------------- gradients
+# (kernel, label, dtype, inputs(gen), kernel call, plain call); tolerance:
+# the largest |Δ| of an input's gradient relative to its largest magnitude,
+# 1e-4 in f32 and 3e-2 in bf16 (the loss feeds the kernel's own output,
+# which differs from the plain version's by up to a rounding, into the
+# upstream gradient; the backward itself is the plain version's autograd)
+GRAD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _grad_cases():
+    def rnd(g, *s, dt=torch.float32, scale=1.0):
+        return (torch.randn(*s, generator=g, device="cuda") * scale).to(dt)
+
+    def flash(B, S, H, K, D, w, cap, dt):
+        kw = dict(window=w, softcap=cap)
+        return ("flash_attention", f"flash-B{B}-S{S}-H{H}-K{K}-D{D}-w{w}-"
+                f"cap{cap}-{str(dt)[6:]}", dt,
+                lambda g: (rnd(g, B, S, H, D, dt=dt), rnd(g, B, S, K, D, dt=dt),
+                           rnd(g, B, S, K, D, dt=dt)),
+                lambda ops, *x: ops.flash_attention(*x, **kw),
+                lambda *x: fa.attention_ref(*x, **kw))
+
+    def glu(T, F, act, dt):
+        return ("fused_glu", f"glu-T{T}-F{F}-{act}-{str(dt)[6:]}", dt,
+                lambda g: (rnd(g, T, 2 * F, dt=dt),),
+                lambda ops, h: ops.fused_glu(h, act),
+                lambda h: swiglu.glu_ref(h, act))
+
+    def scan_in(g, B, T, H, P, N):
+        return (rnd(g, B, T, H, P, scale=0.5),
+                -rnd(g, B, T, H, scale=0.1).abs(), rnd(g, B, T, N, scale=0.3),
+                rnd(g, B, T, N, scale=0.3))
+
+    return [
+        flash(2, 64, 4, 2, 32, 0, 0.0, torch.float32),      # GQA
+        flash(1, 100, 4, 4, 64, 16, 0.0, torch.float32),    # band, ragged
+        flash(1, 64, 4, 2, 32, 0, 30.0, torch.float32),     # softcap
+        flash(2, 130, 8, 2, 128, 0, 0.0, torch.bfloat16),   # tensor cores
+        glu(37, 11008, "swiglu", torch.bfloat16),
+        glu(16, 688, "swiglu", torch.float32),
+        glu(9, 12288, "geglu", torch.bfloat16),
+        glu(5, 11007, "geglu", torch.float32),               # element path
+        ("ssd", "ssd-B2-T40-H3-P16-N32-chunk16", torch.float32,
+         lambda g: scan_in(g, 2, 40, 3, 16, 32),
+         lambda ops, *x: ops.ssd(*x, 16), lambda *x: ssd.ssd_ref(*x, 16)),
+        ("rglru", "rglru-B2-T33-W96", torch.float32,
+         lambda g: (torch.rand(2, 33, 96, generator=g, device="cuda"),
+                    rnd(g, 2, 33, 96)),
+         lambda ops, a, b: ops.rglru(a, b), rglru.rglru_ref),
+    ]
+
+
+GRAD_CASES = _grad_cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GRAD_CASES, ids=[c[1] for c in GRAD_CASES])
+def test_kernel_gradients_match_plain_autograd(cuda, case):
+    """A loss through the kernel on the card reaches every input (the
+    forward launches the kernel once; the backward is the plain version's
+    autograd) with the gradients of the plain version's own autograd."""
+    from repro_torch.kernels import ops
+    kernel, _, dt, make, call, plain = case
+    g = torch.Generator(device="cuda").manual_seed(3)
+    inputs = make(g)
+    w = {}
+
+    def grads(f):
+        xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        out = f(*xs)
+        o = (out[0] if isinstance(out, tuple) else out).float()
+        w.setdefault("w", torch.randn(o.shape, generator=g, device="cuda"))
+        return torch.autograd.grad((w["w"] * o).sum() + 0.5 * (o * o).sum(),
+                                   xs)
+
+    before = getattr(ops, kernel).launches
+    got = grads(lambda *x: call(ops, *x))
+    assert getattr(ops, kernel).launches == before + 1
+    want = grads(plain)
+    for a, b in zip(got, want):
+        assert a is not None and a.dtype == b.dtype
+        assert bool(torch.isfinite(a).all())
+        rel = float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max())
+        assert rel <= GRAD_REL_TOL[dt], rel
+
+
+@pytest.mark.cuda
+def test_ssd_gradient_takes_the_final_state(cuda):
+    """With the final state in the loss too, both outputs' gradients flow.
+    Held relative to each gradient's largest magnitude, as above: the
+    gradient of the first token's ``log_a`` is a sum of terms that cancel
+    to 0 analytically, whose residue follows the upstream gradient's
+    roundings."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = [torch.randn(1, 20, 2, 8, generator=g, device="cuda"),
+         -torch.rand(1, 20, 2, generator=g, device="cuda") * 0.1,
+         torch.randn(1, 20, 16, generator=g, device="cuda"),
+         torch.randn(1, 20, 16, generator=g, device="cuda")]
+
+    def grads(f):
+        xs = [t.clone().requires_grad_(True) for t in x]
+        y, st = f(*xs)
+        return torch.autograd.grad(y.square().sum() + st.sum(), xs)
+
+    for a, b in zip(grads(lambda *t: ops.ssd(*t, 8)),
+                    grads(lambda *t: ssd.ssd_ref(*t, 8))):
+        rel = float((a - b).abs().max() / b.abs().max())
+        assert rel <= GRAD_REL_TOL[torch.float32], rel
+
+
+@pytest.mark.cuda
+def test_decode_kernels_refuse_grad_inputs(cuda):
+    from repro_torch.kernels import ops
+    q = torch.randn(2, 1, 4, 32, device=cuda, requires_grad=True)
+    k = torch.randn(2, 16, 4, 32, device=cuda)
+    pages = torch.randn(5, 8, 4, 32, device=cuda)
+    table = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([16, 9], dtype=torch.int32, device=cuda)
+    scales = torch.ones(5, 4, device=cuda)
+    before = ops.launch_counts()
+    with pytest.raises(RuntimeError, match="no gradient path"):
+        ops.decode_attention(q, k, k, torch.ones(16, dtype=torch.bool,
+                                                 device=cuda))
+    with pytest.raises(RuntimeError, match="no gradient path"):
+        ops.paged_decode_attention(q, pages, pages, table, lengths)
+    with pytest.raises(RuntimeError, match="no gradient path"):
+        ops.paged_decode_attention(q, pages.to(torch.int8),
+                                   pages.to(torch.int8), table, lengths,
+                                   k_scales=scales, v_scales=scales)
+    assert ops.launch_counts() == before
+    with torch.no_grad():                       # no graph: the kernel runs
+        ops.decode_attention(q, k, k, torch.ones(16, dtype=torch.bool,
+                                                 device=cuda))
+    assert ops.decode_attention.launches == before["decode_attention"] + 1
+
+
+@pytest.mark.cuda
+def test_train_step_card_matches_cpu(cuda):
+    """Three remat train steps of SMOKE llama2 (f32): the card through the
+    kernels, the CPU through the plain versions, from the same weights."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    cfg = get_smoke_config("llama2-7b")
+    model = registry.build(cfg)
+    step = steps.make_train_step(model, adamw.AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=10), remat=True)
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+               for _ in range(3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(model.init(0, "cpu"), dev)
+        s = adamw.init(p)
+        ops.reset_launches()
+        losses = []
+        for t in batches:
+            b = {"tokens": torch.from_numpy(t).to(dev),
+                 "labels": torch.from_numpy(t).to(dev)}
+            p, s, m = step(p, s, b)
+            losses.append(float(m["loss"]))
+        out[dev] = (p, losses, ops.launch_counts())
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-5)
+    assert out["cuda"][2]["flash_attention"] == 3 * 2 * cfg.n_layers
+    assert out["cuda"][2]["fused_glu"] == 3 * 2 * cfg.n_layers
+    torch.testing.assert_close(out["cuda"][0]["embed"].cpu(),
+                               out["cpu"][0]["embed"], rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
