@@ -127,8 +127,23 @@ Phases, each fatal on failure:
                 under ``torch.use_deterministic_algorithms``; ms a step,
                 tokens/s, peak memory, the checkpoint's bytes and write
                 time, launches a step; then ``benchmarks.common.subject()``
-                (RAP_SUBJECT, 300 steps) with its held-out ppl. The
-                checkpoint directories are removed.
+                (RAP_SUBJECT, 300 steps) with its held-out ppl; then the
+                paper's experiments over that subject
+                (``repro_torch.benchmarks.run``: tables 1, 2 and 4,
+                figures 3, 4, 6, 9, 10 and 11, their DQN policies trained
+                on the card): every number finite, RAP's and the mask
+                baselines' masks fit (FFN-Skip's cannot, and is reported),
+                the Dense row's ppl the subject's, flash and GLU launched.
+                The checkpoint directories are removed;
+ 18. serves 12-16 — serve 1 with 3 requests on gemma-2b, glm4-9b,
+                qwen3-14b, qwen1.5-32b (full width, depth cut to 48 of 64
+                layers in-process: its bf16 weights would not leave room
+                for a pool on one card) and internvl2-1b (text-only):
+                every request done and pruned, no overcommit, flash, GLU
+                and paged decode launched exactly as the layouts of the
+                decoder's calls imply; then serve 3 on fp8 slot caches
+                (``--kv-dtype fp8``): the same checks through the dense
+                decode kernel.
 
 The reference phase also serves a small fp32 trace (TF32 off) with and
 without a budget shock on paged f32 and int8 pools and on slot caches:
@@ -138,7 +153,11 @@ drop different layers (one bucket signature, two gather keys) on both
 executors, a structural paged int8 trace under a budget shock, and a small
 mamba2 trace through half-pruned layouts. Its training run holds three
 SMOKE f32 train steps (remat) on the card against the CPU, and
-``taylor_saliency`` and ``block_cosines`` likewise.
+``taylor_saliency`` and ``block_cosines`` likewise. It also holds the SMOKE
+models of gemma-2b, glm4-9b, qwen3-14b, qwen1.5-32b and internvl2-1b (the
+last with ``vision_embeds`` too) on the card against the CPU, logits and
+greedy tokens, and an fp8 slot-cache trace likewise. The kernel phase
+checks flash, GLU and both decode bodies at those architectures' widths.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a GPU, or without the rest of
@@ -201,6 +220,31 @@ SERVE11_ARGV = [("shortgpt" if prev == "--policy" else a)
                 for prev, a in zip([None] + SERVE_ARGV, SERVE_ARGV)] + [
     "--mode", "structural", "--bucket-quant", "layer"]
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2, "torch.float16": 2e-2}
+# the dense decoder's other architectures: each served at full width
+# (serves 12-16), its reference twin at SMOKE size; qwen1.5-32b's 64 layers
+# of bf16 weights (~70 GB) leave no room for a pool and the scoring forward
+# on one 80 GB card, so its serve cuts the depth to 48 layers (~54 GB)
+NEW_ARCHS = ("gemma-2b", "glm4-9b", "qwen3-14b", "qwen1.5-32b",
+             "internvl2-1b")
+NEW_ARCH_DEPTH = {"qwen1.5-32b": 48}
+NEW_ARCH_ARGV = {arch: [{"llama2-7b": arch}.get(a, a) if prev != "--requests"
+                        else "3" for prev, a in zip([None] + SERVE_ARGV,
+                                                    SERVE_ARGV)]
+                 for arch in NEW_ARCHS}
+# serve 3 on fp8 slot caches: a plain cast on store and load
+SERVE_FP8_SLOT_ARGV = SERVE3_ARGV + ["--kv-dtype", "fp8"]
+
+
+def new_arch_shapes() -> dict:
+    """Each new architecture's kernel widths at full size: attention (H,
+    K, D) and the FFN (d_ff, GLU activation)."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in NEW_ARCHS:
+        c = get_config(arch)
+        out[arch] = (c.n_heads, c.n_kv_heads, c.dh, c.d_ff,
+                     "geglu" if c.activation == "geglu" else "swiglu")
+    return out
 
 
 def card_line() -> str:
@@ -300,7 +344,9 @@ def glu_cases(torch, ops, swiglu):
                           (37, 11008, "geglu", torch.bfloat16),
                           (37, 11008, "geglu", torch.float32),
                           (264, 12288, "geglu", torch.bfloat16),
-                          (5, 11007, "swiglu", torch.bfloat16)]:
+                          (5, 11007, "swiglu", torch.bfloat16)] + [
+            (T, F, act, dt) for _, _, _, F, act in new_arch_shapes().values()
+            for T, dt in ((8, torch.float32), (264, torch.bfloat16))]:
         h = torch.randn(T, 2 * F, generator=g, device="cuda").to(dt)
         check(f"fused_glu T={T} F={F} {act} {dt}", ops.fused_glu(h, act),
               swiglu.glu_ref(h, act), dt)
@@ -426,6 +472,10 @@ def paged_cases(torch, ops, pdec, timed):
              (4, 32, 8, 128, 16, 200, 0.0, torch.float32),     # GQA G=4
              (4, 32, 8, 128, 16, 200, 0.0, torch.bfloat16),
              (3, 8, 2, 64, 16, 96, 30.0, torch.float32)]       # softcap
+    # the new architectures' widths: G = 8, 16, 5, 1 (40 kv heads), 7
+    for H, K, D, _, _ in new_arch_shapes().values():
+        cases += [(4, H, K, D, 16, 300, 0.0, torch.float32),
+                  (4, H, K, D, 16, 300, 0.0, torch.bfloat16)]
     for i, (B, H, K, D, pt, S, cap, dt) in enumerate(cases):
         q, kp, vp, table, lengths = paged_inputs(torch, B, H, K, D, pt, S,
                                                  dt, seed=10 + i)
@@ -569,6 +619,10 @@ def flash_cases(torch, ops, fa):
              (2, 100, 32, 32, 128, 16, 0.0, torch.bfloat16),   # narrow band
              (1, 200, 8, 4, 64, 0, 30.0, torch.float16),       # softcap
              (1, 600, 16, 1, 256, 256, 0.0, torch.float16)]
+    # the new architectures' widths (internvl2: D = 64, 14 heads on 2)
+    for H, K, D, _, _ in new_arch_shapes().values():
+        cases += [(2, 130, H, K, D, 0, 0.0, torch.float32),
+                  (2, 264, H, K, D, 0, 0.0, torch.bfloat16)]
     for B, S, H, K, D, w, cap, dt in cases:
         q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
         k = torch.randn(B, S, K, D, generator=g, device="cuda").to(dt)
@@ -618,6 +672,8 @@ def decode_cases(torch, ops, dec, pdec, attention, timed):
               torch.remainder((264 + 7 + 11 * torch.arange(8, device="cuda"))
                               [:, None] - kpos[None, :264], 264) < 200,
               "ring")]
+    shapes = new_arch_shapes().values()
+    cases += [(4, H, K, D, 300, 0.0, None, "rows") for H, K, D, _, _ in shapes]
     for i, (b, h, k, d, s, cap, valid, kind) in enumerate(cases):
         if valid is None:
             lens = torch.randint(1, s + 1, (b,), generator=g).cuda()
@@ -639,7 +695,9 @@ def decode_cases(torch, ops, dec, pdec, attention, timed):
     for i, (b, h, k, d, s, cap, seed) in enumerate(
             [(8, 32, 32, 128, 512, 0.0, 12), (4, 32, 8, 128, 200, 0.0, 31),
              (3, 8, 2, 64, 96, 30.0, 32), (1, 32, 32, 128, 512, 0.0, 33),
-             (8, 16, 1, 256, 264, 0.0, 34), (8, 32, 32, 128, 64, 0.0, 35)]):
+             (8, 16, 1, 256, 264, 0.0, 34), (8, 32, 32, 128, 64, 0.0, 35)]
+            + [(4, H, K, D, 300, 0.0, 36 + j)
+               for j, (H, K, D, _, _) in enumerate(shapes)]):
         q, kp, vp, table, lens = paged_inputs(torch, b, h, k, d, pt, s,
                                               torch.float32, seed)
         n = table.shape[1] * pt
@@ -1372,24 +1430,37 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def serve_phase(torch, ops, card: str, argv) -> dict:
-    """Serve ``--arch`` at its full width and depth through
-    ``launch.serve`` and check the report; returns the launch counts and a
-    summary of the run."""
+def serve_phase(torch, ops, card: str, argv,
+                depth: Optional[int] = None) -> dict:
+    """Serve ``--arch`` at its full width and depth (``depth``: its layers
+    cut to that many, in-process) through ``launch.serve`` and check the
+    report; returns the launch counts and a summary of the run."""
     import gc
-    from repro_torch.configs import get_config
+    import repro_torch.configs as configs
     from repro_torch.launch import serve
     arch = argv[argv.index("--arch") + 1]
-    print(f"  serve argv: {' '.join(argv)}")
+    full = configs.get_config(arch)
+    want = full if depth is None else full.replace(n_layers=depth)
+    print(f"  serve argv: {' '.join(argv)}"
+          + ("" if depth is None else f" (depth cut to {depth} of "
+                                      f"{full.n_layers} layers)"))
     ops.reset_launches()
-    t0 = time.perf_counter()
-    engine, rep = serve.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    get_config = configs.get_config
+    configs.get_config = lambda name: want if name == arch else get_config(
+        name)
+    try:
+        t0 = time.perf_counter()
+        engine, rep = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        configs.get_config = get_config
     counts = ops.launch_counts()
     cfg = engine.mcfg
-    if cfg != get_config(arch):
-        raise AssertionError(f"not {arch} at full width and depth: {cfg}")
+    if cfg != want:
+        raise AssertionError(f"not {arch} at full width and depth "
+                             f"{want.n_layers}: {cfg}")
     L = cfg.n_layers
     done = [r for r in rep.results if r.status == "done"]
     pruned = [r for r in done if r.mask.sum() < 2 * L]
@@ -1435,6 +1506,8 @@ def serve_phase(torch, ops, card: str, argv) -> dict:
                "dropped_layers": [[i for i in range(L) if not (
                    r.mask[i] or r.mask[L + i])] for r in done],
                "pruned_without_bucket": sum(r.bucket == () for r in pruned),
+               "all_pruned": len(pruned) == len(done),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                "bucket_stats": ex.stats()}
     print(f"  serve [{card}]: {rep.tokens_per_s:.2f} tok/s over "
           f"{rep.generated_tokens} tokens; ttft p50/p99 "
@@ -2148,9 +2221,205 @@ def train_phase_full(torch, ops, card: str) -> dict:
         t0 = time.perf_counter()
         subj = subject_phase(torch, ops, root)
         print(f"  (c) {time.perf_counter() - t0:.1f} s")
+        print("experiments:")
+        t0 = time.perf_counter()
+        exps = experiments_phase(torch, ops, card, f"{root}/bench", subj)
+        print(f"  (d) experiments: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"full_width": full, "subject": subj}
+    return {"full_width": full, "subject": subj, "experiments": exps}
+
+# ------------------------------------------ the dense decoder's other archs
+def _perturbed(torch, params, seed: int):
+    """``params`` with random values in the leaves the initialiser zeroes
+    (norm scales, q/k/v biases, q/k norms), so a misapplied one shows."""
+    g = torch.Generator().manual_seed(seed)
+
+    def walk(t, name=""):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if name in ("scale", "bq", "bk", "bv", "q_norm", "k_norm"):
+            return (0.2 * torch.randn(t.shape, generator=g)).to(t.dtype)
+        return t
+    return walk(params)
+
+
+def arch_reference(torch) -> None:
+    """Each new architecture's SMOKE model in f32 on the card (kernels)
+    against the same weights on the CPU (plain versions): forward and
+    prefill logits within 1e-3, then the greedy tokens of a paged decode
+    horizon equal; internvl2 also with ``vision_embeds`` (forward, prefill
+    over the prefix and the prompt, a slot decode horizon)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.ref import put_pages
+    from repro_torch.models import attention, decoder, registry
+    pt, npg = 16, 4
+    for i, arch in enumerate(NEW_ARCHS):
+        cfg = get_smoke_config(arch)
+        model = registry.build(cfg)
+        cpu_params = _perturbed(torch, model.init(0, "cpu"), 40 + i)
+        gpu_params = _tree_to(cpu_params, "cuda")
+        gen = torch.Generator().manual_seed(50 + i)
+        toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+        vis = (0.5 * torch.randn(2, cfg.n_vision_tokens, cfg.d_model,
+                                 generator=gen)
+               if cfg.family == "vlm" else None)
+        outs = {}
+        for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
+            t = toks.to(dev)
+            fwd = model.logits(p, {"tokens": t})
+            logits, cache = decoder.prefill(p, cfg, t, npg * pt)
+            table = torch.arange(2 * npg, dtype=torch.int32,
+                                 device=dev).reshape(2, npg)
+            pools = _paged_pools(torch, attention, put_pages, cfg, cache,
+                                 table, 2 * npg + 1, None)
+            pos = torch.full((2,), 40, dtype=torch.int32, device=dev)
+            first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            h, _, _ = decoder.paged_decode_horizon(p, cfg, pools, table, pos,
+                                                   first, 8)
+            out = {"forward": fwd, "prefill": logits, "tokens": h}
+            if vis is not None:
+                b = {"tokens": t, "vision_embeds": vis.to(dev)}
+                vl, vc = model.prefill(p, b, 64)
+                vfirst = torch.argmax(vl, -1).to(torch.int32)[:, None]
+                vh, _ = decoder.decode_horizon(p, cfg, vc, vfirst, 8)
+                out.update(vision_forward=model.logits(p, b),
+                           vision_prefill=vl, vision_tokens=vh)
+            outs[dev] = {k: v.cpu() for k, v in out.items()}
+        errs = {k: max_err(v, outs["cpu"][k]) for k, v in outs["cuda"].items()
+                if "tokens" not in k}
+        same = {k: bool(torch.equal(v, outs["cpu"][k]))
+                for k, v in outs["cuda"].items() if "tokens" in k}
+        print(f"  reference ({arch} SMOKE, f32): logits max|Δ| card vs CPU "
+              f"{ {k: f'{e:.2e}' for k, e in errs.items()} }; greedy tokens "
+              f"equal: {same}")
+        if max(errs.values()) > 1e-3 or not all(same.values()):
+            raise AssertionError(f"{arch}: the card disagrees with the CPU")
+
+
+def fp8_slot_reference(torch) -> None:
+    """The slot path on an fp8 (float8_e4m3fn) slot cache, card against
+    CPU: 3 rows prefilled, moved to ragged positions, 8 tokens decoded with
+    ``[L, B]`` gates; the cache is a plain cast on store and load, and the
+    card decodes through the dense decode kernel."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decoder, registry
+    cfg = get_smoke_config("llama2-7b").replace(n_layers=4)
+    cpu_params = registry.build(cfg).init(0, "cpu")
+    gpu_params = _tree_to(cpu_params, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (3, 40),
+                         generator=torch.Generator().manual_seed(7))
+    outs = {}
+    for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
+        logits, cache = decoder.prefill(p, cfg, toks.to(dev), 64,
+                                        kv_dtype=torch.float8_e4m3fn)
+        cache["pos"] = torch.tensor([40, 25, 60], dtype=torch.int32,
+                                    device=dev)
+        gates = torch.ones(2, cfg.n_layers, 3, device=dev)
+        gates[0, 1, 0] = gates[1, 2, 1] = 0.0
+        first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        h, cache = decoder.decode_horizon(
+            p, cfg, cache, first, 8,
+            gates={"mixer": gates[0], "ffn": gates[1]})
+        outs[dev] = (logits.cpu(), h.cpu(), cache["attn"]["k"].dtype)
+    err = max_err(outs["cuda"][0], outs["cpu"][0])
+    same = bool(torch.equal(outs["cuda"][1], outs["cpu"][1]))
+    print(f"  reference (slot cache {outs['cuda'][2]}): prefill logits "
+          f"max|Δ| card vs CPU {err:.2e}; horizon tokens equal: {same}")
+    if (err > 1e-3 or not same
+            or outs["cuda"][2] != torch.float8_e4m3fn):
+        raise AssertionError("the fp8 slot cache on the card disagrees "
+                             "with the CPU")
+
+
+def arch_serves(torch, ops, card: str) -> dict:
+    """Serves 12-16: serve 1 (masked, paged, grid 0.3) on each new
+    architecture at full width with 3 requests (qwen1.5-32b at 48 of its
+    64 layers): every request done and pruned, no overcommit, and flash,
+    GLU and paged decode launched exactly as the layouts of the decoder's
+    calls imply (no other kernel); then serve 3 on fp8 slot caches, which
+    launches the dense decode kernel and no paged one. Returns each
+    serve's summary."""
+    from repro_torch.configs import get_config
+    out = {}
+    runs = [(str(n), arch, NEW_ARCH_ARGV[arch], NEW_ARCH_DEPTH.get(arch))
+            for n, arch in enumerate(NEW_ARCHS, start=12)]
+    runs.append(("_fp8_slot", "llama2-7b", SERVE_FP8_SLOT_ARGV, None))
+    for n, arch, argv, depth in runs:
+        print(f"serve {n.lstrip('_')} ({arch}):")
+        t0 = time.perf_counter()
+        with LayoutRecorder() as rec:
+            s = serve_phase(torch, ops, card, argv, depth=depth)
+        cfg = get_config(arch)
+        cfg = cfg if depth is None else cfg.replace(n_layers=depth)
+        want = layout_launches(cfg, rec.calls)
+        got = s["launches"]
+        steps = sum(name in ("decode_step", "paged_decode_step")
+                    for name, _, _ in rec.calls)
+        print(f"  {len(rec.calls)} decoder calls ({steps} decode steps); "
+              f"launches {got}, the layouts imply {want}; peak "
+              f"{s['peak_gb']:.2f} GB; {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+        slot = n == "_fp8_slot"
+        body = "decode_attention" if slot else "paged_decode_attention"
+        other = "paged_decode_attention" if slot else "decode_attention"
+        if (got != want or not s["all_pruned"]
+                or min(got[body], got["flash_attention"],
+                       got["fused_glu"]) < 1
+                or got[other] or got["paged_decode_attention_quant"]
+                or (slot and s["kv_dtype"] != "float8_e4m3fn")):
+            raise AssertionError(f"serve {n.lstrip('_')} ({arch}) failed "
+                                 f"its checks")
+        out[f"c{n}"] = s
+    return out
+
+
+def experiments_phase(torch, ops, card: str, bench_dir: str,
+                      subject: dict) -> dict:
+    """The paper's experiments (``python -m repro_torch.benchmarks.run``:
+    tables 1, 2 and 4, figures 3, 4, 6, 9, 10 and 11) over the subject the
+    train phase trained, cached in ``bench_dir``; their DQN policies train
+    here on the card. Checks: every number of every row finite; RAP's,
+    LLMPruner's, ShortGPT's and MHA-Drop's masks fit their budgets
+    (FFN-Skip's cannot shed KV, and is reported); the Dense row's ppl is
+    the subject phase's held-out ppl; flash and GLU launched. Returns the
+    rows, the launches and the seconds."""
+    import os
+    from repro_torch.benchmarks import common, run
+    common.BENCH_DIR = bench_dir
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    print(f"  experiments on {card}")
+    run.main([])
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    tables = {}
+    for name, module, _ in run.BENCHES:
+        out = module.rsplit(".", 1)[1]
+        with open(os.path.join(bench_dir, out + ".json")) as f:
+            tables[name] = json.load(f)
+    bad = [(name, r) for name, rows in tables.items() for r in rows
+           for v in r.values() if isinstance(v, (int, float))
+           and not isinstance(v, bool) and not np.isfinite(v)]
+    t1 = tables["table1"]
+    unfit = [r for r in t1 + tables["table4"]
+             if r["scheme"] in ("RAP", "LLMPruner", "ShortGPT", "MHA-Drop")
+             and not r["fits"]]
+    dense = [r for r in t1 if r["scheme"] == "Dense"][0]
+    rel = abs(dense["ppl"] - subject["ppl"]) / subject["ppl"]
+    print(f"  experiments [{card}]: {secs:.1f} s; Dense ppl "
+          f"{dense['ppl']:.6f} against the subject phase's "
+          f"{subject['ppl']:.6f} (relative {rel:.1e}); FFN-Skip fits "
+          f"{[r['fits'] for r in t1 if r['scheme'] == 'FFN-Skip']}; "
+          f"launches {counts}")
+    print("experiments: " + json.dumps({"card": card, "seconds": secs,
+                                        "tables": tables}))
+    if (bad or unfit or rel > 1e-5 or counts["flash_attention"] < 1
+            or counts["fused_glu"] < 1):
+        raise AssertionError(f"the experiments failed their checks: "
+                             f"non-finite {bad}, unfit {unfit}")
+    return {"seconds": secs, "launches": counts, "tables": tables}
+
 
 
 def serves(torch, ops, card: str) -> dict:
@@ -2287,6 +2556,8 @@ def main() -> None:
     reference_shock(torch)
     structural_reference(torch)
     training_reference(torch, ops)
+    arch_reference(torch)
+    fp8_slot_reference(torch)
     print(f"reference: {time.perf_counter() - t0:.1f} s")
     runs = serves(torch, ops, card)
     print("serve 10:")
@@ -2300,6 +2571,11 @@ def main() -> None:
     runs.update(c10=s10["launches"], c11=s11["launches"],
                 c10_order=s10["order_launches"],
                 c11_order=s11["order_launches"])
+    t0 = time.perf_counter()
+    runs.update({k: v["launches"] for k, v in
+                 arch_serves(torch, ops, card).items()})
+    print(f"  serves 12-16 and the fp8 slot serve: "
+          f"{time.perf_counter() - t0:.1f} s")
     print("shock:")
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
@@ -2309,7 +2585,8 @@ def main() -> None:
     t0 = time.perf_counter()
     tr = train_phase_full(torch, ops, card)
     runs.update(c_train_full=tr["full_width"]["launches"],
-                c_train_subject=tr["subject"]["launches"])
+                c_train_subject=tr["subject"]["launches"],
+                c_experiments=tr["experiments"]["launches"])
     print(f"  train: {time.perf_counter() - t0:.1f} s")
     # each kernel's launches come from the serve whose path runs it
     c = runs
@@ -2317,8 +2594,10 @@ def main() -> None:
             c["c3"], "ssd": c["c5"], "rglru": c["c6"]}
     for e in entries:
         e["launches"] = home.get(e["name"], c["c1"])[e["name"]]
-        for i in range(1, 12):
+        for i in range(1, 17):
             e[f"launches_serve{i}"] = c[f"c{i}"][e["name"]]
+        e["launches_serve_fp8_slot"] = c["c_fp8_slot"][e["name"]]
+        e["launches_experiments"] = c["c_experiments"][e["name"]]
         e["launches_serve8_layer_grid06"] = c["c8l"][e["name"]]
         e["launches_serve7_training"] = c["c7_train"][e["name"]]
         e["launches_serve10_llmpruner_order"] = c["c10_order"][e["name"]]

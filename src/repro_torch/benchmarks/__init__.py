@@ -1,2 +1,3 @@
-"""The benchmark substrate of the port: the subject model and the
-evaluation protocol that the paper's table and figure scripts start from."""
+"""The paper's experiments on the port: the subject model and evaluation
+protocol (``common``), one module per table or figure, and the harness
+that runs them (``python -m repro_torch.benchmarks.run``)."""

@@ -1,8 +1,10 @@
 """Config registry: ``get_config(name)``, ``get_smoke_config(name)``.
 
-llama2-7b, mamba2-370m and recurrentgemma-9b are registered; the other
+The dense decoders (llama2-7b, gemma-2b, glm4-9b, qwen3-14b, qwen1.5-32b),
+the vision-language internvl2-1b, and the sub-quadratic mamba2-370m and
+recurrentgemma-9b are registered; the MoE and encoder-decoder
 architectures of the JAX package arrive with the slices that port their
-layers (ROADMAP.md, queue 1, slice C).
+layers (ROADMAP.md, queue 1, items 12 and 14).
 """
 from __future__ import annotations
 
@@ -12,20 +14,24 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "llama2-7b": "repro_torch.configs.llama2_7b",
+    "gemma-2b": "repro_torch.configs.gemma_2b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "qwen1.5-32b": "repro_torch.configs.qwen15_32b",
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 # the JAX package's other architectures, ported with their layers
-_LATER = ("internvl2-1b", "glm4-9b", "qwen1.5-32b", "gemma-2b",
-          "qwen3-14b", "olmoe-1b-7b", "dbrx-132b", "whisper-medium")
+_LATER = ("olmoe-1b-7b", "dbrx-132b", "whisper-medium")
 
 
 def _module(name: str):
     if name in _LATER:
         raise NotImplementedError(
             f"arch {name!r} is ported with its layers (ROADMAP queue 1, "
-            f"items 11-14)")
+            f"items 12 (MoE) and 14 (encoder-decoder))")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[name])

@@ -61,6 +61,16 @@ def put_pages(pool, idx, val) -> None:
     _raw(pool)[idx] = _raw(val.to(pool.dtype))
 
 
+def take_slots(leaf, idx):
+    """``leaf[:, idx]`` (a slot cache's rows) for a leaf of any dtype."""
+    return _raw(leaf)[:, idx].view(leaf.dtype)
+
+
+def put_slots(leaf, idx, val) -> None:
+    """``leaf[:, idx] = val`` in place, ``val`` cast to the leaf's dtype."""
+    _raw(leaf)[:, idx] = _raw(val.to(leaf.dtype))
+
+
 def gather_pages(pages, page_table, dtype, scales=None):
     """Each row's pages ``[n_pages, pt, K, Dh]`` at ``page_table [B,
     max_pages]`` as one contiguous ``[B, max_pages·pt, K, Dh]`` tensor in

@@ -6,8 +6,11 @@
       [--max-prefill-tokens 64] [--budget-trace staircase]
   python -m repro_torch.launch.serve --serial --mode masked --requests 2
 
-Boots the model (``--arch``: llama2-7b, mamba2-370m or recurrentgemma-9b,
-``--smoke`` for its reduced config; random weights from ``--seed``),
+Boots the model (``--arch``: one of :data:`ARCHS` — the dense llama2-7b,
+gemma-2b, glm4-9b, qwen3-14b and qwen1.5-32b, the vision-language
+internvl2-1b (served text-only, as the JAX engine serves it), mamba2-370m
+or recurrentgemma-9b; ``--smoke`` for its reduced config; random weights
+from ``--seed``),
 builds the pruning policy — ``rl`` is the RAP controller (paper
 Algorithm 3), its Q-network trained for ``--episodes`` episodes of the
 pruning MDP (paper Algorithm 2: ``dqn.train`` over ``env.PruneEnv``, whose
@@ -29,8 +32,9 @@ trace of (batch, prompt) requests. Two serving paths:
     and decodes through the dense decode kernel; ``--executor paged`` keeps
     a page pool and decodes through the paged decode kernel.
     ``--kv-dtype`` picks the KV precision (int8 slot caches are dequantized
-    before the kernel; int8/fp8 pages decode through the fused-dequant
-    kernel) and ``--max-prefill-tokens`` turns on chunked prefill.
+    and fp8 slot caches cast before the kernel; int8/fp8 pages decode
+    through the fused-dequant kernel) and ``--max-prefill-tokens`` turns
+    on chunked prefill.
     ``--budget-trace`` makes the budget move while requests are served
     (DESIGN.md §11): running requests are preempted (state and KV spilled
     to the host) when it drops and resumed when it recovers, unless
@@ -51,10 +55,16 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional, Tuple
 
+ARCHS = ("llama2-7b", "gemma-2b", "glm4-9b", "qwen3-14b", "qwen1.5-32b",
+         "internvl2-1b", "mamba2-370m", "recurrentgemma-9b")
+
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--arch", default="llama2-7b",
+                    help="architecture: " + ", ".join(ARCHS) + " (the "
+                         "MoE and encoder-decoder ones raise "
+                         "NotImplementedError: later slices)")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced SMOKE config")
     ap.add_argument("--requests", type=int, default=8)
@@ -100,11 +110,13 @@ def _parser() -> argparse.ArgumentParser:
                          "makes the policy prune there")
     ap.add_argument("--kv-dtype", default="model",
                     choices=("model", "fp32", "bf16", "int8", "fp8", "auto"),
-                    help="KV page precision: 'model' stores at the model "
+                    help="KV precision: 'model' stores at the model "
                          "dtype; int8/fp8 store quantized pages with one "
                          "scale per (page, kv head), dequantized inside the "
                          "decode kernel (about twice the pages of bf16 in "
-                         "the same bytes); 'auto' picks int8 when the pool "
+                         "the same bytes); on slot caches int8 keeps one "
+                         "scale per (token, kv head) and fp8 is a plain "
+                         "cast; 'auto' picks int8 when the pool "
                          "cannot hold --slots dense batch-1 requests, else "
                          "the model dtype")
     ap.add_argument("--max-prefill-tokens", type=int, default=0,

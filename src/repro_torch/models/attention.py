@@ -11,8 +11,9 @@ position — a scalar (one mask ``[S]`` for the batch, where JAX's
 ``impl="pallas"`` reaches its Pallas kernel) and a per-row ``[B]`` vector
 (a mask ``[B, S]``, which JAX computes with ``_sdpa``).
 
-Slot caches are model-dtype or int8 with one f32 scale per (token, kv
-head) (:func:`kv_quant`); page pools are model-dtype or int8 /
+Slot caches are model-dtype, float8_e4m3fn (a plain cast on store and
+load, as in JAX) or int8 with one f32 scale per (token, kv head)
+(:func:`kv_quant`); page pools are model-dtype or int8 /
 float8_e4m3fn with one f32 scale per (page, kv head) (:func:`page_quant`).
 Chunk attention (one prompt chunk against a partly filled cache) is a
 plain masked softmax over the cache, as JAX's XLA path is: no kernel runs
@@ -26,8 +27,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import (_causal_mask, _sdpa, gather_pages,
-                                     page_dequant, put_pages, take_pages)
+from repro_torch.kernels.ref import (_causal_mask, _raw, _sdpa,
+                                     gather_pages, page_dequant, put_pages,
+                                     take_pages)
 from repro_torch.models import layers
 
 __all__ = ["init_attn_params", "attention", "kv_quant", "init_kv_cache",
@@ -37,11 +39,11 @@ __all__ = ["init_attn_params", "attention", "kv_quant", "init_kv_cache",
 
 
 def init_attn_params(gen, cfg, n: int, device) -> dict:
-    """Stacked params of ``n`` attention blocks (separate wq/wk/wv/wo)."""
-    if cfg.qkv_bias or cfg.qk_norm:
-        raise NotImplementedError(
-            "qkv_bias / qk_norm come with the qwen configs (ROADMAP queue 1, "
-            "slice C)")
+    """Stacked params of ``n`` attention blocks (separate wq/wk/wv/wo),
+    plus zero-initialised q/k/v biases ``bq``/``bk``/``bv`` under
+    ``cfg.qkv_bias`` (qwen1.5) and per-head RMSNorm scales
+    ``q_norm``/``k_norm [n, Dh]`` under ``cfg.qk_norm`` (qwen3), as in the
+    JAX package."""
     pd = cfg.torch_param_dtype()
     shapes = {"wq": (cfg.d_model, cfg.q_dim), "wk": (cfg.d_model, cfg.kv_dim),
               "wv": (cfg.d_model, cfg.kv_dim), "wo": (cfg.q_dim, cfg.d_model)}
@@ -52,18 +54,35 @@ def init_attn_params(gen, cfg, n: int, device) -> dict:
             layers.dense_init_(p[k][i], gen)
         layers.dense_init_(p["wo"][i], gen,
                            scale=1.0 / math.sqrt(2 * max(cfg.n_layers, 1)))
+    zeros = lambda d: torch.zeros(n, d, dtype=pd, device=device)
+    if cfg.qkv_bias:
+        p.update(bq=zeros(cfg.q_dim), bk=zeros(cfg.kv_dim),
+                 bv=zeros(cfg.kv_dim))
+    if cfg.qk_norm:
+        p.update(q_norm=zeros(cfg.dh), k_norm=zeros(cfg.dh))
     return p
 
 
 def _project_qkv(params, cfg, x):
-    """x: [B, S, D] → q [B,S,H,Dh], k/v [B,S,K,Dh]."""
+    """x: [B, S, D] → q [B,S,H,Dh], k/v [B,S,K,Dh]: the projections, the
+    biases after them (``qkv_bias``) and the per-head RMSNorm of q and k
+    (``qk_norm``, before RoPE). Every path projects through here: prefill,
+    chunked prefill, slot and paged decode, and the scoring forward."""
     B, S = x.shape[:2]
     q = torch.matmul(x, params["wq"].to(x.dtype))
     k = torch.matmul(x, params["wk"].to(x.dtype))
     v = torch.matmul(x, params["wv"].to(x.dtype))
-    return (q.reshape(B, S, cfg.n_heads, cfg.dh),
-            k.reshape(B, S, cfg.n_kv_heads, cfg.dh),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.dh))
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    q = q.reshape(B, S, cfg.n_heads, cfg.dh)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.dh)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.dh)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = layers.rms_norm(k, params["k_norm"], cfg.norm_eps)
+    return q, k, v
 
 
 def attention(params, cfg, x, positions, *,
@@ -157,13 +176,14 @@ def decode_attention(params, cfg, x, kv: dict, pos, *, window: int = 0,
         keep = (slot < S)[:, None, None]                   # [B, 1, 1]
         idx = torch.clamp(slot, max=S - 1).long()
         for key, val in new.items():
-            old = kv[key][rows, idx]
-            kv[key][rows, idx] = torch.where(keep, val[:, 0], old)
+            dst = _raw(kv[key])     # one-byte codes as uint8: bit-exact
+            old = dst[rows, idx]
+            dst[rows, idx] = torch.where(keep, _raw(val[:, 0]), old)
     else:
         idx = (torch.clamp(slot, 0, S - 1).long() if torch.is_tensor(slot)
                else min(max(int(slot), 0), S - 1))
         for key, val in new.items():
-            kv[key][:, idx] = val[:, 0]
+            _raw(kv[key])[:, idx] = _raw(val[:, 0])
     kpos = torch.arange(S, device=dev)[None, :]
     posc = (pos.reshape(-1, 1) if torch.is_tensor(pos)
             else torch.full((1, 1), int(pos), device=dev))

@@ -23,8 +23,11 @@ per-(token, head) scales —, a ring buffer of ``min(window, S_max)`` tokens
 for local attention, and f32 recurrent / SSM state with its conv buffer;
 :func:`decode_step`, :func:`decode_horizon`) or, for uniform all-attention
 layouts only, a page pool (:func:`paged_decode_step`,
-:func:`paged_decode_horizon`) and chunked prefill. MoE, encoder-decoder and
-vision models are later slices (ROADMAP queue 1, items 11-14) and raise
+:func:`paged_decode_horizon`) and chunked prefill. A vision-language model
+(``family="vlm"``, internvl2-1b) is the dense decoder with precomputed
+patch embeddings prepended to the token stream (``extra_embeds`` on
+:func:`forward` and :func:`prefill`). MoE and encoder-decoder models are
+later slices (ROADMAP queue 1, items 12 and 14) and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -75,15 +78,15 @@ def layout_counts(layout) -> Dict[str, int]:
 
 
 def check_supported(cfg) -> None:
-    """Refuse what the port has not ported yet: MoE FFNs, encoder-decoder
-    and vision models, norms other than RMSNorm."""
+    """Refuse what the port has not ported yet: MoE FFNs (ROADMAP queue 1,
+    item 12), encoder-decoder models (item 14) and norms other than
+    RMSNorm (which only those use)."""
     ffns = {f for _, f in cfg.layer_specs()}
-    if (cfg.is_encoder_decoder or cfg.family == "vlm" or "moe" in ffns
-            or cfg.norm != "rmsnorm"):
+    if cfg.is_encoder_decoder or "moe" in ffns or cfg.norm != "rmsnorm":
         raise NotImplementedError(
             f"{cfg.name!r} ({cfg.family}, norm {cfg.norm}, FFNs "
-            f"{sorted(ffns)}) is a later slice: MoE, encoder-decoder, vision "
-            f"and non-RMSNorm models are ROADMAP queue 1, items 11-14")
+            f"{sorted(ffns)}) is a later slice: MoE models are ROADMAP "
+            f"queue 1, item 12, encoder-decoder models item 14")
 
 
 def is_attn_layout(cfg, layout=None) -> bool:
@@ -145,10 +148,16 @@ def tree_slice(tree, idx: int):
 
 
 # --------------------------------------------------------------- helpers
-def _embed(params, cfg, tokens):
+def _embed(params, cfg, tokens, extra_embeds=None):
+    """Token embeddings in the model dtype (times sqrt(d_model), rounded
+    to that dtype first as in JAX, under ``embed_scale``), with
+    ``extra_embeds [B, P, D]`` (a vision model's patch embeddings)
+    prepended: [B, P + S, D]."""
     h = params["embed"][tokens].to(cfg.torch_dtype())
     if cfg.embed_scale:
-        h = h * math.sqrt(cfg.d_model)
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
+    if extra_embeds is not None:
+        h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
     return h
 
 
@@ -240,9 +249,10 @@ def _cache_indices(layout) -> List[int]:
 
 
 # -------------------------------------------------------------------- forward
-def forward(params, cfg, tokens, *, gates=None, unembed: bool = True,
-            layout=None, remat: bool = False):
-    """Full-sequence forward. Returns (logits f32 [B,S,Vp], None);
+def forward(params, cfg, tokens, *, gates=None, extra_embeds=None,
+            unembed: bool = True, layout=None, remat: bool = False):
+    """Full-sequence forward. Returns (logits f32 [B,S,Vp], None), S
+    counting the ``extra_embeds`` prefix (positions 0..P-1 are its);
     ``unembed=False`` returns the pre-final-norm hidden state instead.
     ``remat`` recomputes each mixer and each FFN block in the backward
     (``torch.utils.checkpoint``, the twin of JAX's per-block
@@ -251,7 +261,7 @@ def forward(params, cfg, tokens, *, gates=None, unembed: bool = True,
     check_supported(cfg)
     layout = default_layout(cfg) if layout is None else layout
     gates = gates or _ones_gates(len(layout), tokens.device)
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, extra_embeds)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for i, slot in enumerate(layout):
         out = None
@@ -311,19 +321,21 @@ def _store_window(entry: dict, ci: int, k, v) -> None:
 
 
 def prefill(params, cfg, tokens, max_len: int, *, gates=None,
-            kv_dtype=None, layout=None) -> Tuple[torch.Tensor, dict]:
+            extra_embeds=None, kv_dtype=None,
+            layout=None) -> Tuple[torch.Tensor, dict]:
     """Process the prompt; return (last-position logits [B,Vp], cache) with
     cache :func:`init_cache` ``(B, max_len, kv_dtype)`` holding the
-    prompt's K/V in positions [0, S) (encoded by ``store_kv``; a local
+    prompt's K/V in positions [0, S) (S counts an ``extra_embeds`` prefix
+    of P patch embeddings before the tokens; encoded by ``store_kv``; a local
     attention ring holds the last ``w``), every recurrent layer's final
     state and its last K-1 pre-conv inputs (zero-padded on the left for a
     prompt shorter than K-1), and ``"pos"`` = S. Each recurrent state comes
     from the same scan call that computes the layer's output."""
     check_supported(cfg)
     layout = default_layout(cfg) if layout is None else layout
-    B, S = tokens.shape
     gates = gates or _ones_gates(len(layout), tokens.device)
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, extra_embeds)
+    B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device)[None, :]
     cache = init_cache(cfg, B, max_len, kv_dtype or h.dtype, h.device,
                        layout)

@@ -13,8 +13,8 @@ def init_ffn_params(gen, cfg, n: int, device) -> dict:
     """Stacked params of ``n`` FFN blocks: wi [n, D, 2F], wo [n, F, D]."""
     if cfg.activation not in ("swiglu", "geglu"):
         raise NotImplementedError(
-            f"activation {cfg.activation!r} comes with the architectures "
-            f"that use it (ROADMAP queue 1, items 11-14)")
+            f"activation {cfg.activation!r} comes with whisper-medium, the "
+            f"one architecture that uses it (ROADMAP queue 1, item 14)")
     pd = cfg.torch_param_dtype()
     wi = torch.empty(n, cfg.d_model, 2 * cfg.d_ff, dtype=pd, device=device)
     wo = torch.empty(n, cfg.d_ff, cfg.d_model, dtype=pd, device=device)

@@ -44,8 +44,8 @@ def rms_norm(x, scale, eps: float = 1e-6):
 def apply_norm(cfg, params: dict, x):
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            f"norm {cfg.norm!r} comes with the architectures that use it "
-            f"(ROADMAP queue 1, items 11-14)")
+            f"norm {cfg.norm!r} comes with whisper-medium, the one "
+            f"architecture that uses it (ROADMAP queue 1, item 14)")
     return rms_norm(x, params["scale"], cfg.norm_eps)
 
 

@@ -1,5 +1,6 @@
 """Uniform model API (the decoder-only LM builder of the JAX registry):
-the dense, ``ssm`` (mamba2) and ``hybrid`` (recurrentgemma) families.
+the dense, ``vlm`` (internvl2), ``ssm`` (mamba2) and ``hybrid``
+(recurrentgemma) families.
 
 ``build(cfg)`` returns a ``Model`` with:
   init(seed, device)                 → params ("meta": shapes only, the
@@ -13,8 +14,11 @@ the dense, ``ssm`` (mamba2) and ``hybrid`` (recurrentgemma) families.
   decode(params, cache, tokens, gates=None) → (logits [B,1,Vp], cache)
 
 Batches are dicts of tensors with ``tokens`` / ``labels`` (and an optional
-``loss_mask``). From ``CHUNKED_CE_MIN_SEQ`` tokens the loss takes the
-chunked cross-entropy, as JAX's does.
+``loss_mask``); a ``vlm`` batch may carry ``vision_embeds [B, P, D]``,
+prepended to the tokens (logits and the prefill's cache cover P + S
+positions; the loss is taken on the text positions only). From
+``CHUNKED_CE_MIN_SEQ`` tokens the loss takes the chunked cross-entropy, as
+JAX's does.
 """
 from __future__ import annotations
 
@@ -90,6 +94,10 @@ def chunked_cross_entropy(unembed_fn, h, labels, vocab_size: int,
 
 def _lm_build(cfg) -> Model:
     decoder.check_supported(cfg)
+    is_vlm = cfg.family == "vlm"
+
+    def extra(batch):
+        return batch.get("vision_embeds") if is_vlm else None
 
     def init(seed: int = 0, device="cuda"):
         # a meta template draws nothing: its generator may live anywhere
@@ -99,7 +107,8 @@ def _lm_build(cfg) -> Model:
 
     def logits(params, batch, gates=None, remat=False, layout=None):
         out, _ = decoder.forward(params, cfg, batch["tokens"], gates=gates,
-                                 remat=remat, layout=layout)
+                                 extra_embeds=extra(batch), remat=remat,
+                                 layout=layout)
         return out
 
     def loss(params, batch, gates=None, remat=False, layout=None):
@@ -107,12 +116,15 @@ def _lm_build(cfg) -> Model:
         mask = batch.get("loss_mask")
         if labels.shape[1] >= CHUNKED_CE_MIN_SEQ:
             h, _ = decoder.forward(params, cfg, batch["tokens"], gates=gates,
-                                   remat=remat, layout=layout, unembed=False)
+                                   extra_embeds=extra(batch), remat=remat,
+                                   layout=layout, unembed=False)
+            h = h[:, -labels.shape[1]:, :]      # text positions only
             l = chunked_cross_entropy(
                 lambda hc: decoder._unembed(params, cfg, hc), h, labels,
                 cfg.vocab_size, mask)
             return l, {"loss": l, "ppl": torch.exp(l)}
-        lg = logits(params, batch, gates, remat, layout)[:, :-1]
+        lg = logits(params, batch, gates, remat, layout)
+        lg = lg[:, -labels.shape[1]:, :][:, :-1]    # text positions only
         if mask is not None:
             mask = mask[:, 1:]
         l = cross_entropy(lg, labels[:, 1:], cfg.vocab_size, mask)
@@ -120,7 +132,8 @@ def _lm_build(cfg) -> Model:
 
     def prefill(params, batch, max_len, gates=None, kv_dtype=None):
         return decoder.prefill(params, cfg, batch["tokens"], max_len,
-                               gates=gates, kv_dtype=kv_dtype)
+                               gates=gates, extra_embeds=extra(batch),
+                               kv_dtype=kv_dtype)
 
     def decode(params, cache, tokens, gates=None):
         """One step; ``cache["pos"]`` scalar (one-shot) or [B] (slots)."""

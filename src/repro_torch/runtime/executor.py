@@ -7,11 +7,11 @@ execute. Two backends, each in masked or structural mode:
   * :class:`LocalExecutor` — slot-batched caches. A :class:`SlotGroup`
     holds the decoder's cache (``decoder.init_cache``) with ``n_slots``
     rows: per kind of the layout, one dense ``[n, n_slots, cache_len, K,
-    Dh]`` attention cache per K/V leaf (model dtype, or int8 with
-    per-(token, head) scales), a local attention ring buffer, or f32
-    recurrent / SSM state; every leaf has the slot axis at 1. Groups are
-    keyed by cache length, so ``len_buckets="pow2"`` mints one group per
-    power-of-two length. Decode steps the occupied slots in the smallest
+    Dh]`` attention cache per K/V leaf (model dtype, float8_e4m3fn, or
+    int8 with per-(token, head) scales), a local attention ring buffer, or
+    f32 recurrent / SSM state; every leaf has the slot axis at 1. Groups
+    are keyed by cache length, so ``len_buckets="pow2"`` mints one group
+    per power-of-two length. Decode steps the occupied slots in the smallest
     batch bucket of ``decode_buckets`` that holds them (gathered from and
     scattered back into the resident cache on the device), through the
     dense decode kernel. It serves every ported layout: uniform attention
@@ -73,6 +73,7 @@ import torch
 from repro_torch.core import masks as masks_lib
 from repro_torch.kernels.ref import put_pages
 from repro_torch.models import attention, decoder
+from repro_torch.kernels.ref import put_slots, take_slots
 from repro_torch.runtime.kv_pool import resolve_kv_dtype
 
 __all__ = ["ModelExecutor", "SlotGroup", "LocalExecutor", "PagedExecutor",
@@ -329,7 +330,7 @@ class SlotGroup:
         sidx = self.iidx(slots)
         for kind, leaves in _state_leaves(self.cache).items():
             for key, leaf in leaves.items():
-                leaf[:, sidx] = req_cache[kind][key]
+                put_slots(leaf, sidx, req_cache[kind][key])
         self.cache["pos"][sidx] = int(prompt_len)
         self.tokens[sidx, 0] = first_dev
         self.gates_dev[:, :, sidx] = torch.from_numpy(cols).to(
@@ -359,7 +360,7 @@ class SlotGroup:
             self.tokens = toks[:, -1:].contiguous()
             return toks, None
         iidx = self.iidx(idx)
-        sub = {kind: {k: v[:, iidx] for k, v in leaves.items()}
+        sub = {kind: {k: take_slots(v, iidx) for k, v in leaves.items()}
                for kind, leaves in _state_leaves(self.cache).items()}
         sub["pos"] = self.cache["pos"][iidx]
         gs = g[:, :, iidx]
@@ -369,7 +370,7 @@ class SlotGroup:
             layout=self.layout)
         for kind, leaves in _state_leaves(sub).items():
             for k, v in leaves.items():
-                self.cache[kind][k][:, iidx] = v
+                put_slots(self.cache[kind][k], iidx, v)
         self.cache["pos"][iidx] = sub["pos"]
         self.tokens[iidx] = toks[:, -1:]
         return toks, idx
@@ -381,9 +382,11 @@ class LocalExecutor(ModelExecutor):
     each with ``max_active`` slots.
 
     ``kv_dtype`` takes the canonical precision names (``fp32``/``bf16``/
-    ``int8``) or a torch dtype: an int8 slot cache stores per-(token, kv
-    head) scales (``attention.kv_quant``) and is dequantized to the model
-    dtype before the decode kernel, as in JAX. Decode steps the occupied
+    ``int8``/``fp8``) or a torch dtype: an int8 slot cache stores
+    per-(token, kv head) scales (``attention.kv_quant``) and is
+    dequantized to the model dtype before the decode kernel, as in JAX; an
+    fp8 (float8_e4m3fn) slot cache is a plain cast on store and on load,
+    as in JAX (no scale, no clipping). Decode steps the occupied
     slots in the smallest bucket of ``decode_buckets`` that holds them.
     ``groups_minted`` counts the groups (dense caches) created.
 
@@ -409,10 +412,6 @@ class LocalExecutor(ModelExecutor):
                 f"a quantized KV cache on {model.cfg.name!r}'s recurrent / "
                 f"local-attention layout is ROADMAP queue 1, item 13; serve "
                 f"it at the model dtype")
-        if store == torch.float8_e4m3fn:
-            raise NotImplementedError(
-                "an fp8 slot cache is ROADMAP queue 1, item 11; fp8 KV is "
-                "served by PagedExecutor")
         self.mcfg = model.cfg
         self.params = params
         self.device = params["embed"].device
@@ -565,7 +564,8 @@ class LocalExecutor(ModelExecutor):
         copied to the host. The copies are blocking and exact, so reseating
         is bitwise."""
         iidx = group.iidx(list(slots))
-        cache = {kind: {k: v[:, iidx].cpu() for k, v in leaves.items()}
+        cache = {kind: {k: take_slots(v, iidx).cpu()
+                        for k, v in leaves.items()}
                  for kind, leaves in _state_leaves(group.cache).items()}
         # one request's rows share one position (placed together, stepped
         # together)

@@ -590,8 +590,8 @@ def _slot_cache_run(p, cfg, dev, kv_dtype, toks, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv_dtype", [None, torch.int8], ids=["model",
-                                                              "int8"])
+@pytest.mark.parametrize("kv_dtype", [None, torch.int8, torch.float8_e4m3fn],
+                         ids=["model", "int8", "fp8"])
 def test_slot_horizon_card_matches_cpu(cuda, kv_dtype):
     """A 4-layer f32 model on a slot cache: the card (decode kernel) and
     the CPU (plain version) emit the same greedy tokens, and a warmed
@@ -1124,3 +1124,51 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ------------------------------------------- the dense decoder's new shapes
+# (H, K, D) at full width: decode groups G = H / K of 8 (gemma-2b, MQA at
+# D = 256), 16 (glm4-9b), 5 (qwen3-14b) and 7 (internvl2-1b, flash at
+# D = 64) — G % 4 != 0 takes the decode bodies' one-head-a-block path — and
+# qwen1.5-32b's full MHA over 40 kv heads (G = 1)
+ARCH_CASES = {"gemma-2b": (8, 1, 256), "glm4-9b": (32, 2, 128),
+              "qwen3-14b": (40, 8, 128), "qwen1.5-32b": (40, 40, 128),
+              "internvl2-1b": (14, 2, 64)}
+ARCH_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", ARCH_DTYPES)
+@pytest.mark.parametrize("arch", list(ARCH_CASES))
+def test_flash_attention_kernel_at_the_new_archs(cuda, arch, dtype, tol):
+    H, K, D = ARCH_CASES[arch]
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _qkv(29, 2, 130, H, K, D))
+    got = fa.flash_attention_cuda(q, k, v)
+    want = fa.attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", ARCH_DTYPES)
+@pytest.mark.parametrize("arch", list(ARCH_CASES))
+def test_decode_kernels_at_the_new_archs(cuda, arch, dtype, tol):
+    """The dense and the paged decode kernel against their plain versions
+    (4 rows, ragged lengths up to 300 tokens in 16-token pages), and, in
+    f32, bitwise against each other."""
+    H, K, D = ARCH_CASES[arch]
+    lengths = (300, 1, 137, 64)
+    q, kp, vp, table, lens = _on(cuda, *_split_inputs(31, 4, H, K, D, 16,
+                                                      lengths))
+    _, kd, vd, valid = _on(cuda, *_dense_of(*_split_inputs(
+        31, 4, H, K, D, 16, lengths)))
+    qd, kp, vp, kd, vd = (t.to(dtype) for t in (q, kp, vp, kd, vd))
+    got = pdec.paged_decode_attention_cuda(qd, kp, vp, table, lens)
+    want = pdec.paged_decode_attention_ref(qd, kp, vp, table, lens)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    got_d = dec.decode_attention_cuda(qd, kd, vd, valid)
+    want_d = dec.decode_attention_ref(qd, kd, vd, valid)
+    torch.testing.assert_close(got_d.float(), want_d.float(), atol=tol,
+                               rtol=tol)
+    if dtype == torch.float32:
+        assert torch.equal(got_d, got)

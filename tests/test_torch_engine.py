@@ -12,7 +12,8 @@ per-slot gates are exercised too.
 Also here: the port's own report invariants and horizon invariance, the
 ``launch.serve`` entry point on the CPU, the later-slice switches that must
 raise ``NotImplementedError``, and the import guard (no module of the port,
-and not ``chip_smoke.py``, imports JAX or the JAX package).
+and not ``chip_smoke.py``, imports JAX, the JAX package or its
+``benchmarks/`` scripts).
 """
 import os
 import re
@@ -201,7 +202,7 @@ import importlib, importlib.util, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "repro"):
+        if top in ("jax", "jaxlib", "repro", "benchmarks"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -211,7 +212,8 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
 assert not bad, bad
 print("imported", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
@@ -227,8 +229,8 @@ def test_port_imports_no_jax_and_no_repro():
 
 def test_no_import_statement_names_jax_or_repro():
     """Imports inside functions run only on the card: check the text."""
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
-                     re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|benchmarks)"
+                     r"(\.|\s|$)", re.M)
     files = [ROOT / "chip_smoke.py",
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in files
