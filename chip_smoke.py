@@ -143,7 +143,22 @@ Phases, each fatal on failure:
                 and paged decode launched exactly as the layouts of the
                 decoder's calls imply; then serve 3 on fp8 slot caches
                 (``--kv-dtype fp8``): the same checks through the dense
-                decode kernel.
+                decode kernel;
+ 19. MoE and whisper — serve 1 with 3 requests on olmoe-1b-7b (full
+                width and depth) and dbrx-132b (full width, depth cut
+                in-process to the most layers that fit: ``dbrx_depth``):
+                every request done and pruned, no overcommit, launches
+                exactly as the layouts imply (one GLU per MoE layer: the
+                expert buffer); whisper-medium at full width: prefill of 4
+                rows of random frames and greedy decode of 16 tokens on a
+                bf16 and an int8 self cache (flash non-causal in the
+                encoder and the cross-attention, the dense decode kernel
+                for the self and the cross decode), held to the launches
+                the calls imply; three training steps through
+                ``launch.train --arch whisper-medium`` (finite losses,
+                half of all elements and a tenth of every leaf moved,
+                remat's launches); ``launch.serve --arch
+                whisper-medium`` raises the engine's NotImplementedError.
 
 The reference phase also serves a small fp32 trace (TF32 off) with and
 without a budget shock on paged f32 and int8 pools and on slot caches:
@@ -156,8 +171,14 @@ SMOKE f32 train steps (remat) on the card against the CPU, and
 ``taylor_saliency`` and ``block_cosines`` likewise. It also holds the SMOKE
 models of gemma-2b, glm4-9b, qwen3-14b, qwen1.5-32b and internvl2-1b (the
 last with ``vision_embeds`` too) on the card against the CPU, logits and
-greedy tokens, and an fp8 slot-cache trace likewise. The kernel phase
-checks flash, GLU and both decode bodies at those architectures' widths.
+greedy tokens, and an fp8 slot-cache trace likewise; and the SMOKE
+models of olmoe-1b-7b and dbrx-132b (logits, the experts chosen and the
+assignments dropped, paged decode tokens) and whisper-medium (prefill on
+frames and three decode steps). The kernel phase checks flash, GLU and
+both decode bodies at those architectures' widths: flash non-causal at
+whisper's encoder and cross shapes (1500 frames), the GLU on the MoE's 3-D
+expert buffer, decode at whisper's self and cross shapes and at dbrx's
+G = 6.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a GPU, or without the rest of
@@ -233,6 +254,25 @@ NEW_ARCH_ARGV = {arch: [{"llama2-7b": arch}.get(a, a) if prev != "--requests"
                  for arch in NEW_ARCHS}
 # serve 3 on fp8 slot caches: a plain cast on store and load
 SERVE_FP8_SLOT_ARGV = SERVE3_ARGV + ["--kv-dtype", "fp8"]
+# the MoE decoders: serve 1 with 3 requests at full width (dbrx-132b cut in
+# depth, in-process, to the most layers that fit: ``dbrx_depth``)
+MOE_ARCHS = ("olmoe-1b-7b", "dbrx-132b")
+MOE_ARGV = {arch: [{"llama2-7b": arch}.get(a, a) if prev != "--requests"
+                   else "3" for prev, a in zip([None] + SERVE_ARGV,
+                                               SERVE_ARGV)]
+            for arch in MOE_ARCHS}
+# room dbrx's serve leaves beside its weights: the pool, the scoring and
+# prefill transients (expert buffers, logits), the allocator's slack
+DBRX_HEADROOM_BYTES = 12e9
+# whisper-medium at full width: prefill of a batch of random frames, then
+# greedy decode; three training steps through the launcher
+WHISPER = {"batch": 4, "prompt": 32, "new": 16}
+# --lr: the schedule warms up over 100 steps, so at the default 3e-4 a
+# step moves a bf16 weight by less than half its last place and nearly
+# every update rounds away; at 3e-2 a step moves it by up to 3e-4 to 9e-4,
+# more than half the last place of any weight under 0.125
+WHISPER_TRAIN_ARGV = ["--arch", "whisper-medium", "--steps", "3",
+                      "--batch", "4", "--seq", "64", "--lr", "3e-2"]
 
 
 def new_arch_shapes() -> dict:
@@ -244,6 +284,21 @@ def new_arch_shapes() -> dict:
         c = get_config(arch)
         out[arch] = (c.n_heads, c.n_kv_heads, c.dh, c.d_ff,
                      "geglu" if c.activation == "geglu" else "swiglu")
+    return out
+
+
+def moe_whisper_shapes() -> dict:
+    """The MoE decoders' and whisper-medium's kernel widths at full size:
+    attention (H, K, D), and for the MoE the expert buffer of a GSI scoring
+    call of 1024 tokens in one group, (E, C + 1, d_ff)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    out = {}
+    for arch in MOE_ARCHS + ("whisper-medium",):
+        c = get_config(arch)
+        out[arch] = (c.n_heads, c.n_kv_heads, c.dh,
+                     (c.n_experts, moe._capacity(c, 1024) + 1, c.d_ff)
+                     if c.n_experts else None)
     return out
 
 
@@ -310,7 +365,10 @@ def check(name: str, out, ref, dtype) -> float:
 # recurrentgemma-9b's GeGLU prefill (8 x 264 tokens)
 GLU_TIMED = {"prefill": (2048, 11008, "swiglu"),
              "scoring": (1024, 11008, "swiglu"),
-             "recurrentgemma": (2112, 12288, "geglu")}
+             "recurrentgemma": (2112, 12288, "geglu"),
+             # dbrx-132b's expert buffer of a 1024-token scoring call,
+             # [16, 321, 2 x 10752], as its 5136 rows
+             "dbrx_experts": (16 * 321, 10752, "swiglu")}
 
 
 def glu_timing(torch, swiglu, g, T, F, act) -> dict:
@@ -350,6 +408,14 @@ def glu_cases(torch, ops, swiglu):
         h = torch.randn(T, 2 * F, generator=g, device="cuda").to(dt)
         check(f"fused_glu T={T} F={F} {act} {dt}", ops.fused_glu(h, act),
               swiglu.glu_ref(h, act), dt)
+    # the MoE's expert buffer [E, C+1, 2F], a 3-D input
+    for arch, (_, _, _, (E, rows, F)) in (
+            (a, v) for a, v in moe_whisper_shapes().items() if v[3]):
+        for dt in (torch.float32, torch.bfloat16):
+            h = torch.randn(E, rows, 2 * F, generator=g,
+                            device="cuda").to(dt)
+            check(f"fused_glu {arch} expert buffer [{E}, {rows}, {2 * F}] "
+                  f"{dt}", ops.fused_glu(h), swiglu.glu_ref(h), dt)
     timed = {name: glu_timing(torch, swiglu, g, *shape)
              for name, shape in GLU_TIMED.items()}
     return {"name": "fused_glu", "route": "cuda",
@@ -476,6 +542,10 @@ def paged_cases(torch, ops, pdec, timed):
     for H, K, D, _, _ in new_arch_shapes().values():
         cases += [(4, H, K, D, 16, 300, 0.0, torch.float32),
                   (4, H, K, D, 16, 300, 0.0, torch.bfloat16)]
+    # the MoE decoders' (dbrx: G = 6) and whisper's widths
+    for H, K, D, _ in moe_whisper_shapes().values():
+        cases += [(4, H, K, D, 16, 300, 0.0, torch.float32),
+                  (4, H, K, D, 16, 300, 0.0, torch.bfloat16)]
     for i, (B, H, K, D, pt, S, cap, dt) in enumerate(cases):
         q, kp, vp, table, lengths = paged_inputs(torch, B, H, K, D, pt, S,
                                                  dt, seed=10 + i)
@@ -502,7 +572,8 @@ def paged_quant_cases(torch, ops, pdec, attention, timed):
     cases = [(8, 32, 32, 128, 16, 512, 0.0, 12),
              (4, 32, 8, 128, 16, 200, 0.0, 31),       # GQA G=4
              (3, 8, 2, 64, 16, 96, 30.0, 32),         # softcap
-             (2, 32, 32, 128, 16, 17, 0.0, 33)]       # one past a page edge
+             (2, 32, 32, 128, 16, 17, 0.0, 33),       # one past a page edge
+             (4, 48, 8, 128, 16, 300, 0.0, 34)]       # dbrx-132b: G = 6
     pdts = (torch.int8, torch.float8_e4m3fn)
     for i, (B, H, K, D, pt, S, cap, seed) in enumerate(cases):
         for pdt in pdts:
@@ -552,21 +623,23 @@ FLASH_TIMED = {"prefill": (8, 256, 32, 32, 128, 0),
                "recurrentgemma": (8, 264, 16, 1, 256, 2048)}
 
 
-def flash_bound(B, S, H, K, D, window, dtype) -> tuple:
-    """Bound of causal (banded) attention over S tokens: q and out read and
-    written at H heads, k and v read at K heads; 4·D operations per kept
-    (query, key) pair and query head."""
+def flash_bound(B, S, H, K, D, window, dtype, causal=True) -> tuple:
+    """Bound of causal (banded) or unmasked attention over S tokens: q and
+    out read and written at H heads, k and v read at K heads; 4·D
+    operations per kept (query, key) pair and query head."""
     es = {"torch.float32": 4}.get(str(dtype), 2)
-    pairs = sum(qi + 1 - (max(0, qi - window + 1) if window > 0 else 0)
-                for qi in range(S))
+    pairs = S * S if not causal else sum(
+        qi + 1 - (max(0, qi - window + 1) if window > 0 else 0)
+        for qi in range(S))
     return bound_ms((2 * B * S * H * D + 2 * B * S * K * D) * es,
                     4 * B * H * D * pairs, dtype)
 
 
-def flash_calls(torch, fa, g, B, S, H, K, D, window, dt) -> dict:
+def flash_calls(torch, fa, g, B, S, H, K, D, window, dt,
+                causal=True) -> dict:
     """Random bf16/fp16 inputs at one ``FLASH_TIMED`` shape and three calls
     on them: the kernel, its plain version and the
-    ``scaled_dot_product_attention`` yardstick (causal; GQA by
+    ``scaled_dot_product_attention`` yardstick (causal or not; GQA by
     ``enable_gqa``, on the head-major copies it takes)."""
     q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
     k, v = (torch.randn(B, S, K, D, generator=g, device="cuda").to(dt)
@@ -574,18 +647,22 @@ def flash_calls(torch, fa, g, B, S, H, K, D, window, dt) -> dict:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     gqa = {"enable_gqa": True} if K < H else {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return {"kernel": lambda: fa.flash_attention_cuda(q, k, v, window=window),
-            "plain": lambda: fa.attention_ref(q, k, v, window=window),
-            "library": lambda: sdpa(qt, kt, vt, is_causal=True, **gqa)}
+    return {"kernel": lambda: fa.flash_attention_cuda(
+                q, k, v, causal=causal, window=window),
+            "plain": lambda: fa.attention_ref(q, k, v, causal=causal,
+                                              window=window),
+            "library": lambda: sdpa(qt, kt, vt, is_causal=causal, **gqa)}
 
 
-def flash_timing(torch, fa, g, B, S, H, K, D, window, dt) -> dict:
-    calls = flash_calls(torch, fa, g, B, S, H, K, D, window, dt)
-    shape = (f"B={B} S={S} H={H} K={K} D={D} causal"
+def flash_timing(torch, fa, g, B, S, H, K, D, window, dt,
+                 causal=True) -> dict:
+    calls = flash_calls(torch, fa, g, B, S, H, K, D, window, dt, causal)
+    shape = (f"B={B} S={S} H={H} K={K} D={D} "
+             f"{'causal' if causal else 'non-causal'}"
              f"{f' window={window}' if window else ''} {dt}")
     err = check(f"flash_attention {shape}", calls["kernel"](),
                 calls["plain"](), dt)
-    bms, by = flash_bound(B, S, H, K, D, window, dt)
+    bms, by = flash_bound(B, S, H, K, D, window, dt, causal)
     return {"max_abs_err": err, "ms": time_ms(calls["kernel"]),
             "plain_ms": time_ms(calls["plain"]), "bound_ms": bms,
             "bound_by": by, "library_ms": time_ms(calls["library"]),
@@ -623,6 +700,22 @@ def flash_cases(torch, ops, fa):
     for H, K, D, _, _ in new_arch_shapes().values():
         cases += [(2, 130, H, K, D, 0, 0.0, torch.float32),
                   (2, 264, H, K, D, 0, 0.0, torch.bfloat16)]
+    for arch in MOE_ARCHS:
+        H, K, D, _ = moe_whisper_shapes()[arch]
+        cases += [(2, 130, H, K, D, 0, 0.0, torch.float32),
+                  (2, 264, H, K, D, 0, 0.0, torch.bfloat16)]
+    # whisper-medium's unmasked attention (causal=False): the encoder over
+    # its 1500 frames (not a multiple of the 64-key tile) and a prompt's
+    # cross-attention against them
+    for B, Sq, Skv in ((4, 1500, 1500), (4, 32, 1500), (2, 100, 130)):
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, Sq, 16, 64, generator=g, device="cuda").to(dt)
+            k, v = (torch.randn(B, Skv, 16, 64, generator=g,
+                                device="cuda").to(dt) for _ in range(2))
+            check(f"flash_attention non-causal B={B} Sq={Sq} Skv={Skv} "
+                  f"H=K=16 D=64 {dt}",
+                  ops.flash_attention(q, k, v, causal=False),
+                  fa.attention_ref(q, k, v, causal=False), dt)
     for B, S, H, K, D, w, cap, dt in cases:
         q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
         k = torch.randn(B, S, K, D, generator=g, device="cuda").to(dt)
@@ -633,6 +726,9 @@ def flash_cases(torch, ops, fa):
               fa.attention_ref(q, k, v, window=w, softcap=cap), dt)
     timed = {name: flash_timing(torch, fa, g, *shape, torch.bfloat16)
              for name, shape in FLASH_TIMED.items()}
+    timed["whisper_encoder"] = flash_timing(torch, fa, g, 4, 1500, 16, 16,
+                                            64, 0, torch.bfloat16,
+                                            causal=False)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:97",
@@ -672,8 +768,14 @@ def decode_cases(torch, ops, dec, pdec, attention, timed):
               torch.remainder((264 + 7 + 11 * torch.arange(8, device="cuda"))
                               [:, None] - kpos[None, :264], 264) < 200,
               "ring")]
-    shapes = new_arch_shapes().values()
-    cases += [(4, H, K, D, 300, 0.0, None, "rows") for H, K, D, _, _ in shapes]
+    shapes = [(H, K, D) for H, K, D, _, _ in new_arch_shapes().values()] + [
+        (H, K, D) for H, K, D, _ in moe_whisper_shapes().values()]
+    cases += [(4, H, K, D, 300, 0.0, None, "rows") for H, K, D in shapes]
+    # whisper-medium's decode: its self-attention cache, and the
+    # cross-attention's one query against all 1500 frames (valid [S])
+    cases += [(4, 16, 16, 64, 448, 0.0, None, "rows"),
+              (4, 16, 16, 64, 1500, 0.0,
+               torch.ones(1500, dtype=torch.bool, device="cuda"), "all")]
     for i, (b, h, k, d, s, cap, valid, kind) in enumerate(cases):
         if valid is None:
             lens = torch.randint(1, s + 1, (b,), generator=g).cuda()
@@ -697,7 +799,7 @@ def decode_cases(torch, ops, dec, pdec, attention, timed):
              (3, 8, 2, 64, 96, 30.0, 32), (1, 32, 32, 128, 512, 0.0, 33),
              (8, 16, 1, 256, 264, 0.0, 34), (8, 32, 32, 128, 64, 0.0, 35)]
             + [(4, H, K, D, 300, 0.0, 36 + j)
-               for j, (H, K, D, _, _) in enumerate(shapes)]):
+               for j, (H, K, D) in enumerate(shapes)]):
         q, kp, vp, table, lens = paged_inputs(torch, b, h, k, d, pt, s,
                                               torch.float32, seed)
         n = table.shape[1] * pt
@@ -1567,43 +1669,69 @@ RECORDED = ("forward", "prefill", "prefill_chunk", "paged_prefill_chunk",
             "decode_step", "paged_decode_step")
 
 
+# the encoder-decoder's entry points, recorded as "encdec.<name>"
+RECORDED_ENCDEC = ("forward", "prefill", "decode_step")
+
+
 class LayoutRecorder:
-    """Wraps the decoder's entry points while a serve runs and records, per
-    call, its name, its layout (None: the config's) and, for a paged
-    decode step, whether its pool is quantized."""
+    """Wraps the decoder's entry points (and the encoder-decoder's, as
+    ``encdec.<name>``) while a serve or a pass runs and records, per call,
+    its name, its layout (None: the config's) and, for a paged decode
+    step, whether its pool is quantized."""
 
     def __init__(self):
-        from repro_torch.models import decoder
-        self.decoder, self.calls, self._orig = decoder, [], {}
+        from repro_torch.models import decoder, encdec
+        self.modules = ((decoder, RECORDED, ""),
+                        (encdec, RECORDED_ENCDEC, "encdec."))
+        self.calls, self._orig = [], []
 
     def __enter__(self):
-        for name in RECORDED:
-            orig = self._orig[name] = getattr(self.decoder, name)
+        for module, names, prefix in self.modules:
+            for name in names:
+                orig = getattr(module, name)
+                self._orig.append((module, name, orig))
 
-            def wrapped(*a, _name=name, _orig=orig, **kw):
-                quant = _name == "paged_decode_step" and "ks" in a[2]
-                self.calls.append((_name, kw.get("layout"), quant))
-                return _orig(*a, **kw)
-            setattr(self.decoder, name, wrapped)
+                def wrapped(*a, _name=prefix + name, _orig=orig, **kw):
+                    quant = _name == "paged_decode_step" and "ks" in a[2]
+                    self.calls.append((_name, kw.get("layout"), quant))
+                    return _orig(*a, **kw)
+                setattr(module, name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        for name, orig in self._orig.items():
-            setattr(self.decoder, name, orig)
+        for module, name, orig in self._orig:
+            setattr(module, name, orig)
 
 
-def layout_launches(cfg, calls) -> dict:
+def layout_launches(cfg, calls, remat: bool = False) -> dict:
     """The launches ``calls`` imply: a forward or prefill launches flash,
     ssd or rglru once per row with that mixer; a slot decode step the
     dense decode kernel, a paged one the paged kernel (its fused-dequant
     body on a quantized pool) once per attention row; every call the GLU
-    once per row with an FFN (chunk attention is plain torch, as are the
-    recurrent decode steps)."""
-    from repro_torch.models import decoder
+    once per row with a GLU FFN, dense or MoE (chunk attention is plain
+    torch, as are the recurrent decode steps). An encoder-decoder forward
+    or prefill launches flash once per encoder layer and twice per decoder
+    layer (self, then the non-causal cross-attention), its decode step the
+    dense decode kernel twice per decoder layer; its gelu FFN launches
+    nothing. ``remat``: each forward is a training step's, whose backward
+    runs every layer again."""
+    from repro_torch.models import decoder, ffn
     want = dict.fromkeys(("fused_glu", "paged_decode_attention",
                           "paged_decode_attention_quant", "flash_attention",
                           "decode_attention", "ssd", "rglru"), 0)
+    glu = ffn.is_glu(cfg)
     for name, layout, quant in calls:
+        if name.startswith("encdec."):
+            times = 2 if remat and name == "encdec.forward" else 1
+            if name == "encdec.decode_step":
+                want["decode_attention"] += 2 * cfg.n_layers
+            else:
+                want["flash_attention"] += times * (cfg.n_encoder_layers
+                                                    + 2 * cfg.n_layers)
+            want["fused_glu"] += glu * times * (
+                cfg.n_layers + (name != "encdec.decode_step")
+                * cfg.n_encoder_layers)
+            continue
         rows = layout or decoder.default_layout(cfg)
         n = lambda *kinds: sum(s.mixer in kinds for s in rows)
         if name in ("forward", "prefill"):
@@ -1615,7 +1743,7 @@ def layout_launches(cfg, calls) -> dict:
         elif name == "paged_decode_step":
             want["paged_decode_attention_quant" if quant
                  else "paged_decode_attention"] += n("attn")
-        want["fused_glu"] += sum(s.ffn is not None for s in rows)
+        want["fused_glu"] += glu * sum(s.ffn is not None for s in rows)
     return want
 
 
@@ -1854,46 +1982,78 @@ class Observed:
         setattr(self.module, self.name, self.orig)
 
 
-def training_reference(torch, ops) -> None:
-    """A SMOKE f32 llama2 (TF32 off) through three ``make_train_step``
-    steps on the card (kernels; remat, so each step launches flash and the
-    GLU twice a layer) and on the CPU (plain versions) from the same
-    weights: loss, ``grad_norm`` and params within 1e-4; then
-    ``taylor_saliency`` (1e-4 relative) and ``block_cosines`` (1e-5)."""
+def _steps_card_vs_cpu(torch, ops, model, batches, step):
+    """``step`` over ``batches`` from the same f32 weights on the CPU and
+    on the card: (params max|Δ|, loss and grad_norm max rel |Δ|, the
+    card's launches, the card's losses, the card's recorded calls)."""
     from repro_torch import tree
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.core import baselines
-    from repro_torch.data import SyntheticCorpus
-    from repro_torch.models import registry
     from repro_torch.optim import adamw
-    from repro_torch.runtime import steps
-    cfg = get_smoke_config("llama2-7b")
-    model = registry.build(cfg)
-    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
-    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    step = steps.make_train_step(model, opt, remat=True)
     runs = {}
     for dev in ("cpu", "cuda"):
         p = _tree_to(model.init(0, "cpu"), dev)
         s = adamw.init(p)
         ops.reset_launches()
         mets = []
-        for i in range(3):
-            b = {k: torch.from_numpy(v).to(dev)
-                 for k, v in corpus.batch(4, 64, index=i).items()}
-            p, s, m = step(p, s, b)
-            mets.append({k: float(v) for k, v in m.items()})
-        runs[dev] = (p, mets, ops.launch_counts())
+        with LayoutRecorder() as rec:
+            for b in batches:
+                p, s, m = step(p, s, _tree_to(b, dev))
+                mets.append({k: float(v) for k, v in m.items()})
+        runs[dev] = (p, mets, ops.launch_counts(), rec.calls)
     want_p = tree.flatten(runs["cpu"][0])
     p_err = max(max_err(a.cpu(), want_p[k])
                 for k, a in tree.flatten(runs["cuda"][0]).items())
     m_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
                 for a, b in zip(runs["cuda"][1], runs["cpu"][1])
                 for k in ("loss", "grad_norm"))
-    c = runs["cuda"][2]
+    losses = [round(m["loss"], 6) for m in runs["cuda"][1]]
+    return p_err, m_err, runs["cuda"][2], losses, runs["cuda"][3]
+
+
+def training_reference(torch, ops) -> None:
+    """SMOKE f32 llama2 and whisper-medium (TF32 off) through three
+    ``make_train_step`` steps on the card (kernels; remat, so each step
+    launches every layer's kernels twice) and on the CPU (plain versions)
+    from the same weights: loss, ``grad_norm`` and params within 1e-4,
+    launches as remat implies; then llama2's ``taylor_saliency`` (1e-4
+    relative) and ``block_cosines`` (1e-5)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import baselines
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    # whisper: random frames, so the encoder and cross-attention gradients
+    # are not those of a constant input
+    wcfg = get_smoke_config("whisper-medium")
+    wmodel = registry.build(wcfg)
+    wcorpus = SyntheticCorpus(wcfg.vocab_size, seed=0)
+    gen = torch.Generator().manual_seed(82)
+    wbatches = [{**{k: torch.from_numpy(v)
+                    for k, v in wcorpus.batch(4, 64, index=i).items()},
+                 "frames": torch.randn(4, wcfg.n_audio_frames, wcfg.d_model,
+                                       generator=gen)} for i in range(3)]
+    p_err, m_err, c, losses, calls = _steps_card_vs_cpu(
+        torch, ops, wmodel, wbatches,
+        steps.make_train_step(wmodel, opt, remat=True))
+    want = layout_launches(wcfg, calls, remat=True)
+    print(f"  whisper-medium SMOKE train steps card vs CPU: losses {losses}, "
+          f"loss and grad_norm max rel |Δ| {m_err:.2e}, params max|Δ| "
+          f"{p_err:.2e} (tol 1e-4); launches {c}, remat implies {want}")
+    if m_err > 1e-4 or p_err > 1e-4 or c != want:
+        raise AssertionError("the whisper-medium train step on the card "
+                             "disagrees with the CPU")
+    cfg = get_smoke_config("llama2-7b")
+    model = registry.build(cfg)
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    batches = [{k: torch.from_numpy(v)
+                for k, v in corpus.batch(4, 64, index=i).items()}
+               for i in range(3)]
+    p_err, m_err, c, losses, _ = _steps_card_vs_cpu(
+        torch, ops, model, batches,
+        steps.make_train_step(model, opt, remat=True))
     want = 3 * 2 * cfg.n_layers          # 3 steps, forward + remat
-    print(f"  train steps card vs CPU: losses "
-          f"{[round(m['loss'], 6) for m in runs['cuda'][1]]}, loss and "
+    print(f"  train steps card vs CPU: losses {losses}, loss and "
           f"grad_norm max rel |Δ| {m_err:.2e}, params max|Δ| {p_err:.2e} "
           f"(tol 1e-4); launches {c}")
     if (m_err > 1e-4 or p_err > 1e-4 or c["flash_attention"] != want
@@ -2374,6 +2534,291 @@ def arch_serves(torch, ops, card: str) -> dict:
     return out
 
 
+# ------------------------------ the MoE decoders and whisper-medium
+def moe_reference(torch) -> None:
+    """The MoE decoders' SMOKE models in f32 on the card (kernels) against
+    the same weights on the CPU (plain versions): the experts layer 0
+    routes a calibration-sized batch (16 x 64 tokens, half of them one
+    repeated token, whose experts then take 512 assignments against a
+    capacity of 320 or 640: drops are certain) to and the assignments its
+    capacity drops, equal; forward and prefill logits within 1e-3; the
+    greedy tokens of a paged decode horizon equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.ref import put_pages
+    from repro_torch.models import attention, decoder, layers, moe, registry
+    pt, npg = 16, 4
+    for i, arch in enumerate(MOE_ARCHS):
+        cfg = get_smoke_config(arch)
+        model = registry.build(cfg)
+        cpu_params = _perturbed(torch, model.init(0, "cpu"), 60 + i)
+        gpu_params = _tree_to(cpu_params, "cuda")
+        gen = torch.Generator().manual_seed(70 + i)
+        calib = torch.randint(0, cfg.vocab_size, (16, 64), generator=gen)
+        toks = calib[-2:, :40]
+        calib[:8] = calib[0, 0]
+        outs = {}
+        for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
+            pm = decoder.tree_slice(p["stacks"]["moe"], 0)
+            x = layers.apply_norm(cfg, pm["norm"],
+                                  p["embed"][calib.to(dev)]).reshape(
+                -1, cfg.d_model)
+            _, idx = moe._route(pm, cfg, x)
+            _, keep, _ = moe.dispatch(cfg, idx)
+            t = toks.to(dev)
+            logits, cache = decoder.prefill(p, cfg, t, npg * pt)
+            table = torch.arange(2 * npg, dtype=torch.int32,
+                                 device=dev).reshape(2, npg)
+            pools = _paged_pools(torch, attention, put_pages, cfg, cache,
+                                 table, 2 * npg + 1, None)
+            pos = torch.full((2,), 40, dtype=torch.int32, device=dev)
+            first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            h, _, _ = decoder.paged_decode_horizon(p, cfg, pools, table, pos,
+                                                   first, 8)
+            outs[dev] = {"forward": model.logits(p, {"tokens": t}).cpu(),
+                         "prefill": logits.cpu(), "experts": idx.cpu(),
+                         "kept": keep.cpu(), "tokens": h.cpu()}
+        c, g = outs["cpu"], outs["cuda"]
+        errs = {k: max_err(g[k], c[k]) for k in ("forward", "prefill")}
+        same = {k: bool(torch.equal(g[k], c[k]))
+                for k in ("experts", "kept", "tokens")}
+        drops = int((~c["kept"]).sum())
+        print(f"  reference ({arch} SMOKE, f32): logits max|Δ| card vs CPU "
+              f"{ {k: f'{e:.2e}' for k, e in errs.items()} }; equal: {same} "
+              f"(layer 0 drops {drops} of {c['kept'].numel()} assignments)")
+        if max(errs.values()) > 1e-3 or not all(same.values()) or not drops:
+            raise AssertionError(f"{arch}: the card disagrees with the CPU")
+
+
+def whisper_reference(torch) -> None:
+    """whisper-medium's SMOKE model in f32, card against CPU: prefill on
+    random frames and three greedy decode steps; logits within 1e-3,
+    tokens equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import registry
+    cfg = get_smoke_config("whisper-medium")
+    model = registry.build(cfg)
+    cpu_params = _perturbed(torch, model.init(0, "cpu"), 80)
+    gen = torch.Generator().manual_seed(81)
+    b = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12), generator=gen),
+         "frames": torch.randn(2, cfg.n_audio_frames, cfg.d_model,
+                               generator=gen)}
+    outs = {}
+    for dev, p in (("cpu", cpu_params),
+                   ("cuda", _tree_to(cpu_params, "cuda"))):
+        bd = {k: v.to(dev) for k, v in b.items()}
+        last, cache = model.prefill(p, bd, 16)
+        tok = torch.argmax(last, -1).to(torch.int32)[:, None]
+        steps, toks = [last], []
+        for _ in range(3):
+            lg, cache = model.decode(p, cache, tok)
+            tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+            steps.append(lg[:, -1])
+            toks.append(tok)
+        outs[dev] = (torch.stack(steps).cpu(), torch.cat(toks, 1).cpu(),
+                     model.logits(p, bd).cpu())
+    err = max(max_err(outs["cuda"][0], outs["cpu"][0]),
+              max_err(outs["cuda"][2], outs["cpu"][2]))
+    same = bool(torch.equal(outs["cuda"][1], outs["cpu"][1]))
+    print(f"  reference (whisper-medium SMOKE, f32): forward, prefill and "
+          f"decode logits max|Δ| card vs CPU {err:.2e}; tokens equal: "
+          f"{same}")
+    if err > 1e-3 or not same:
+        raise AssertionError("whisper-medium: the card disagrees with the "
+                             "CPU")
+
+
+def dbrx_depth(torch) -> int:
+    """The most dbrx-132b layers whose bf16 weights fit on the card beside
+    its embeddings and ``DBRX_HEADROOM_BYTES``."""
+    from repro_torch.configs import get_config
+    cfg = get_config("dbrx-132b")
+    m, f = cfg.block_param_counts()
+    total = torch.cuda.get_device_properties(0).total_memory
+    return int((total - DBRX_HEADROOM_BYTES - 2 * cfg.embed_params())
+               // (2 * (m[0] + f[0])))
+
+
+def moe_serves(torch, ops, card: str) -> dict:
+    """Serve 1 (masked, paged, grid 0.3, 3 requests) on olmoe-1b-7b at
+    full width and depth, and on dbrx-132b at full width cut in depth
+    (``dbrx_depth``): every request done and pruned, no overcommit, and
+    flash, GLU (once per MoE layer: the expert buffer) and paged decode
+    launched exactly as the layouts of the decoder's calls imply. Returns
+    each serve's summary."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in MOE_ARCHS:
+        depth = dbrx_depth(torch) if arch == "dbrx-132b" else None
+        print(f"serve {arch}:")
+        t0 = time.perf_counter()
+        with LayoutRecorder() as rec:
+            s = serve_phase(torch, ops, card, MOE_ARGV[arch], depth=depth)
+        cfg = get_config(arch)
+        cfg = cfg if depth is None else cfg.replace(n_layers=depth)
+        want = layout_launches(cfg, rec.calls)
+        got = s["launches"]
+        s["seconds"] = time.perf_counter() - t0
+        print(f"  {len(rec.calls)} decoder calls; launches {got}, the "
+              f"layouts imply {want}; peak {s['peak_gb']:.2f} GB; decide "
+              f"{s['decide_s_total']:.1f} s; {s['seconds']:.1f} s [{card}]")
+        if (got != want or not s["all_pruned"]
+                or min(got["paged_decode_attention"], got["flash_attention"],
+                       got["fused_glu"]) < 1
+                or got["decode_attention"]
+                or got["paged_decode_attention_quant"]):
+            raise AssertionError(f"the {arch} serve failed its checks")
+        out[arch] = s
+    return out
+
+
+def whisper_phase(torch, ops, card: str) -> dict:
+    """whisper-medium at full width (random weights from seed 0, bf16):
+    prefill of ``WHISPER["batch"]`` rows of random frames and a prompt,
+    then ``WHISPER["new"]`` greedy decode steps, on a bf16 and an int8
+    self cache — logits finite, tokens in range, the launches the calls
+    imply (flash per encoder layer and twice per decoder layer at prefill,
+    the dense decode kernel twice per decoder layer a step, no GLU); three
+    training steps through ``launch.train --arch whisper-medium`` — losses
+    finite, half of all elements and a tenth of every leaf moved, the
+    launches of three remat steps; and the
+    engine's refusal through ``launch.serve --arch whisper-medium``.
+    Returns the numbers."""
+    import contextlib
+    import gc
+    import io
+    import repro_torch.runtime as runtime
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models import registry
+    cfg = get_config("whisper-medium")
+    model = registry.build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, "cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, S, new = WHISPER["batch"], WHISPER["prompt"], WHISPER["new"]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda"),
+             "frames": torch.randn(B, cfg.n_audio_frames, cfg.d_model,
+                                   generator=g, device="cuda").to(
+                 cfg.torch_dtype())}
+    toks = {}
+    for name, kv in (("bf16", None), ("int8", torch.int8)):
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with LayoutRecorder() as rec, torch.no_grad():
+            t0 = time.perf_counter()
+            last, cache = model.prefill(params, batch, S + new, kv_dtype=kv)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tok = torch.argmax(last, -1).to(torch.int32)[:, None]
+            gen, finite = [], bool(torch.isfinite(last).all())
+            for _ in range(new):
+                lg, cache = model.decode(params, cache, tok)
+                finite &= bool(torch.isfinite(lg).all())
+                tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+                gen.append(tok)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        counts = ops.launch_counts()
+        want = layout_launches(cfg, rec.calls)
+        toks[name] = torch.cat(gen, 1).cpu()
+        run = {"prefill_ms": 1e3 * (t1 - t0),
+               "decode_ms_per_step": 1e3 * (t2 - t1) / new,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "cache_dtype": str(cache["attn"]["k"].dtype),
+               "launches": counts}
+        print(f"  whisper-medium {name} self cache [{card}]: prefill of "
+              f"{B} x {S} tokens on {cfg.n_audio_frames} frames "
+              f"{run['prefill_ms']:.1f} ms, decode {run['decode_ms_per_step']:.2f}"
+              f" ms a step, peak {run['peak_gb']:.2f} GB; launches {counts}, "
+              f"the calls imply {want}")
+        ok_toks = bool(((toks[name] >= 0)
+                        & (toks[name] < cfg.vocab_padded)).all())
+        if (counts != want or not finite or not ok_toks
+                or counts["flash_attention"] < 1
+                or counts["decode_attention"] < 1
+                or cache["attn"]["k"].dtype != (kv or cfg.torch_dtype())):
+            raise AssertionError(f"whisper-medium {name}: failed its checks")
+        out[name] = run
+        del cache
+    agree = float((toks["bf16"] == toks["int8"]).float().mean())
+    print(f"  bf16 vs int8 self cache: {agree:.3f} of the greedy tokens "
+          f"agree (printed, not gated)")
+    out["token_agreement"] = agree
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # three training steps through the launcher: most elements of every
+    # leaf must move
+    moved = {}
+
+    class Watched(runtime.Trainer):
+        def run(self, *a, **kw):
+            from repro_torch import tree
+            if self.params is None:
+                self.init_state()
+            before = {k: v.detach().clone()
+                      for k, v in tree.flatten(self.params).items()}
+            res = super().run(*a, **kw)
+            for k, v in tree.flatten(self.params).items():
+                moved[k] = (int((v != before[k]).sum()), v.numel())
+            return res
+    real, runtime.Trainer = runtime.Trainer, Watched
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    try:
+        with LayoutRecorder() as rec, contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            summary = train.main(WHISPER_TRAIN_ARGV)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        runtime.Trainer = real
+    counts = ops.launch_counts()
+    want = layout_launches(cfg, rec.calls, remat=True)
+    losses = [h["loss"] for h in summary["history"]]
+    frac = {k: n / size for k, (n, size) in moved.items()}
+    least = min(frac, key=frac.get) if frac else None
+    out["train"] = {"seconds": secs, "losses": losses,
+                    "ms_per_step": [1e3 * h["time_s"]
+                                    for h in summary["history"]],
+                    "moved_fraction": (sum(n for n, _ in moved.values())
+                                       / max(sum(z for _, z in
+                                                 moved.values()), 1)),
+                    "least_moved_leaf": [least, frac.get(least, 0.0)],
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": counts}
+    print(f"  launch.train {' '.join(WHISPER_TRAIN_ARGV)} [{card}]: losses "
+          f"{[round(x, 4) for x in losses]}, "
+          f"{out['train']['moved_fraction']:.4f} of all elements moved "
+          f"(least: {least} {frac.get(least, 0.0):.4f}; gate: 0.5 of "
+          f"all, 0.1 of every leaf), {secs:.1f} s, peak "
+          f"{out['train']['peak_gb']:.2f} GB; launches {counts}, the remat "
+          f"steps imply {want}")
+    if (summary["final_step"] != 3 or not np.all(np.isfinite(losses))
+            or len(moved) < 2 or out["train"]["moved_fraction"] < 0.5
+            or frac[least] < 0.1 or counts != want):
+        raise AssertionError("whisper-medium training failed its checks")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the engine serves decoder-only models, as JAX's does
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve.main(["--arch", "whisper-medium", "--smoke", "--requests",
+                        "1", "--max-prompt", "16"])
+    except NotImplementedError as e:
+        if str(e) != "engine serves decoder-only models":
+            raise
+        print(f"  launch.serve --arch whisper-medium: NotImplementedError"
+              f"({e})")
+    else:
+        raise AssertionError("the engine served an encoder-decoder model")
+    return out
+
+
 def experiments_phase(torch, ops, card: str, bench_dir: str,
                       subject: dict) -> dict:
     """The paper's experiments (``python -m repro_torch.benchmarks.run``:
@@ -2558,6 +3003,8 @@ def main() -> None:
     training_reference(torch, ops)
     arch_reference(torch)
     fp8_slot_reference(torch)
+    moe_reference(torch)
+    whisper_reference(torch)
     print(f"reference: {time.perf_counter() - t0:.1f} s")
     runs = serves(torch, ops, card)
     print("serve 10:")
@@ -2575,6 +3022,16 @@ def main() -> None:
     runs.update({k: v["launches"] for k, v in
                  arch_serves(torch, ops, card).items()})
     print(f"  serves 12-16 and the fp8 slot serve: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe = moe_serves(torch, ops, card)
+    runs.update({f"c_{arch}": s["launches"] for arch, s in moe.items()})
+    print("whisper-medium:")
+    whisper = whisper_phase(torch, ops, card)
+    runs.update(c_whisper_bf16=whisper["bf16"]["launches"],
+                c_whisper_int8=whisper["int8"]["launches"],
+                c_whisper_train=whisper["train"]["launches"])
+    print(f"  the MoE serves and whisper-medium: "
           f"{time.perf_counter() - t0:.1f} s")
     print("shock:")
     from repro_torch.configs import get_config
@@ -2597,6 +3054,9 @@ def main() -> None:
         for i in range(1, 17):
             e[f"launches_serve{i}"] = c[f"c{i}"][e["name"]]
         e["launches_serve_fp8_slot"] = c["c_fp8_slot"][e["name"]]
+        for key in ("olmoe-1b-7b", "dbrx-132b", "whisper_bf16",
+                    "whisper_int8", "whisper_train"):
+            e[f"launches_{key.replace('-', '_')}"] = c[f"c_{key}"][e["name"]]
         e["launches_experiments"] = c["c_experiments"][e["name"]]
         e["launches_serve8_layer_grid06"] = c["c8l"][e["name"]]
         e["launches_serve7_training"] = c["c7_train"][e["name"]]

@@ -1,10 +1,10 @@
 """Config registry: ``get_config(name)``, ``get_smoke_config(name)``.
 
-The dense decoders (llama2-7b, gemma-2b, glm4-9b, qwen3-14b, qwen1.5-32b),
-the vision-language internvl2-1b, and the sub-quadratic mamba2-370m and
-recurrentgemma-9b are registered; the MoE and encoder-decoder
-architectures of the JAX package arrive with the slices that port their
-layers (ROADMAP.md, queue 1, items 12 and 14).
+Every architecture of the JAX package: the dense decoders (llama2-7b,
+gemma-2b, glm4-9b, qwen3-14b, qwen1.5-32b), the MoE decoders olmoe-1b-7b
+and dbrx-132b, the vision-language internvl2-1b, the sub-quadratic
+mamba2-370m and recurrentgemma-9b, and the encoder-decoder
+whisper-medium.
 """
 from __future__ import annotations
 
@@ -19,19 +19,15 @@ _MODULES = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "qwen1.5-32b": "repro_torch.configs.qwen15_32b",
     "internvl2-1b": "repro_torch.configs.internvl2_1b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
-# the JAX package's other architectures, ported with their layers
-_LATER = ("olmoe-1b-7b", "dbrx-132b", "whisper-medium")
-
 
 def _module(name: str):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"arch {name!r} is ported with its layers (ROADMAP queue 1, "
-            f"items 12 (MoE) and 14 (encoder-decoder))")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[name])

@@ -187,7 +187,12 @@ class ModelConfig:
 
     def total_params(self) -> int:
         m, f = self.block_param_counts()
-        return sum(m) + sum(f) + self.embed_params()
+        total = sum(m) + sum(f) + self.embed_params()
+        if self.is_encoder_decoder:
+            # decoder cross-attention (one per decoder layer)
+            total += self.n_layers * (self.d_model * (self.q_dim + 2 * self.kv_dim)
+                                      + self.q_dim * self.d_model + self.d_model)
+        return total
 
     def torch_dtype(self) -> torch.dtype:
         return _TORCH_DTYPES[self.dtype]

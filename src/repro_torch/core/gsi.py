@@ -6,7 +6,10 @@ of one state are scored in batched forwards: the calibration batch is
 repeated once per candidate and every row carries its candidate's keep-mask
 as per-row ``[L, n_cand·B]`` gates (the counterpart of the JAX package's
 ``vmap``/``lax.map`` over candidate gate vectors), ``chunk`` candidates per
-forward. :func:`gsi_rank` is Algorithm 1 (re-score every remaining block
+forward; an MoE model routes each candidate's rows as an independent group
+(``groups``: its own expert capacity, as under JAX's ``vmap``), and an
+encoder-decoder batch repeats its ``frames`` with the tokens.
+:func:`gsi_rank` is Algorithm 1 (re-score every remaining block
 after each removal); :func:`oneshot_rank` scores the dense model once (the
 RAP^-GSI ablation).
 """
@@ -35,8 +38,10 @@ def _candidate_losses(model, params, batch, cand: torch.Tensor) -> torch.Tensor:
     tokens, labels = batch["tokens"], batch["labels"]
     B = tokens.shape[0]
     n = cand.shape[0]
-    logits = model.logits(params, {"tokens": tokens.repeat(n, 1)},
-                          gates=_gates(cand, B))
+    rep = {k: v.repeat(n, *(1,) * (v.ndim - 1)) for k, v in batch.items()
+           if k not in ("labels", "loss_mask")}
+    logits = model.logits(params, rep, gates=_gates(cand, B), groups=n)
+    logits = logits[:, -labels.shape[1]:]       # text positions only
     nll = _nll_terms(logits[:, :-1], labels.repeat(n, 1)[:, 1:],
                      model.cfg.vocab_size)
     return nll.reshape(n, -1).mean(dim=1)

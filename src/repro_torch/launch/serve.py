@@ -8,9 +8,10 @@
 
 Boots the model (``--arch``: one of :data:`ARCHS` — the dense llama2-7b,
 gemma-2b, glm4-9b, qwen3-14b and qwen1.5-32b, the vision-language
-internvl2-1b (served text-only, as the JAX engine serves it), mamba2-370m
-or recurrentgemma-9b; ``--smoke`` for its reduced config; random weights
-from ``--seed``),
+internvl2-1b (served text-only, as the JAX engine serves it), the MoE
+olmoe-1b-7b and dbrx-132b, mamba2-370m or recurrentgemma-9b; the
+encoder-decoder whisper-medium is refused by the engine, as in JAX;
+``--smoke`` for its reduced config; random weights from ``--seed``),
 builds the pruning policy — ``rl`` is the RAP controller (paper
 Algorithm 3), its Q-network trained for ``--episodes`` episodes of the
 pruning MDP (paper Algorithm 2: ``dqn.train`` over ``env.PruneEnv``, whose
@@ -56,15 +57,17 @@ import argparse
 from typing import List, Optional, Tuple
 
 ARCHS = ("llama2-7b", "gemma-2b", "glm4-9b", "qwen3-14b", "qwen1.5-32b",
-         "internvl2-1b", "mamba2-370m", "recurrentgemma-9b")
+         "internvl2-1b", "olmoe-1b-7b", "dbrx-132b", "mamba2-370m",
+         "recurrentgemma-9b")
 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="llama2-7b",
-                    help="architecture: " + ", ".join(ARCHS) + " (the "
-                         "MoE and encoder-decoder ones raise "
-                         "NotImplementedError: later slices)")
+                    help="architecture: " + ", ".join(ARCHS) + " "
+                         "(whisper-medium raises the engine's "
+                         "NotImplementedError: it serves decoder-only "
+                         "models, as JAX's does)")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced SMOKE config")
     ap.add_argument("--requests", type=int, default=8)
@@ -186,6 +189,7 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
                                      staircase_trace, workload_budget_trace)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    RAPEngine.check_servable(cfg)       # before any model or policy is built
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.dtype} on {device}")

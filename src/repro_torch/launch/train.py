@@ -4,7 +4,9 @@
       --steps 200 --ckpt-dir /path/to/ckpt [--device cpu]
 
 Trains ``--arch`` (``--smoke``: its reduced config) on the synthetic
-corpus with AdamW, checkpointing in the JAX package's format every
+corpus with AdamW (a vision-language model with zero ``vision_embeds``
+prepended, an encoder-decoder model on zero ``frames``, as JAX's
+launcher does), checkpointing in the JAX package's format every
 ``--ckpt-every`` steps. The trainer resumes from the latest checkpoint
 automatically: rerunning the same command after a crash (or with more
 ``--steps``) continues the run and prints "resumed from checkpoint at step
@@ -35,6 +37,24 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
+
+
+def extra_inputs(cfg, batch: int, device) -> Optional[dict]:
+    """The stub frontends' inputs every batch carries, zeros in the model
+    dtype as in JAX's launcher: a ``vlm`` model's ``vision_embeds [batch,
+    n_vision_tokens, d_model]`` (prepended to the tokens), an
+    encoder-decoder model's ``frames [batch, n_audio_frames, d_model]``;
+    None for the others."""
+    import torch
+    if cfg.family == "vlm":
+        return {"vision_embeds": torch.zeros(
+            batch, cfg.n_vision_tokens, cfg.d_model,
+            dtype=cfg.torch_dtype(), device=device)}
+    if cfg.is_encoder_decoder:
+        return {"frames": torch.zeros(
+            batch, cfg.n_audio_frames, cfg.d_model, dtype=cfg.torch_dtype(),
+            device=device)}
+    return None
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -76,7 +96,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     start = trainer.step if trainer.maybe_restore() else 0
     if start:
         print(f"resumed from checkpoint at step {start}")
-    batches = batch_iterator(corpus, args.batch, args.seq, start=start)
+    batches = batch_iterator(corpus, args.batch, args.seq, start=start,
+                             extra=extra_inputs(cfg, args.batch, device))
     summary = trainer.run(batches)
     print(f"done at step {summary['final_step']}; "
           f"stragglers observed: {len(summary['straggler_events'])}")

@@ -26,9 +26,12 @@ layouts only, a page pool (:func:`paged_decode_step`,
 :func:`paged_decode_horizon`) and chunked prefill. A vision-language model
 (``family="vlm"``, internvl2-1b) is the dense decoder with precomputed
 patch embeddings prepended to the token stream (``extra_embeds`` on
-:func:`forward` and :func:`prefill`). MoE and encoder-decoder models are
-later slices (ROADMAP queue 1, items 12 and 14) and raise
-``NotImplementedError``.
+:func:`forward` and :func:`prefill`). An MoE model (olmoe, dbrx) has
+``moe`` FFN rows (``models/moe.py``, the scatter dispatch; ``groups`` on
+:func:`forward` gives each group of batch rows its own expert capacity,
+as JAX's ``vmap`` over scoring candidates does). Encoder-decoder models
+(whisper) have their own module, ``models/encdec.py``, built by
+``registry.build``; the decoder-only entry points here refuse them.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import attention, ffn as ffn_mod, layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod, ssm as ssm_mod
 
 
@@ -78,15 +82,14 @@ def layout_counts(layout) -> Dict[str, int]:
 
 
 def check_supported(cfg) -> None:
-    """Refuse what the port has not ported yet: MoE FFNs (ROADMAP queue 1,
-    item 12), encoder-decoder models (item 14) and norms other than
-    RMSNorm (which only those use)."""
-    ffns = {f for _, f in cfg.layer_specs()}
-    if cfg.is_encoder_decoder or "moe" in ffns or cfg.norm != "rmsnorm":
+    """Refuse an encoder-decoder config: its layers, caches and entry points
+    are ``models/encdec.py``'s (``registry.build`` picks them), not this
+    decoder-only module's."""
+    if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name!r} ({cfg.family}, norm {cfg.norm}, FFNs "
-            f"{sorted(ffns)}) is a later slice: MoE models are ROADMAP "
-            f"queue 1, item 12, encoder-decoder models item 14")
+            f"{cfg.name!r} is an encoder-decoder model: the decoder-only "
+            f"entry points do not run it; build it with registry.build "
+            f"(models/encdec.py)")
 
 
 def is_attn_layout(cfg, layout=None) -> bool:
@@ -115,7 +118,8 @@ def require_attn_layout(cfg, what: str, layout=None) -> None:
 _INIT = {"attn": attention.init_attn_params,
          "rglru": rglru_mod.init_rglru_params,
          "ssd": ssm_mod.init_ssd_params,
-         "dense": ffn_mod.init_ffn_params}
+         "dense": ffn_mod.init_ffn_params,
+         "moe": moe_mod.init_moe_params}
 
 
 def init_params(gen: torch.Generator, cfg, device) -> dict:
@@ -125,10 +129,9 @@ def init_params(gen: torch.Generator, cfg, device) -> dict:
     check_supported(cfg)
     counts = layout_counts(default_layout(cfg))
     pd = cfg.torch_param_dtype()
-    zeros = lambda *s: torch.zeros(*s, dtype=pd, device=device)
     embed = torch.empty(cfg.vocab_padded, cfg.d_model, dtype=pd, device=device)
     params: dict = {"embed": layers.embed_init_(embed, gen),
-                    "final_norm": {"scale": zeros(cfg.d_model)}}
+                    "final_norm": layers.init_norm(cfg, device=device)}
     if not cfg.tie_embeddings:
         head = torch.empty(cfg.d_model, cfg.vocab_padded, dtype=pd,
                            device=device)
@@ -136,7 +139,7 @@ def init_params(gen: torch.Generator, cfg, device) -> dict:
     params["stacks"] = {}
     for kind in sorted(counts):
         params["stacks"][kind] = dict(
-            norm={"scale": zeros(counts[kind], cfg.d_model)},
+            norm=layers.init_norm(cfg, counts[kind], device=device),
             **_INIT[kind](gen, cfg, counts[kind], device))
     return params
 
@@ -205,9 +208,14 @@ def _apply_mixer(kind: str, p, cfg, h, positions):
     return attention.attention(p, cfg, hn, positions, window=window)[0]
 
 
-def _apply_ffn(kind: str, p, cfg, h):
-    """Norm, then the FFN ``kind`` (``dense``): its output [B, S, D]."""
-    return ffn_mod.ffn(p, cfg, layers.apply_norm(cfg, p["norm"], h))
+def _apply_ffn(kind: str, p, cfg, h, groups: int = 1):
+    """Norm, then the FFN ``kind`` (``dense``, or ``moe``: the scatter
+    dispatch, ``groups`` independent token groups along the batch axis):
+    its output [B, S, D]."""
+    hn = layers.apply_norm(cfg, p["norm"], h)
+    if kind == "moe":
+        return moe_mod.moe_ffn(p, cfg, hn, groups=groups)
+    return ffn_mod.ffn(p, cfg, hn)
 
 
 def _checkpointed(fn, remat: bool):
@@ -219,17 +227,18 @@ def _checkpointed(fn, remat: bool):
 
 
 def _block(params, cfg, slot: LayerSlot, i: int, h, gates, mixer_out, *,
-           remat: bool = False):
+           remat: bool = False, groups: int = 1):
     """Residual updates of layout row ``i`` around its mixer output: the
     gated mixer branch (none for a pruned mixer, ``mixer_out`` None), then
     the gated FFN branch (none in mamba2 or for a pruned FFN; recomputed
-    in the backward under ``remat``)."""
+    in the backward under ``remat``; ``groups`` as in :func:`forward`)."""
     if mixer_out is not None:
         h = h + _bgate(gates["mixer"][i], h) * mixer_out
     if slot.ffn is None:
         return h
     pf = tree_slice(params["stacks"][slot.ffn], slot.ffn_idx)
-    out = _checkpointed(lambda x: _apply_ffn(slot.ffn, pf, cfg, x), remat)(h)
+    out = _checkpointed(lambda x: _apply_ffn(slot.ffn, pf, cfg, x, groups),
+                        remat)(h)
     return h + _bgate(gates["ffn"][i], h) * out
 
 
@@ -250,14 +259,18 @@ def _cache_indices(layout) -> List[int]:
 
 # -------------------------------------------------------------------- forward
 def forward(params, cfg, tokens, *, gates=None, extra_embeds=None,
-            unembed: bool = True, layout=None, remat: bool = False):
+            unembed: bool = True, layout=None, remat: bool = False,
+            groups: int = 1):
     """Full-sequence forward. Returns (logits f32 [B,S,Vp], None), S
     counting the ``extra_embeds`` prefix (positions 0..P-1 are its);
     ``unembed=False`` returns the pre-final-norm hidden state instead.
     ``remat`` recomputes each mixer and each FFN block in the backward
     (``torch.utils.checkpoint``, the twin of JAX's per-block
     ``jax.checkpoint``): activation memory of one block at a time, at the
-    cost of a second forward — and a second launch of its kernels."""
+    cost of a second forward — and a second launch of its kernels.
+    ``groups`` (dividing B) makes each group of B / groups consecutive
+    rows an independent call of the MoE FFN (its own capacity and drop
+    ranking); a model without MoE rows ignores it."""
     check_supported(cfg)
     layout = default_layout(cfg) if layout is None else layout
     gates = gates or _ones_gates(len(layout), tokens.device)
@@ -270,7 +283,8 @@ def forward(params, cfg, tokens, *, gates=None, extra_embeds=None,
             out = _checkpointed(
                 lambda x, pm=pm, kind=slot.mixer: _apply_mixer(
                     kind, pm, cfg, x, positions), remat)(h)
-        h = _block(params, cfg, slot, i, h, gates, out, remat=remat)
+        h = _block(params, cfg, slot, i, h, gates, out, remat=remat,
+                   groups=groups)
     if not unembed:
         return h, None
     return _unembed(params, cfg, h), None

@@ -41,11 +41,29 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (y * (1.0 + scale.float())).to(dt)
 
 
+def layer_norm(x, scale, bias, eps: float = 1e-6):
+    """LayerNorm with the ``(1 + scale)`` convention plus a bias, in f32."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float()) + bias.float()).to(dt)
+
+
+def init_norm(cfg, *lead: int, device=None) -> dict:
+    """Zero-initialised norm params ``[*lead, d_model]``: ``scale``, and
+    ``bias`` for a layernorm config."""
+    z = lambda: torch.zeros(*lead, cfg.d_model,
+                            dtype=cfg.torch_param_dtype(), device=device)
+    if cfg.norm == "layernorm":
+        return {"scale": z(), "bias": z()}
+    return {"scale": z()}
+
+
 def apply_norm(cfg, params: dict, x):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} comes with whisper-medium, the one "
-            f"architecture that uses it (ROADMAP queue 1, item 14)")
+    if cfg.norm == "layernorm":
+        return layer_norm(x, params["scale"], params["bias"], cfg.norm_eps)
     return rms_norm(x, params["scale"], cfg.norm_eps)
 
 

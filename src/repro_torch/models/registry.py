@@ -1,24 +1,31 @@
-"""Uniform model API (the decoder-only LM builder of the JAX registry):
-the dense, ``vlm`` (internvl2), ``ssm`` (mamba2) and ``hybrid``
-(recurrentgemma) families.
+"""Uniform model API over every architecture family (the JAX registry's
+two builders): the decoder-only LM (dense, ``moe`` (olmoe, dbrx), ``vlm``
+(internvl2), ``ssm`` (mamba2), ``hybrid`` (recurrentgemma)) and the
+encoder-decoder (``audio``: whisper).
 
 ``build(cfg)`` returns a ``Model`` with:
   init(seed, device)                 → params ("meta": shapes only, the
                                        twin of ``jax.eval_shape``)
-  loss(params, batch, gates=None, remat=False, layout=None)
+  loss(params, batch, gates=None, remat=False, layout=None, groups=1)
                                      → (scalar loss, aux)  [teacher-forced LM]
-  logits(params, batch, gates=None, remat=False, layout=None)
+  logits(params, batch, gates=None, remat=False, layout=None, groups=1)
                                      → [B, S, Vp] f32
   prefill(params, batch, max_len, gates=None, kv_dtype=None)
                                      → (last_logits, slot cache)
   decode(params, cache, tokens, gates=None) → (logits [B,1,Vp], cache)
+  init_cache(batch_size, max_len, kv_dtype=None, device="cuda") → cache
 
 Batches are dicts of tensors with ``tokens`` / ``labels`` (and an optional
 ``loss_mask``); a ``vlm`` batch may carry ``vision_embeds [B, P, D]``,
 prepended to the tokens (logits and the prefill's cache cover P + S
-positions; the loss is taken on the text positions only). From
-``CHUNKED_CE_MIN_SEQ`` tokens the loss takes the chunked cross-entropy, as
-JAX's does.
+positions; the loss is taken on the text positions only); an
+encoder-decoder batch carries ``frames [B, n_audio_frames, D]`` (not
+``decode``'s: the cache holds the cross K/V). From ``CHUNKED_CE_MIN_SEQ``
+tokens the loss takes the chunked cross-entropy, as JAX's does.
+``groups`` splits the batch into independent groups of rows for the MoE
+FFN's capacity (the GSI scorer's candidates; ``decoder.forward``); the
+encoder-decoder has no MoE and ignores it. ``input_specs`` (the dry run's
+shapes) is ROADMAP queue 1, item 17.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.models import decoder
+from repro_torch.models import decoder, encdec
 
 
 class Model(NamedTuple):
@@ -37,6 +44,7 @@ class Model(NamedTuple):
     logits: Callable
     prefill: Callable
     decode: Callable
+    init_cache: Callable
 
 
 CHUNKED_CE_MIN_SEQ = 2048
@@ -100,30 +108,29 @@ def _lm_build(cfg) -> Model:
         return batch.get("vision_embeds") if is_vlm else None
 
     def init(seed: int = 0, device="cuda"):
-        # a meta template draws nothing: its generator may live anywhere
-        gdev = "cpu" if torch.device(device).type == "meta" else device
-        gen = torch.Generator(device=gdev).manual_seed(int(seed))
-        return decoder.init_params(gen, cfg, device)
+        return decoder.init_params(_generator(seed, device), cfg, device)
 
-    def logits(params, batch, gates=None, remat=False, layout=None):
+    def logits(params, batch, gates=None, remat=False, layout=None,
+               groups=1):
         out, _ = decoder.forward(params, cfg, batch["tokens"], gates=gates,
                                  extra_embeds=extra(batch), remat=remat,
-                                 layout=layout)
+                                 layout=layout, groups=groups)
         return out
 
-    def loss(params, batch, gates=None, remat=False, layout=None):
+    def loss(params, batch, gates=None, remat=False, layout=None, groups=1):
         labels = batch["labels"]
         mask = batch.get("loss_mask")
         if labels.shape[1] >= CHUNKED_CE_MIN_SEQ:
             h, _ = decoder.forward(params, cfg, batch["tokens"], gates=gates,
                                    extra_embeds=extra(batch), remat=remat,
-                                   layout=layout, unembed=False)
+                                   layout=layout, unembed=False,
+                                   groups=groups)
             h = h[:, -labels.shape[1]:, :]      # text positions only
             l = chunked_cross_entropy(
                 lambda hc: decoder._unembed(params, cfg, hc), h, labels,
                 cfg.vocab_size, mask)
             return l, {"loss": l, "ppl": torch.exp(l)}
-        lg = logits(params, batch, gates, remat, layout)
+        lg = logits(params, batch, gates, remat, layout, groups)
         lg = lg[:, -labels.shape[1]:, :][:, :-1]    # text positions only
         if mask is not None:
             mask = mask[:, 1:]
@@ -139,8 +146,58 @@ def _lm_build(cfg) -> Model:
         """One step; ``cache["pos"]`` scalar (one-shot) or [B] (slots)."""
         return decoder.decode_step(params, cfg, cache, tokens, gates=gates)
 
-    return Model(cfg, init, loss, logits, prefill, decode)
+    def init_cache(batch_size, max_len, kv_dtype=None, device="cuda"):
+        return decoder.init_cache(cfg, batch_size, max_len, kv_dtype, device)
+
+    return Model(cfg, init, loss, logits, prefill, decode, init_cache)
+
+
+def _generator(seed, device) -> torch.Generator:
+    # a meta template draws nothing: its generator may live anywhere
+    gdev = "cpu" if torch.device(device).type == "meta" else device
+    return torch.Generator(device=gdev).manual_seed(int(seed))
+
+
+def _encdec_build(cfg) -> Model:
+    def init(seed: int = 0, device="cuda"):
+        return encdec.init_params(_generator(seed, device), cfg, device)
+
+    def logits(params, batch, gates=None, remat=False, layout=None,
+               groups=1):
+        return encdec.forward(params, cfg, batch["tokens"], batch["frames"],
+                              gates=gates, remat=remat)
+
+    def loss(params, batch, gates=None, remat=False, layout=None, groups=1):
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        if labels.shape[1] >= CHUNKED_CE_MIN_SEQ:
+            h = encdec.forward(params, cfg, batch["tokens"], batch["frames"],
+                               gates=gates, remat=remat, unembed=False)
+            l = chunked_cross_entropy(
+                lambda hc: encdec.unembed(params, cfg, hc), h, labels,
+                cfg.vocab_size, mask)
+            return l, {"loss": l, "ppl": torch.exp(l)}
+        lg = logits(params, batch, gates, remat)[:, :-1]
+        if mask is not None:
+            mask = mask[:, 1:]
+        l = cross_entropy(lg, labels[:, 1:], cfg.vocab_size, mask)
+        return l, {"loss": l, "ppl": torch.exp(l)}
+
+    def prefill(params, batch, max_len, gates=None, kv_dtype=None):
+        return encdec.prefill(params, cfg, batch["tokens"], batch["frames"],
+                              max_len, gates=gates, kv_dtype=kv_dtype)
+
+    def decode(params, cache, tokens, gates=None):
+        """One step at the scalar ``cache["pos"]``."""
+        return encdec.decode_step(params, cfg, cache, tokens, gates=gates)
+
+    def init_cache(batch_size, max_len, kv_dtype=None, device="cuda"):
+        return encdec.init_cache(cfg, batch_size, max_len, kv_dtype, device)
+
+    return Model(cfg, init, loss, logits, prefill, decode, init_cache)
 
 
 def build(cfg) -> Model:
+    if cfg.is_encoder_decoder:
+        return _encdec_build(cfg)
     return _lm_build(cfg)

@@ -332,6 +332,14 @@ class RAPEngine:
     """Thin orchestration loop: Scheduler × PruningPolicy × ModelExecutor
     × KVPool."""
 
+    @staticmethod
+    def check_servable(mcfg) -> None:
+        """Refuse a model the engine cannot serve: an encoder-decoder one
+        (its requests carry audio frames and a cross K/V no executor
+        holds), as JAX's engine does."""
+        if getattr(mcfg, "is_encoder_decoder", False):
+            raise NotImplementedError("engine serves decoder-only models")
+
     def __init__(self, model, params, policy: PruningPolicy,
                  cfg: Optional[EngineConfig] = None, *,
                  scheduler: Optional[Scheduler] = None,
@@ -339,6 +347,7 @@ class RAPEngine:
         if not isinstance(policy, PruningPolicy):
             raise TypeError(f"RAPEngine requires a PruningPolicy, got "
                             f"{type(policy).__name__}")
+        self.check_servable(model.cfg)
         self.model = model
         self.mcfg = model.cfg
         self.params = params

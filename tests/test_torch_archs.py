@@ -108,14 +108,16 @@ def test_configs_equal_jax_field_for_field(arch):
 
 
 def test_moe_and_encdec_remain_later_slices():
+    """Since the slice that ported them, MoE and encoder-decoder configs
+    are registered; the decoder-only entry points take an MoE config and
+    refuse an encoder-decoder one (``registry.build`` gives it
+    ``models/encdec.py``)."""
     for arch in ("olmoe-1b-7b", "dbrx-132b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="items 12 .* 14"):
-            get_config(arch)
+        assert get_config(arch).name == arch
     cfg = dataclasses.replace(get_smoke_config("llama2-7b"), n_experts=4,
                               moe_top_k=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        decoder.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    decoder.check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="registry.build"):
         decoder.check_supported(dataclasses.replace(
             get_smoke_config("llama2-7b"), is_encoder_decoder=True))
 

@@ -23,7 +23,10 @@ JAX kernels on the CPU. The scan kernels (``ssd`` at 3e-4, ``rglru`` at
 that file's shapes plus mamba2's and recurrentgemma's widths; ``ssd`` also
 its tile and chunk edges and ``chip_smoke.py``'s timed shapes, and two of
 its launches give the same bits. Small recurrent models are held card
-against CPU by ``chip_smoke.py``'s reference phase.
+against CPU by ``chip_smoke.py``'s reference phase. The MoE decoders and
+whisper-medium add flash without the causal mask (Skv = 1500 frames), the
+GLU on a 3-D expert buffer, decode at dbrx's G = 6 and at whisper's self
+and cross shapes, and their SMOKE models card against CPU.
 """
 import numpy as np
 import pytest
@@ -1156,7 +1159,11 @@ def test_decode_kernels_at_the_new_archs(cuda, arch, dtype, tol):
     """The dense and the paged decode kernel against their plain versions
     (4 rows, ragged lengths up to 300 tokens in 16-token pages), and, in
     f32, bitwise against each other."""
-    H, K, D = ARCH_CASES[arch]
+    _decode_kernels_at(cuda, arch, dtype, tol, ARCH_CASES)
+
+
+def _decode_kernels_at(cuda, arch, dtype, tol, cases):
+    H, K, D = cases[arch]
     lengths = (300, 1, 137, 64)
     q, kp, vp, table, lens = _on(cuda, *_split_inputs(31, 4, H, K, D, 16,
                                                       lengths))
@@ -1172,3 +1179,116 @@ def test_decode_kernels_at_the_new_archs(cuda, arch, dtype, tol):
                                rtol=tol)
     if dtype == torch.float32:
         assert torch.equal(got_d, got)
+
+
+# --------------------------------- the MoE decoders and whisper-medium
+# dbrx-132b's attention: 48 query heads on 8 kv heads of 128 (G = 6, the
+# one-head-a-block decode path)
+ARCH_CASES_MOE = {"dbrx-132b": (48, 8, 128), "olmoe-1b-7b": (16, 16, 128)}
+# whisper's unmasked attention (causal=False): the encoder over its 1500
+# frames, the cross-attention of a prompt against them, and small ragged
+# tiles; Skv = 1500 is not a multiple of the 64-key tile
+NONCAUSAL_CASES = [
+    # B, Sq, Skv, H, K, D
+    (1, 1500, 1500, 16, 16, 64),
+    (2, 7, 1500, 16, 16, 64),
+    (2, 100, 130, 4, 2, 32),
+    (1, 65, 1500, 4, 4, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", FLASH_DTYPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D", NONCAUSAL_CASES)
+def test_flash_attention_kernel_non_causal(cuda, B, Sq, Skv, H, K, D, dtype,
+                                           tol):
+    rng = np.random.default_rng(B * Sq + Skv)
+    q = torch.from_numpy(rng.standard_normal((B, Sq, H, D)).astype(
+        np.float32)).to(cuda, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((B, Skv, K, D)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(2))
+    got = fa.flash_attention_cuda(q, k, v, causal=False)
+    want = fa.attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GLU_DTYPES, ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("E,rows,F", [(64, 321, 1024), (16, 321, 10752),
+                                      (8, 9, 64)],
+                         ids=["olmoe", "dbrx", "smoke"])
+def test_fused_glu_kernel_on_the_expert_buffer(cuda, E, rows, F, dtype, tol):
+    """The MoE's expert buffer [E, C+1, 2F] (C = 320: 1024 scoring tokens
+    at olmoe's and dbrx's k / E), a 3-D input."""
+    g = torch.Generator(device=cuda).manual_seed(E + F)
+    h = torch.randn(E, rows, 2 * F, generator=g, device=cuda).to(dtype)
+    got = swiglu.fused_glu_cuda(h, "swiglu")
+    assert got.shape == (E, rows, F)
+    torch.testing.assert_close(got.float(), swiglu.glu_ref(h).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", ARCH_DTYPES)
+@pytest.mark.parametrize("arch", list(ARCH_CASES_MOE))
+def test_decode_kernels_at_the_moe_archs(cuda, arch, dtype, tol):
+    """dbrx's G = 6 and olmoe's MHA through both decode kernels, as
+    :func:`test_decode_kernels_at_the_new_archs` holds the dense decoders'."""
+    _decode_kernels_at(cuda, arch, dtype, tol, ARCH_CASES_MOE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", ARCH_DTYPES)
+@pytest.mark.parametrize("S,mask", [(448, "rows"), (1500, "all")],
+                         ids=["self", "cross"])
+def test_decode_kernel_at_whisper_shapes(cuda, S, mask, dtype, tol):
+    """whisper's self-attention decode (16 heads of 64, ragged rows) and
+    its cross-attention decode: one query against all 1500 frames, a
+    shared all-true ``valid [S]``."""
+    q, k, v, valid, _ = _decode_inputs(23, 4, 16, 16, 64, S, "rows")
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (q, k, v))
+    valid = (torch.ones(S, dtype=torch.bool, device=cuda) if mask == "all"
+             else torch.from_numpy(valid).to(cuda))
+    got = dec.decode_attention_cuda(q, k, v, valid)
+    want = dec.decode_attention_ref(q, k, v, valid)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "dbrx-132b",
+                                  "whisper-medium"])
+def test_moe_and_whisper_smoke_card_match_cpu(cuda, arch):
+    """SMOKE f32 models through the kernels on the card against the plain
+    versions on the CPU: logits within 1e-3 and greedy tokens equal (MoE:
+    the capacity dispatch drops the same assignments; whisper: prefill on
+    frames and 4 decode steps)."""
+    from repro_torch.kernels import ops
+    cfg = get_smoke_config(arch)
+    model = registry.build(cfg)
+    params = model.init(0, "cpu")
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=g)
+    b = {"tokens": toks}
+    if cfg.is_encoder_decoder:
+        b["frames"] = torch.randn(2, cfg.n_audio_frames, cfg.d_model,
+                                  generator=g)
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", _to(params, cuda))):
+        bd = {k: v.to(dev) for k, v in b.items()}
+        ops.reset_launches()
+        logits = model.logits(p, bd)
+        last, cache = model.prefill(p, bd, 32)
+        tok = torch.argmax(last, -1).to(torch.int32)[:, None]
+        toks_out = []
+        for _ in range(4):
+            step, cache = model.decode(p, cache, tok)
+            tok = torch.argmax(step[:, -1], -1).to(torch.int32)[:, None]
+            toks_out.append(tok)
+        out[dev] = (logits.cpu(), torch.cat(toks_out, 1).cpu(),
+                    ops.launch_counts())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-3,
+                               rtol=1e-3)
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    launches = out["cuda"][2]
+    assert launches["flash_attention"] > 0 and launches["decode_attention"] > 0
+    assert (launches["fused_glu"] > 0) == (not cfg.is_encoder_decoder)
