@@ -90,6 +90,13 @@ Phases, each fatal on failure:
                 40% of the peak) in ``--bucket-quant layer`` buckets, which
                 must hold a bucket of fewer than 32 layers (fewer than 32
                 launches per prefill);
+ 9b. serve 6 int8 / fp8 — serve 6 with ``--kv-dtype int8`` and with
+                ``--kv-dtype fp8`` (the local-attention ring quantized, the
+                RG-LRU state f32): serve 1's checks, the ring in that
+                precision, the launches the layout implies and exactly
+                those of the decoder's recorded calls (12 dense decode
+                launches a decode step), wall, tok/s and peak beside
+                serve 6's;
  12. serve 9  — serve 6 (recurrentgemma-9b, slot caches) with ``--mode
                 structural`` (exact buckets: rows without a mixer or an
                 FFN): serve 1's checks, the launches each call's layout
@@ -158,7 +165,13 @@ Phases, each fatal on failure:
                 ``launch.train --arch whisper-medium`` (finite losses,
                 half of all elements and a tenth of every leaf moved,
                 remat's launches); ``launch.serve --arch
-                whisper-medium`` raises the engine's NotImplementedError.
+                whisper-medium`` raises the engine's NotImplementedError;
+                then the U1 probe (ROADMAP queue 3): the same three
+                training steps with f32 params, printing the share of
+                ``stacks/cross/wq`` and of all elements that moved;
+ 20. demo     — ``examples/kernels_demo_torch.py``'s ``main`` in this
+                process on the card: every kernel launched once, each
+                within its tolerance of its plain version.
 
 The reference phase also serves a small fp32 trace (TF32 off) with and
 without a budget shock on paged f32 and int8 pools and on slot caches:
@@ -178,7 +191,14 @@ frames and three decode steps). The kernel phase checks flash, GLU and
 both decode bodies at those architectures' widths: flash non-causal at
 whisper's encoder and cross shapes (1500 frames), the GLU on the MoE's 3-D
 expert buffer, decode at whisper's self and cross shapes and at dbrx's
-G = 6.
+G = 6. For the quantized recurrent slot caches it holds recurrentgemma and
+mamba2 SMOKE in f32 on an int8 ring, card against CPU (logits, and a
+shocked engine trace whose tokens equal the CPU's and the unshocked run's;
+mamba2's equal its model-dtype tokens), and the one-call decode surfaces
+(``decode_horizon``/``decode`` on both executors, ``SlotGroup.
+decode_horizon``/``decode_once``) bitwise against ``decode_launch``/
+``decode_finish``; the kernel phase runs the dense decode kernel on
+recurrentgemma's wrapped ring stored in int8 and in fp8 and dequantized.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a GPU, or without the rest of
@@ -232,6 +252,11 @@ SERVE8_LAYER_ARGV = [("0.6" if prev == "--budget-quantum" else a)
                      for prev, a in zip([None] + SERVE_ARGV, SERVE_ARGV)] + [
     "--mode", "structural", "--bucket-quant", "layer"]
 SERVE9_ARGV = SERVE6_ARGV + ["--mode", "structural"]
+# serve 6 on quantized slot caches: recurrentgemma-9b's local-attention ring
+# in int8 (per-(token, head) scales) or fp8 (a plain cast); its RG-LRU
+# state stays f32
+SERVE6_QUANT_ARGV = {kv: SERVE6_ARGV + ["--kv-dtype", kv]
+                     for kv in ("int8", "fp8")}
 # the static baselines on serve 1's trace: LLMPruner's Taylor order (one
 # forward and backward of the whole model), and ShortGPT's whole-layer
 # order in structural layer buckets
@@ -2671,6 +2696,46 @@ def moe_serves(torch, ops, card: str) -> dict:
     return out
 
 
+def watched_train(torch, argv, cfg=None) -> tuple:
+    """``launch.train`` with ``argv`` (its log kept off stdout; ``cfg``: the
+    config ``--arch`` builds, in place of the registered one), watching
+    which elements of every leaf the steps moved. Returns (the run's
+    summary, {leaf: (elements moved, elements)}, seconds)."""
+    import contextlib
+    import io
+    import repro_torch.configs as configs
+    import repro_torch.runtime as runtime
+    from repro_torch.launch import train
+    moved = {}
+
+    class Watched(runtime.Trainer):
+        def run(self, *a, **kw):
+            from repro_torch import tree
+            if self.params is None:
+                self.init_state()
+            before = {k: v.detach().clone()
+                      for k, v in tree.flatten(self.params).items()}
+            res = super().run(*a, **kw)
+            for k, v in tree.flatten(self.params).items():
+                moved[k] = (int((v != before[k]).sum()), v.numel())
+            return res
+    arch = argv[argv.index("--arch") + 1]
+    real, get_config = runtime.Trainer, configs.get_config
+    runtime.Trainer = Watched
+    if cfg is not None:
+        configs.get_config = lambda name: cfg if name == arch else get_config(
+            name)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            summary = train.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        runtime.Trainer, configs.get_config = real, get_config
+    return summary, moved, secs
+
+
 def whisper_phase(torch, ops, card: str) -> dict:
     """whisper-medium at full width (random weights from seed 0, bf16):
     prefill of ``WHISPER["batch"]`` rows of random frames and a prompt,
@@ -2686,9 +2751,8 @@ def whisper_phase(torch, ops, card: str) -> dict:
     import contextlib
     import gc
     import io
-    import repro_torch.runtime as runtime
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import serve
     from repro_torch.models import registry
     cfg = get_config("whisper-medium")
     model = registry.build(cfg)
@@ -2752,31 +2816,10 @@ def whisper_phase(torch, ops, card: str) -> dict:
     torch.cuda.empty_cache()
     # three training steps through the launcher: most elements of every
     # leaf must move
-    moved = {}
-
-    class Watched(runtime.Trainer):
-        def run(self, *a, **kw):
-            from repro_torch import tree
-            if self.params is None:
-                self.init_state()
-            before = {k: v.detach().clone()
-                      for k, v in tree.flatten(self.params).items()}
-            res = super().run(*a, **kw)
-            for k, v in tree.flatten(self.params).items():
-                moved[k] = (int((v != before[k]).sum()), v.numel())
-            return res
-    real, runtime.Trainer = runtime.Trainer, Watched
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    buf = io.StringIO()
-    try:
-        with LayoutRecorder() as rec, contextlib.redirect_stdout(buf):
-            t0 = time.perf_counter()
-            summary = train.main(WHISPER_TRAIN_ARGV)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-    finally:
-        runtime.Trainer = real
+    with LayoutRecorder() as rec:
+        summary, moved, secs = watched_train(torch, WHISPER_TRAIN_ARGV)
     counts = ops.launch_counts()
     want = layout_launches(cfg, rec.calls, remat=True)
     losses = [h["loss"] for h in summary["history"]]
@@ -2867,9 +2910,288 @@ def experiments_phase(torch, ops, card: str, bench_dir: str,
 
 
 
+# --------- quantized rings on the recurrent layouts, the one-call decode
+# surfaces, the kernel walkthrough, and the U1 probe
+def ring_quant_cases(torch, ops, dec, attention) -> dict:
+    """The dense decode kernel on recurrentgemma-9b's local-attention ring
+    (G = 16 on one kv head of 256, serve 6's 264 slots, wrapped) stored as
+    an int8 ring (``attention.store_kv``: codes and per-(token, head)
+    scales) and as an fp8 ring (a plain cast), then dequantized to bf16 by
+    ``attention.load_kv`` as the decode step does, against its plain
+    version on the same inputs. Returns the max |Δ| by ring precision."""
+    g = torch.Generator(device="cpu").manual_seed(26)
+    b, h, k, d, s = 8, 16, 1, 256, 264
+    kpos = torch.arange(s, device="cuda")
+    valid = torch.remainder((s + 7 + 11 * torch.arange(b, device="cuda"))
+                            [:, None] - kpos[None, :], s) < 200
+    q = torch.randn(b, 1, h, d, generator=g).cuda().to(torch.bfloat16)
+    kc = torch.randn(b, s, k, d, generator=g).cuda()
+    vc = torch.randn(b, s, k, d, generator=g).cuda()
+    out = {}
+    for name, store in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        entry = {"k": torch.empty(b, s, k, d, dtype=store, device="cuda"),
+                 "v": torch.empty(b, s, k, d, dtype=store, device="cuda")}
+        if store == torch.int8:
+            entry["ks"] = torch.empty(b, s, k, 1, device="cuda")
+            entry["vs"] = torch.empty(b, s, k, 1, device="cuda")
+        entry.update(attention.store_kv(entry, kc, vc))
+        kd, vd = attention.load_kv(entry, torch.bfloat16)
+        out[name] = check(
+            f"decode on a dequantized {name} ring B={b} H={h} K={k} D={d} "
+            f"S={s} (wrapped) bf16",
+            ops.decode_attention(q, kd, vd, valid),
+            dec.decode_attention_ref(q, kd, vd, valid), torch.bfloat16)
+    return out
+
+
+def recurrent_quant_reference(torch) -> None:
+    """recurrentgemma and mamba2 SMOKE in f32 on an int8 slot cache (the
+    ring quantized, the recurrent state f32), card against CPU: a 33-token
+    prefill of 3 rows and 4 teacher-forced decode steps (logits within
+    1e-3, max |Δ| printed); then 6 requests through ``LocalExecutor
+    (kv_dtype="int8")`` (DensePolicy) under a tick staircase that cuts 60%
+    of the KV headroom from tick 3 to 12: it preempts on both devices, and
+    the card's shocked tokens equal the CPU's shocked tokens and the
+    card's unshocked ones; on mamba2, which has no attention cache, they
+    also equal the model-dtype serve's bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import masks, memory
+    from repro_torch.core.policy import DensePolicy
+    from repro_torch.models import decoder, registry
+    from repro_torch.runtime import (EngineConfig, EngineRequest,
+                                     LocalExecutor, RAPEngine, TickStaircase)
+    for arch in ("recurrentgemma-9b", "mamba2-370m"):
+        cfg = get_smoke_config(arch)
+        model = registry.build(cfg)
+        params = {"cpu": model.init(0, "cpu")}
+        params["cuda"] = _tree_to(params["cpu"], "cuda")
+        toks = torch.randint(0, cfg.vocab_size, (3, 37),
+                             generator=torch.Generator().manual_seed(9))
+        logits = {}
+        for dev, p in params.items():
+            lg, cache = decoder.prefill(p, cfg, toks[:, :33].to(dev), 64,
+                                        kv_dtype=torch.int8)
+            steps = [lg]
+            for t in range(33, 37):
+                st, cache = decoder.decode_step(p, cfg, cache,
+                                                toks[:, t:t + 1].to(dev))
+                steps.append(st[:, -1])
+            logits[dev] = torch.stack([x.cpu() for x in steps])
+        err = max_err(logits["cuda"], logits["cpu"])
+        mm = memory.build_memory_model(cfg)
+        full = masks.full_mask(cfg.n_layers)
+        budget = mm.param_bytes(full) + 2.5 * mm.state_bytes(full, 1, 32)
+        prompt = torch.randint(0, cfg.vocab_size, (1, 24),
+                               generator=torch.Generator().manual_seed(3))
+        runs = {}
+        cases = [("cuda", "int8", False), ("cuda", "int8", True),
+                 ("cpu", "int8", True)]
+        if arch == "mamba2-370m":
+            cases.append(("cuda", None, True))
+        for dev, kv, shock in cases:
+            eng = RAPEngine(model, params[dev], DensePolicy(mm), EngineConfig(
+                mode="masked", max_new_tokens=6, max_active=4, max_len=32,
+                budget_bytes=budget, tokens_per_page=8, kv_dtype=kv,
+                decode_horizon=2), executor=LocalExecutor(
+                    model, params[dev], max_active=4, kv_dtype=kv))
+            trace = None
+            if shock:
+                kvb = budget - eng.resident_param_bytes
+                low = (eng.resident_param_bytes + 0.4 * kvb) / budget
+                trace = TickStaircase(budget, [(3, 1.0), (9, low), (0, 1.0)])
+            rep = eng.run([EngineRequest(
+                rid=f"r{i}", prompt=prompt[:, : (18 if i % 2 else 24)].numpy())
+                for i in range(6)], budget_trace=trace)
+            if {r.status for r in rep.results} != {"done"}:
+                raise AssertionError(f"{arch} ({dev}, {kv}): not every "
+                                     f"request finished")
+            runs[dev, kv, shock] = rep
+        ref = {r.rid: r.tokens for r in runs["cuda", "int8", True].results}
+        agree = {key: all(np.array_equal(r.tokens, ref[r.rid])
+                          for r in rep.results)
+                 for key, rep in runs.items()}
+        preempted = {f"{d}{'' if s else ' unshocked'}": r.preempted_count
+                     for (d, kv, s), r in runs.items() if kv == "int8"}
+        print(f"  reference ({arch} SMOKE f32, int8 slot cache): prefill + "
+              f"decode logits max|Δ| card vs CPU {err:.2e}; preempted "
+              f"{preempted}; shocked card tokens equal to the CPU's "
+              f"{agree['cpu', 'int8', True]} and to the unshocked card run "
+              f"{agree['cuda', 'int8', False]}"
+              + ("" if arch != "mamba2-370m" else
+                 f"; int8 tokens equal to the model-dtype serve's "
+                 f"{agree['cuda', None, True]}"))
+        if (err > 1e-3 or not all(agree.values())
+                or runs["cuda", "int8", True].preempted_count < 1
+                or runs["cpu", "int8", True].preempted_count < 1):
+            raise AssertionError(f"{arch} on an int8 slot cache: the card "
+                                 f"disagrees with the CPU or with itself")
+
+
+def decode_horizon_phase(torch) -> None:
+    """The one-call decode surfaces on the card: ``decode_horizon`` and
+    ``decode`` on both executors (the small f32 llama2, 4 layers) and
+    ``SlotGroup.decode_horizon`` / ``decode_once`` (llama2, and
+    recurrentgemma SMOKE on an int8 ring), each against a twin executor
+    driven through ``decode_launch`` / ``decode_finish`` on the same two
+    seated requests: tokens and host positions equal bitwise."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import masks
+    from repro_torch.models import registry
+    from repro_torch.runtime import KVPool, LocalExecutor, PagedExecutor
+    built = {}
+    for arch, kind, kv in (("llama2-7b", "local", None),
+                           ("llama2-7b", "paged", None),
+                           ("recurrentgemma-9b", "local", "int8")):
+        if arch not in built:
+            cfg = get_smoke_config(arch)
+            cfg = cfg.replace(n_layers=4) if arch == "llama2-7b" else cfg
+            model = registry.build(cfg)
+            built[arch] = (model, model.init(0, "cuda"))
+        model, params = built[arch]
+        full = masks.full_mask(model.cfg.n_layers)
+        prompt = torch.randint(0, model.cfg.vocab_size, (2, 16),
+                               generator=torch.Generator().manual_seed(4))
+        twins = []
+        for _ in range(2):
+            make = PagedExecutor if kind == "paged" else LocalExecutor
+            ex = make(model, params, max_active=4, kv_dtype=kv)
+            if kind == "paged":
+                page_bytes = ex.page_phys_bytes(8)
+                pool = KVPool(16 * page_bytes, page_bytes=page_bytes,
+                              tokens_per_page=8)
+                ex.bind_pool(pool, max_len=64)
+                for i in range(2):
+                    pool.alloc_tokens(f"r{i}", 1, 16, max_tokens=64)
+            g = ex.group_for(full, 48)
+            for i in range(2):
+                ex.prefill_into(g, [i], f"r{i}", prompt[i:i + 1].numpy(),
+                                full)
+            twins.append((ex, g))
+        (a, ga), (b, gb) = twins
+        got, want = [], []
+        for h in (4, 2):
+            toks, new = a.decode_horizon(ga, h)
+            got.append(toks)
+            want.append(b.decode_finish(b.decode_launch(gb, h)))
+            if new is not False:
+                raise AssertionError("decode_horizon reported a compile")
+        got.append(a.decode(ga)[0][:, None])
+        want.append(b.decode_finish(b.decode_launch(gb, 1)))
+        if kind == "local":
+            got.append(ga.decode_horizon(3, a.decode_buckets)[0])
+            want.append(b.decode_finish(b.decode_launch(gb, 3)))
+            got.append(ga.decode_once(a.decode_buckets)[0][:, None])
+            want.append(b.decode_finish(b.decode_launch(gb, 1)))
+        same = all(np.array_equal(x[:2], y[:2]) for x, y in zip(got, want))
+        same_pos = np.array_equal(ga.pos[:2], gb.pos[:2])
+        print(f"  decode_horizon ({arch}, {kind}, {kv or 'model-dtype'} "
+              f"cache): {sum(x.shape[1] for x in got)} tokens a row through "
+              f"the one-call surfaces, equal to decode_launch/decode_finish "
+              f"bitwise: {same}; positions {[int(x) for x in ga.pos[:2]]} equal: "
+              f"{same_pos}")
+        if not (same and same_pos):
+            raise AssertionError("decode_horizon disagrees with "
+                                 "decode_launch/decode_finish")
+
+
+def kernels_demo_phase(torch, ops) -> dict:
+    """``examples/kernels_demo_torch.py``'s ``main`` in this process on the
+    card: every kernel launched once on the demo's inputs, each within its
+    tolerance of its plain version (f32: 1e-4; ssd and rglru their
+    ``SCAN_TOL``). Returns the deviations."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "kernels_demo_torch", ROOT / "examples" / "kernels_demo_torch.py")
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    ops.reset_launches()
+    errs = demo.main(["--device", "cuda"])
+    counts = ops.launch_counts()
+    tol = {name: SCAN_TOL.get(name, TOL["torch.float32"]) for name in counts}
+    bad = {n: e for n, e in errs.items() if not e <= tol[n]}
+    if set(errs) != set(counts) or bad or set(counts.values()) != {1}:
+        raise AssertionError(f"the kernel demo failed: over tolerance {bad}, "
+                             f"launches {counts}")
+    return errs
+
+
+def u1_probe(torch, ops, card: str) -> dict:
+    """ROADMAP queue 3, U1: whisper-medium's three full-width remat train
+    steps (``WHISPER_TRAIN_ARGV``, ``--lr 3e-2``) with f32 params and
+    activations in place of bf16. Prints the share of the elements of
+    ``stacks/cross/wq`` and of all leaves that moved; the run must finish
+    its three steps with finite losses, and the shares are not gated."""
+    import gc
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-medium").replace(param_dtype="float32",
+                                               dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    summary, moved, secs = watched_train(torch, WHISPER_TRAIN_ARGV, cfg)
+    losses = [h["loss"] for h in summary["history"]]
+    leaf = "stacks/cross/wq"
+    share = {k: n / size for k, (n, size) in moved.items()}
+    total = (sum(n for n, _ in moved.values())
+             / max(sum(z for _, z in moved.values()), 1))
+    least = min(share, key=share.get) if share else None
+    out = {"seconds": secs, "losses": losses, "moved_fraction": total,
+           "cross_wq_moved": share.get(leaf),
+           "least_moved_leaf": [least, share.get(least)],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"  U1 probe: launch.train {' '.join(WHISPER_TRAIN_ARGV)} in f32 "
+          f"[{card}]: losses {[round(x, 4) for x in losses]}; {leaf} moved "
+          f"{share.get(leaf)}; all elements {total:.4f}; least {least} "
+          f"{share.get(least)}; {secs:.1f} s, peak {out['peak_gb']:.2f} GB")
+    print("u1: " + json.dumps(out))
+    if (summary["final_step"] != 3 or not np.all(np.isfinite(losses))
+            or leaf not in share):
+        raise AssertionError("the U1 probe's f32 training did not finish")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve6_quant_phase(torch, ops, card: str, s6: dict) -> dict:
+    """Serve 6 (recurrentgemma-9b at full width, 38 layers, slot caches)
+    with ``--kv-dtype int8`` and ``--kv-dtype fp8``: serve 1's checks, the
+    ring in that precision, the launches the layout implies
+    (``check_recurrent_launches``) and exactly those of the decoder's
+    recorded calls (12 dense decode launches a decode step, as serve 6),
+    none paged; wall, tok/s and peak beside serve 6's. Returns each
+    serve's summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder
+    cfg = get_config("recurrentgemma-9b")
+    n_local = sum(s.mixer == "local_attn" for s in decoder.default_layout(cfg))
+    out = {}
+    for kv, argv in SERVE6_QUANT_ARGV.items():
+        print(f"serve 6 {kv}:")
+        with LayoutRecorder() as rec:
+            s = serve_phase(torch, ops, card, argv)
+        c = s["launches"]
+        check_recurrent_launches(f"serve 6 {kv}", "recurrentgemma-9b", c)
+        want = layout_launches(cfg, rec.calls)
+        steps = sum(name == "decode_step" for name, _, _ in rec.calls)
+        per_step = c["decode_attention"] / max(steps, 1)
+        print(f"  serve 6 {kv} [{card}]: {s['wall_s']:.1f} s wall, "
+              f"{s['tok_per_s']:.2f} tok/s, peak {s['peak_gb']:.2f} GB, KV "
+              f"in {s['kv_dtype']}; serve 6 (model dtype): "
+              f"{s6['wall_s']:.1f} s, {s6['tok_per_s']:.2f} tok/s, peak "
+              f"{s6['peak_gb']:.2f} GB; {steps} decode steps, "
+              f"{per_step:g} dense decode launches a step (the layout's "
+              f"{n_local})")
+        store = {"int8": "int8", "fp8": "float8_e4m3fn"}[kv]
+        if (s["kv_dtype"] != store or c != want or per_step != n_local
+                or steps < 1):
+            raise AssertionError(f"serve 6 {kv} failed its checks: "
+                                 f"{c} against {want}")
+        out[kv] = s
+    return out
+
+
 def serves(torch, ops, card: str) -> dict:
-    """Serves 1-9, each with its checks; returns their launch counts
-    (``c1``..``c9``, serve 8's grid-0.6 run ``c8l``, serve 7's training
+    """Serves 1-9 and serve 6 on int8 and fp8 slot caches, each with its
+    checks; returns their launch counts (``c1``..``c9``, ``c6_int8``,
+    ``c6_fp8``, serve 8's grid-0.6 run ``c8l``, serve 7's training
     ``c7_train``)."""
     print("serve:")
     s1 = serve_phase(torch, ops, card, SERVE_ARGV)
@@ -2909,6 +3231,7 @@ def serves(torch, ops, card: str) -> dict:
     s6 = serve_phase(torch, ops, card, SERVE6_ARGV)
     c6 = s6["launches"]
     check_recurrent_launches("serve 6", "recurrentgemma-9b", c6)
+    s6q = serve6_quant_phase(torch, ops, card, s6)
     print("serve 7:")
     t0 = time.perf_counter()
     s7 = train_phase(torch, ops, card)
@@ -2933,7 +3256,8 @@ def serves(torch, ops, card: str) -> dict:
     return {"c1": c1, "c2": c2, "c3": c3, "c4": c4, "c5": c5, "c6": c6,
             "c7": s7["launches"], "c7_train": s7["train_launches"],
             "c8": s8["launches"], "c8l": s8l["launches"],
-            "c9": s9["launches"]}
+            "c9": s9["launches"], "c6_int8": s6q["int8"]["launches"],
+            "c6_fp8": s6q["fp8"]["launches"]}
 
 
 def main() -> None:
@@ -2979,6 +3303,9 @@ def main() -> None:
                glu_cases(torch, ops, swiglu), flash_cases(torch, ops, fa),
                decode_cases(torch, ops, dec, pdec, attention, timed),
                ssd_cases(torch, ops, ssd), rglru_cases(torch, ops, rglru)]
+    ring = ring_quant_cases(torch, ops, dec, attention)
+    next(e for e in entries if e["name"] == "decode_attention").update(
+        {f"max_abs_err_{k}_ring": v for k, v in ring.items()})
     for e in entries:
         for t in [e] + [x for x in e.values() if isinstance(x, dict)]:
             lib_ms = t["library_ms"]
@@ -3005,7 +3332,13 @@ def main() -> None:
     fp8_slot_reference(torch)
     moe_reference(torch)
     whisper_reference(torch)
+    recurrent_quant_reference(torch)
+    decode_horizon_phase(torch)
     print(f"reference: {time.perf_counter() - t0:.1f} s")
+    print("kernel demo (examples/kernels_demo_torch.py):")
+    t0 = time.perf_counter()
+    demo = kernels_demo_phase(torch, ops)
+    print(f"  kernel demo: {time.perf_counter() - t0:.1f} s")
     runs = serves(torch, ops, card)
     print("serve 10:")
     t0 = time.perf_counter()
@@ -3033,6 +3366,10 @@ def main() -> None:
                 c_whisper_train=whisper["train"]["launches"])
     print(f"  the MoE serves and whisper-medium: "
           f"{time.perf_counter() - t0:.1f} s")
+    print("U1 probe (whisper-medium training in f32):")
+    t0 = time.perf_counter()
+    u1_probe(torch, ops, card)
+    print(f"  U1 probe: {time.perf_counter() - t0:.1f} s")
     print("shock:")
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
@@ -3054,6 +3391,9 @@ def main() -> None:
         for i in range(1, 17):
             e[f"launches_serve{i}"] = c[f"c{i}"][e["name"]]
         e["launches_serve_fp8_slot"] = c["c_fp8_slot"][e["name"]]
+        for kv in ("int8", "fp8"):
+            e[f"launches_serve6_{kv}"] = c[f"c6_{kv}"][e["name"]]
+        e["demo_max_abs_err"] = demo[e["name"]]
         for key in ("olmoe-1b-7b", "dbrx-132b", "whisper_bf16",
                     "whisper_int8", "whisper_train"):
             e[f"launches_{key.replace('-', '_')}"] = c[f"c_{key}"][e["name"]]

@@ -3,7 +3,8 @@
   python -m repro_torch.launch.serve --executor {local,paged} \
       --mode {structural,masked} [--bucket-quant pow2] --policy rl \
       --episodes 0 --requests 6 [--kv-dtype int8] \
-      [--max-prefill-tokens 64] [--budget-trace staircase]
+      [--chunked-prefill | --max-prefill-tokens N] \
+      [--budget-trace staircase]
   python -m repro_torch.launch.serve --serial --mode masked --requests 2
 
 Boots the model (``--arch``: one of :data:`ARCHS` — the dense llama2-7b,
@@ -34,16 +35,18 @@ trace of (batch, prompt) requests. Two serving paths:
     a page pool and decodes through the paged decode kernel.
     ``--kv-dtype`` picks the KV precision (int8 slot caches are dequantized
     and fp8 slot caches cast before the kernel; int8/fp8 pages decode
-    through the fused-dequant kernel) and ``--max-prefill-tokens`` turns
-    on chunked prefill.
+    through the fused-dequant kernel) and ``--chunked-prefill`` (chunks of
+    at most 64 tokens) or ``--max-prefill-tokens N`` turns on chunked
+    prefill.
     ``--budget-trace`` makes the budget move while requests are served
     (DESIGN.md §11): running requests are preempted (state and KV spilled
     to the host) when it drops and resumed when it recovers, unless
     ``--no-enable-preemption``. The
     recurrent architectures serve on ``--executor local`` at the model
-    dtype and prefill monolithically (their state has no positional
-    frontier to resume from); the paged executor and a quantized KV cache
-    refuse them;
+    dtype or on int8/fp8 slot caches (the local-attention ring
+    quantized, the recurrent state f32) and prefill monolithically (their
+    state has no positional frontier to resume from); the paged executor
+    refuses them;
   * ``--serial`` — the one-shot ``RAPServer`` replay: each request alone,
     against its own budget from the trace, executed whether it fits or not.
 
@@ -122,10 +125,17 @@ def _parser() -> argparse.ArgumentParser:
                          "cast; 'auto' picks int8 when the pool "
                          "cannot hold --slots dense batch-1 requests, else "
                          "the model dtype")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="prefill prompts in pow2 chunks, one chunk per "
+                         "engine tick between decode horizons, so a long "
+                         "prompt cannot stall running decodes; the chunk cap "
+                         "is 64 tokens unless --max-prefill-tokens is given")
     ap.add_argument("--max-prefill-tokens", type=int, default=0,
                     help="chunked prefill: prompts prefill in pow2 chunks of "
                          "at most this many tokens, one chunk per engine "
-                         "tick between decode horizons (0 = monolithic)")
+                         "tick between decode horizons (implies "
+                         "--chunked-prefill; 0 = monolithic unless "
+                         "--chunked-prefill is set)")
     ap.add_argument("--budget-trace", choices=("none", "workload",
                                                "staircase"),
                     default="none",
@@ -158,6 +168,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
     """Parse ``argv``, serve, print the report; returns (engine, report)."""
     ap = _parser()
     args = ap.parse_args(argv)
+    if args.chunked_prefill and args.max_prefill_tokens <= 0:
+        args.max_prefill_tokens = 64
     if args.executor == "sharded":
         raise NotImplementedError(
             "--executor sharded: multi-GPU serving is ROADMAP queue 1, "
@@ -170,13 +182,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
     import numpy as np
     import torch
 
-    if args.device == "cpu":
-        device = torch.device("cpu")
-    else:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device found; pass --device cpu to "
-                               "run the plain versions on the CPU")
-        device = torch.device(args.device)
+    from repro_torch.launch import resolve_device
+    device = resolve_device(args.device)
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import dqn, env as env_lib, masks, memory, workload

@@ -64,15 +64,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.mesh:
         raise NotImplementedError(
             "--mesh: multi-GPU training is ROADMAP queue 1, item 16")
-    import torch
-
-    if args.device == "cpu":
-        device = torch.device("cpu")
-    else:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device found; pass --device cpu to "
-                               "run the plain versions on the CPU")
-        device = torch.device(args.device)
+    from repro_torch.launch import resolve_device
+    device = resolve_device(args.device)
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import SyntheticCorpus, batch_iterator

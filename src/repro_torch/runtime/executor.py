@@ -206,7 +206,8 @@ class ModelExecutor:
 
     ``group_for`` resolves a keep-mask to the group that will host the
     request; ``prefill_into`` seats a prefilled request; ``decode_launch``
-    / ``decode_finish`` advance one group H tokens with one read-back.
+    / ``decode_finish`` advance one group H tokens with one read-back
+    (``decode_horizon`` / ``decode`` are the one-call forms, JAX's).
     ``launch_s`` accumulates wall time spent launching device work and
     reading it back. ``paged`` marks backends whose KV lives in a
     :class:`KVPool`'s page tensors (the engine then admits through the
@@ -230,6 +231,20 @@ class ModelExecutor:
         """Read ``launch``'s tokens back (the tick's one sync) as
         [n_slots, horizon] tokens."""
         raise NotImplementedError
+
+    def decode_horizon(self, group, horizon: int) -> Tuple[np.ndarray, bool]:
+        """Advance every occupied slot of ``group`` by ``horizon`` tokens:
+        ``decode_finish(decode_launch(group, horizon))`` with no host work
+        between, as JAX's pair ([n_slots, horizon] tokens, new-compile
+        flag). The port compiles no per-bucket executable: the flag is
+        always False."""
+        return self.decode_finish(self.decode_launch(group, horizon)), False
+
+    def decode(self, group) -> Tuple[np.ndarray, bool]:
+        """One token: ``decode_horizon(group, 1)`` as ([n_slots] tokens,
+        False)."""
+        toks, new = self.decode_horizon(group, 1)
+        return toks[:, 0], new
 
     def groups(self) -> list:
         raise NotImplementedError
@@ -375,6 +390,29 @@ class SlotGroup:
         self.tokens[iidx] = toks[:, -1:]
         return toks, idx
 
+    def decode_horizon(self, horizon: int, buckets: Sequence[int] = ()
+                       ) -> Tuple[np.ndarray, bool]:
+        """Advance every occupied slot ``horizon`` tokens and read them
+        back: ([n_slots, horizon] tokens, rows of unstepped slots zero; the
+        new-compile flag, always False: the port compiles no per-bucket
+        executable). Moves the host positions of the occupied slots."""
+        toks_dev, idx = self.launch_horizon(horizon, buckets)
+        out = toks_dev.cpu().numpy()
+        if idx is not None:
+            out, stepped = np.zeros((self.n_slots, int(horizon)),
+                                    np.int32), out
+            out[idx] = stepped
+        for s in self.occupied_slots():
+            self.pos[s] += int(horizon)
+        return out, False
+
+    def decode_once(self, buckets: Sequence[int] = ()
+                    ) -> Tuple[np.ndarray, bool]:
+        """One token: ``decode_horizon(1, buckets)`` as ([n_slots] tokens,
+        False)."""
+        toks, new = self.decode_horizon(1, buckets)
+        return toks[:, 0], new
+
 
 class LocalExecutor(ModelExecutor):
     """Slot-batched execution: one :class:`SlotGroup` per cache length
@@ -386,7 +424,10 @@ class LocalExecutor(ModelExecutor):
     per-(token, kv head) scales (``attention.kv_quant``) and is
     dequantized to the model dtype before the decode kernel, as in JAX; an
     fp8 (float8_e4m3fn) slot cache is a plain cast on store and on load,
-    as in JAX (no scale, no clipping). Decode steps the occupied
+    as in JAX (no scale, no clipping). On a recurrent layout the precision
+    applies to the local-attention ring alone (RG-LRU and SSD state stay
+    f32, as in JAX), so on mamba2, which has no attention cache, it
+    changes nothing. Decode steps the occupied
     slots in the smallest bucket of ``decode_buckets`` that holds them.
     ``groups_minted`` counts the groups (dense caches) created.
 
@@ -406,12 +447,7 @@ class LocalExecutor(ModelExecutor):
             raise ValueError(f"unknown bucket_quant {bucket_quant!r}; "
                              f"expected none|layer|pow2")
         decoder.check_supported(model.cfg)
-        _, store, quantized, _ = resolve_kv_dtype(kv_dtype)
-        if quantized and not decoder.is_attn_layout(model.cfg):
-            raise NotImplementedError(
-                f"a quantized KV cache on {model.cfg.name!r}'s recurrent / "
-                f"local-attention layout is ROADMAP queue 1, item 13; serve "
-                f"it at the model dtype")
+        _, store, _, _ = resolve_kv_dtype(kv_dtype)
         self.mcfg = model.cfg
         self.params = params
         self.device = params["embed"].device

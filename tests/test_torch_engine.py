@@ -12,8 +12,8 @@ per-slot gates are exercised too.
 Also here: the port's own report invariants and horizon invariance, the
 ``launch.serve`` entry point on the CPU, the later-slice switches that must
 raise ``NotImplementedError``, and the import guard (no module of the port,
-and not ``chip_smoke.py``, imports JAX, the JAX package or its
-``benchmarks/`` scripts).
+not ``chip_smoke.py`` and not the example twins ``examples/*_torch.py``
+imports JAX, the JAX package or its ``benchmarks/`` scripts).
 """
 import os
 import re
@@ -207,11 +207,14 @@ class Block:
         return None
 
 sys.meta_path.insert(0, Block())
+TWINS = %r
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name, path in [("chip_smoke", "chip_smoke.py")] + [
+        (n, f"examples/{n}.py") for n in TWINS]:
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
 assert not bad, bad
@@ -219,9 +222,15 @@ print("imported", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
 
 
+# the example twins on the port (the JAX originals import JAX)
+EXAMPLE_TWINS = ("quickstart_torch", "serve_elastic_budget_torch",
+                 "train_e2e_torch", "kernels_demo_torch")
+
+
 def test_port_imports_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", _GUARD], cwd=ROOT, env=env,
+    out = subprocess.run([sys.executable, "-c", _GUARD % (EXAMPLE_TWINS,)],
+                         cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "imported" in out.stdout
@@ -232,6 +241,7 @@ def test_no_import_statement_names_jax_or_repro():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro|benchmarks)"
                      r"(\.|\s|$)", re.M)
     files = [ROOT / "chip_smoke.py",
+             *(ROOT / "examples" / f"{n}.py" for n in EXAMPLE_TWINS),
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in files
             for m in pat.finditer(f.read_text())]

@@ -23,8 +23,10 @@ numpy inputs:
 * the canonical engine trace of ``tests/test_torch_engine.py`` through
   ``LocalExecutor`` (masks, tokens, pool peak, statuses equal), one with
   ``max_prefill_tokens`` > 0, which both packages prefill monolithically;
-* the memory model, and the paths that refuse these layouts (paged
-  executor, quantized caches, chunked prefill), and the launcher.
+* the memory model, the paths that refuse these layouts (paged
+  executor, chunked prefill), quantized slot caches that serve them
+  (``tests/test_torch_recurrent_quant.py`` holds those to JAX), and the
+  launcher.
 """
 import functools
 
@@ -498,8 +500,13 @@ def test_attention_only_paths_refuse_the_layout(name):
     with pytest.raises(NotImplementedError, match="uniform all-attention"):
         PagedExecutor(tm, tp)
     for kv in ("int8", "fp8"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            LocalExecutor(tm, tp, kv_dtype=kv)
+        # a quantized slot cache serves these layouts (the ring quantized,
+        # the recurrent state f32), as JAX's LocalExecutor does
+        ex = LocalExecutor(tm, tp, kv_dtype=kv)
+        group = ex.group_for(masks.full_mask(tm.cfg.n_layers), 16)
+        assert not ex.supports_chunked_prefill(group)
+        if "local_attn" in group.cache:
+            assert group.cache["local_attn"]["k"].dtype == ex.kv_dtype
     cache = decoder.init_cache(tm.cfg, 1, 16)
     with pytest.raises(NotImplementedError, match="uniform all-attention"):
         decoder.prefill_chunk(tp, tm.cfg, cache,
@@ -519,5 +526,8 @@ def test_serve_entry_point_recurrent(arch, capsys):
     assert "tok/s" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="uniform all-attention"):
         serve.main(argv + ["--executor", "paged"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        serve.main(argv + ["--kv-dtype", "int8"])
+    eng, rep = serve.main(argv + ["--kv-dtype", "int8"])
+    assert eng.executor.kv_dtype == torch.int8
+    assert all(r.status == "done" and r.tokens.shape[1] == 4
+               for r in rep.results)
+    assert rep.pool["overcommit_events"] == 0
