@@ -200,6 +200,23 @@ decode_horizon``/``decode_once``) bitwise against ``decode_launch``/
 ``decode_finish``; the kernel phase runs the dense decode kernel on
 recurrentgemma's wrapped ring stored in int8 and in fp8 and dequantized.
 
+Multi-GPU (the sharded executor, the mesh trainer) runs here on the one
+card as the degenerate 1 x 1 mesh, a real NCCL world of one, torn down
+after each phase: serve 3 and the same argv with ``--executor sharded
+--mesh 1x1`` on a clock that advances per reading (``TickClock``: the
+trace's admissions then do not depend on the card's speed), whose tokens,
+masks and kernel launches must be equal, and ``--mesh auto`` giving the
+same mesh; a warmed sharded horizon launched under
+``torch.cuda.set_sync_debug_mode("error")`` up to its one read-back; in
+the reference phase, a sharded 1 x 1 SMOKE f32 trace under a shock with
+the CPU's local tokens, ``moe_ffn_ep`` on a model group of one bitwise
+``moe_ffn_scatter`` (the GLU kernel on the expert buffer), and
+``compress_allreduce`` bitwise the CPU's quantizer; and ``launch.train
+--mesh`` (llama2-7b full width, 2 layers, 3 steps, in a child process
+under deterministic algorithms) with the meshless run's losses bit for
+bit, one ``make_compressed_train_step`` step, and a ``remesh`` onto the
+same mesh that leaves the state bitwise.
+
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a GPU, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
@@ -279,6 +296,10 @@ NEW_ARCH_ARGV = {arch: [{"llama2-7b": arch}.get(a, a) if prev != "--requests"
                  for arch in NEW_ARCHS}
 # serve 3 on fp8 slot caches: a plain cast on store and load
 SERVE_FP8_SLOT_ARGV = SERVE3_ARGV + ["--kv-dtype", "fp8"]
+# serve 3 on the sharded executor: a 1 x 1 mesh, an NCCL world of one
+SERVE3_SHARDED_ARGV = SERVE3_ARGV + ["--executor", "sharded", "--mesh", "1x1"]
+SERVE3_AUTO_ARGV = SERVE3_ARGV + ["--executor", "sharded", "--mesh", "auto",
+                                  "--requests", "2"]
 # the MoE decoders: serve 1 with 3 requests at full width (dbrx-132b cut in
 # depth, in-process, to the most layers that fit: ``dbrx_depth``)
 MOE_ARCHS = ("olmoe-1b-7b", "dbrx-132b")
@@ -1615,7 +1636,7 @@ def serve_phase(torch, ops, card: str, argv,
     decides = [r.decide_s * 1e3 for r in done if not r.cached_decision]
     summary = {"card": card, "arch": arch, "layers": cfg.n_layers,
                "requests": len(done),
-               "executor": "paged" if ex.paged else "local",
+               "executor": type(ex).__name__,
                "kv_dtype": kv_dtype,
                "n_pages": int(pool["n_pages"]),
                "in_use_scale": pool["in_use_scale"],
@@ -1645,6 +1666,8 @@ def serve_phase(torch, ops, card: str, argv,
           f"{summary['decide_s_total']:.1f} s, prefill + decode launches and "
           f"read-backs {rep.launch_s:.1f} s")
     print("serve: " + json.dumps(summary))
+    summary["streams"] = {r.rid: (r.tokens.tolist(), r.mask.tolist())
+                          for r in done}
     # free the model before the next serve
     del engine, rep, ex
     gc.collect()
@@ -3188,6 +3211,311 @@ def serve6_quant_phase(torch, ops, card: str, s6: dict) -> dict:
     return out
 
 
+class TickClock:
+    """Within the block, a ``RAPEngine``'s clock advances 1 ms per reading
+    (plus its own idle skips) instead of following the wall: a trace's
+    arrivals and admissions then do not depend on how fast the card runs,
+    so two serves of one argv take the same decisions. Its tok/s and
+    latencies are on that clock; the phases print wall-clock rates."""
+
+    def __enter__(self):
+        from repro_torch.runtime import engine
+        self._cls = engine.RAPEngine
+        self._orig = self._cls._now
+
+        def now(eng):
+            eng._tick_s = getattr(eng, "_tick_s", 0.0) + 1e-3
+            return eng._tick_s + eng._skew
+        self._cls._now = now
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._now = self._orig
+        return False
+
+
+def sharded_serve_phase(torch, ops, card: str, s3: dict) -> dict:
+    """Serve 3 and serve 3 on ``--executor sharded --mesh 1x1`` (an NCCL
+    world of one), both on the ``TickClock``: the same masks and tokens,
+    the same launches of every kernel, 0 overcommits, ``mesh_devices`` 1;
+    their wall, tok/s and peak printed beside the real-clock serve 3's.
+    Then ``--mesh auto`` (2 requests) must pick the same 1 x 1 mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    with TickClock():
+        print("serve 3 on the tick clock:")
+        ref = serve_phase(torch, ops, card, SERVE3_ARGV)
+        print("serve 3 sharded (1 x 1 mesh, NCCL world of one):")
+        sh = serve_phase(torch, ops, card, SERVE3_SHARDED_ARGV)
+    if dist.is_initialized():
+        raise AssertionError("the sharded serve left its process group up")
+    same = sh["streams"] == ref["streams"]
+    launches = sh["launches"] == ref["launches"]
+    stats = sh["bucket_stats"]
+    rate = lambda r: r["generated_tokens"] / r["wall_s"]
+    for name, r in (("serve 3 (real clock)", s3), ("serve 3 (tick clock)",
+                                                   ref),
+                    ("serve 3 sharded 1x1 (tick clock)", sh)):
+        print(f"  {name} [{card}]: wall {r['wall_s']:.2f} s, "
+              f"{rate(r):.2f} tok/s over the wall, peak {r['peak_gb']:.2f} "
+              f"GB, launches {r['launches']}")
+    print(f"  sharded vs tick-clock serve 3: tokens and masks equal {same}; "
+          f"launches equal {launches}; executor {sh['executor']}, "
+          f"mesh_devices {stats.get('mesh_devices')}")
+    if (not same or not launches or stats.get("mesh_devices") != 1
+            or sh["executor"] != "ShardedExecutor"):
+        raise AssertionError("the sharded 1 x 1 serve is not serve 3")
+    with TickClock():
+        engine, rep = serve.main(SERVE3_AUTO_ARGV)
+    shape = dict(engine.executor.mesh.shape)
+    n = len(rep.results)
+    done = sum(r.status == "done" for r in rep.results)
+    print(f"  --mesh auto: {shape}, {done}/{n} done")
+    del engine, rep
+    if shape != {"data": 1, "model": 1} or done != n or n != 2:
+        raise AssertionError("--mesh auto did not serve on the 1 x 1 mesh")
+    print(f"  sharded serves: {time.perf_counter() - t0:.1f} s")
+    return sh
+
+
+def sharded_horizon_sync(torch) -> None:
+    """A warmed sharded horizon (llama2-7b full width, 2 layers, 4 slots
+    on the 1 x 1 mesh) launched under ``set_sync_debug_mode("error")``:
+    no host-device synchronisation until its one read-back, the twin of
+    JAX's zero-transfer test."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core import masks
+    from repro_torch.launch.mesh import destroy_distributed, make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.runtime import ShardedExecutor
+    t0 = time.perf_counter()
+    mesh = make_host_mesh((1, 1), ("data", "model"), device="cuda")
+    try:
+        cfg = get_config("llama2-7b").replace(n_layers=2)
+        model = registry.build(cfg)
+        params = model.init(0, "cuda")
+        ex = ShardedExecutor(model, mesh, params=params, max_active=4)
+        full = masks.full_mask(cfg.n_layers)
+        group = ex.group_for(full, 64)
+        prompt = np.arange(16, dtype=np.int32)[None] % cfg.vocab_size
+        ex.prefill_into(group, [0], "r0", prompt, full)
+        ex.prefill_into(group, [2], "r1", prompt[:, :12], full)
+        ex.decode_horizon(group, 4)                      # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks_dev, idx = group.launch_horizon(4, ex.decode_buckets)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        toks = toks_dev.cpu().numpy()                    # the one read-back
+        print(f"  warmed sharded horizon under set_sync_debug_mode('error'): "
+              f"no synchronisation before the read-back; tokens "
+              f"{toks.shape}, full width {idx is None} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if idx is not None or toks.shape != (4, 4):
+            raise AssertionError("the sharded horizon is not full width")
+        del ex, params, group
+    finally:
+        destroy_distributed()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def sharded_reference(torch, ops) -> None:
+    """On an NCCL world of one, SMOKE f32: (a) a sharded 1 x 1 trace under
+    a shock (80% of the KV headroom cut, ticks 3-13) gives the CPU's local
+    unshocked tokens; (b) ``moe_ffn_ep`` on a model group of one is
+    ``moe_ffn_scatter`` bit for bit and launches the GLU kernel on the
+    expert buffer; (c) ``compress_allreduce`` gives the CPU quantizer's
+    mean and residual bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import masks, memory
+    from repro_torch.core.policy import DensePolicy
+    from repro_torch.launch.mesh import destroy_distributed, make_host_mesh
+    from repro_torch.models import moe, registry
+    from repro_torch.parallel import activation as act
+    from repro_torch.parallel import compression
+    from repro_torch.runtime import (EngineConfig, EngineRequest, RAPEngine,
+                                     ShardedExecutor, TickStaircase)
+    mesh = make_host_mesh((1, 1), ("data", "model"), device="cuda")
+    try:
+        cfg = get_smoke_config("llama2-7b").replace(
+            n_layers=4, dtype="float32", param_dtype="float32")
+        model = registry.build(cfg)
+        cpu = model.init(0, "cpu")
+        gpu = _tree_to(cpu, "cuda")
+        mm = memory.build_memory_model(cfg)
+        toks = torch.randint(0, cfg.vocab_size, (1, 24),
+                             generator=torch.Generator().manual_seed(8)
+                             ).numpy()
+        full = masks.full_mask(cfg.n_layers)
+        budget = mm.param_bytes(full) + 2.5 * mm.state_bytes(full, 1, 26)
+        reqs = lambda: [EngineRequest(rid=f"r{i}",
+                                      prompt=toks[:, : (16 if i % 2 else 24)])
+                        for i in range(8)]
+        want = shock_engine(model, cpu, mm, "local", None, budget, 32, 6, 2,
+                            8).run(reqs())
+        eng = RAPEngine(model, gpu, DensePolicy(mm), EngineConfig(
+            mode="masked", max_new_tokens=6, max_active=4, max_len=32,
+            budget_bytes=budget, tokens_per_page=8, decode_horizon=2),
+            executor=ShardedExecutor(model, mesh, params=gpu, max_active=4))
+        kvb = budget - eng.resident_param_bytes
+        frac = (eng.resident_param_bytes + 0.2 * kvb) / budget
+        got = eng.run(reqs(), budget_trace=TickStaircase(
+            budget, [(3, 1.0), (10, frac), (0, 1.0)]))
+        ref = {r.rid: r.tokens for r in want.results}
+        same = all(np.array_equal(r.tokens, ref[r.rid])
+                   for r in got.results if r.status == "done")
+        done = sum(r.status == "done" for r in got.results)
+        print(f"  sharded 1x1 shocked trace (f32, card) vs local (CPU): "
+              f"{got.preempted_count} preempted, {done}/8 done, tokens "
+              f"equal {same}")
+        if not same or done != 8 or got.preempted_count < 1:
+            raise AssertionError("the sharded shocked trace differs from "
+                                 "the CPU's local tokens")
+        mcfg = get_smoke_config("olmoe-1b-7b").replace(
+            dtype="float32", param_dtype="float32")
+        mp = _tree_to(registry.build(mcfg).init(0, "cpu"), "cuda")
+        p = {k: mp["stacks"]["moe"][k][0] for k in ("wi", "wo", "router")}
+        x = torch.randn(4, 16, mcfg.d_model,
+                        generator=torch.Generator().manual_seed(3)).cuda()
+        ops.reset_launches()
+        with act.use(mesh):
+            ep = moe.moe_ffn_ep(p, mcfg, x, act.policy())
+        glu = ops.launch_counts()["fused_glu"]
+        plain = moe.moe_ffn_scatter(p, mcfg, x)
+        print(f"  moe_ffn_ep on a model group of one vs moe_ffn_scatter: "
+              f"bitwise {torch.equal(ep, plain)}, GLU launches {glu}")
+        if not torch.equal(ep, plain) or glu != 1:
+            raise AssertionError("moe_ffn_ep on one rank is not the "
+                                 "scatter dispatch")
+        g = {"w": torch.randn(4096, generator=torch.Generator()
+                              .manual_seed(5)),
+             "b": torch.randn(3, 7, generator=torch.Generator()
+                              .manual_seed(6)) * 1e-3}
+        res = {k: torch.randn_like(v) * 1e-4 for k, v in g.items()}
+        mean, new_r = compression.compress_allreduce(
+            {k: v.cuda() for k, v in g.items()},
+            {k: v.cuda() for k, v in res.items()})
+        ok = True
+        for k in g:
+            v = g[k].float() + res[k]
+            q, scale = compression._quantize(v)
+            deq = q.float() * scale
+            ok &= torch.equal(mean[k].cpu(), deq / 1)
+            ok &= torch.equal(new_r[k].cpu(), v - deq)
+        print(f"  compress_allreduce on a world of one vs the CPU's "
+              f"quantizer: bitwise {bool(ok)}")
+        if not ok:
+            raise AssertionError("compress_allreduce differs from the CPU")
+    finally:
+        destroy_distributed()
+
+
+MESH_TRAIN_ARGV = ["--arch", "llama2-7b", "--batch", "4", "--seq", "256",
+                   "--steps", "3"]
+
+
+def mesh_training(torch, ops) -> dict:
+    """(Its own process, under deterministic algorithms: see
+    ``exact_resume``.) ``launch.train`` on llama2-7b at full width and
+    ``FULL_TRAIN``'s depth for 3 steps, without and with ``--mesh`` (an
+    NCCL world of one); one ``make_compressed_train_step`` step; a
+    ``Trainer(mesh=)`` re-meshed onto the same mesh. Returns the losses,
+    the step's loss and movement, and whether the re-meshed state is
+    bitwise the state before."""
+    import contextlib
+    import io
+    import repro_torch.configs as configs
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import destroy_distributed, make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import compression
+    from repro_torch.runtime import Trainer, TrainerConfig, steps
+    from repro_torch.runtime.trainer import to_device
+    from repro_torch.data import SyntheticCorpus, batch_iterator
+    from repro_torch.tree import flatten
+    torch.use_deterministic_algorithms(True)
+    cfg = configs.get_config("llama2-7b").replace(
+        n_layers=FULL_TRAIN["layers"])
+    get_config = configs.get_config
+    configs.get_config = lambda name: cfg if name == "llama2-7b" else \
+        get_config(name)
+    out = {}
+    try:
+        for key, extra in (("meshless", []), ("mesh", ["--mesh"])):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                summary = train.main(MESH_TRAIN_ARGV + extra)
+            out[key] = _losses(summary)
+            out[f"{key}_s"] = time.perf_counter() - t0
+    finally:
+        configs.get_config = get_config
+    mesh = make_host_mesh((1, 1), ("data", "model"), device="cuda")
+    try:
+        model = registry.build(cfg)
+        corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+        batch = to_device(next(batch_iterator(corpus, 4, 256)), "cuda")
+        params = model.init(0, "cuda")
+        before = {k: v.clone() for k, v in flatten(params).items()}
+        step = steps.make_compressed_train_step(model, adamw.AdamWConfig(),
+                                                mesh)
+        new, _, res, metrics = step(params, adamw.init(params),
+                                    compression.init_residuals(params),
+                                    batch)
+        out["compressed_loss"] = float(metrics["loss"])
+        out["compressed_moved"] = max(
+            float((v.float() - before[k].float()).abs().max())
+            for k, v in flatten(new).items())
+        del new, res, params, before
+        tr = Trainer(model, adamw.AdamWConfig(lr=1e-4, total_steps=2),
+                     TrainerConfig(total_steps=2, log_every=1, remat=True),
+                     mesh=mesh, device="cuda")
+        tr.run(batch_iterator(corpus, 4, 256), steps=1)
+        was = {k: v.clone() for k, v in flatten(tr.gathered_state()).items()}
+        tr.remesh(mesh)
+        now = flatten(tr.gathered_state())
+        out["remesh_bitwise"] = all(torch.equal(was[k], now[k])
+                                    for k in was)
+        more = tr.run(batch_iterator(corpus, 4, 256, start=tr.step), steps=1)
+        out["after_remesh"] = _losses(more)
+    finally:
+        destroy_distributed()
+    return out
+
+
+def mesh_training_phase(torch, card: str) -> dict:
+    """:func:`mesh_training` in a child process (``chip_smoke.py
+    --mesh-train``, with ``CUBLAS_WORKSPACE_CONFIG`` set) and its checks."""
+    import os
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-train"],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    if child.returncode != 0:
+        raise AssertionError(f"the mesh training run failed:\n"
+                             f"{child.stdout[-2000:]}{child.stderr[-4000:]}")
+    r = json.loads(child.stdout.strip().splitlines()[-1])
+    print(f"  launch.train [{card}] (llama2-7b full width, "
+          f"{FULL_TRAIN['layers']} layers, B=4 S=256, 3 steps, deterministic "
+          f"algorithms): meshless {r['meshless']} in {r['meshless_s']:.1f} s; "
+          f"--mesh (1 x 1, NCCL) {r['mesh']} in {r['mesh_s']:.1f} s")
+    print(f"  compressed step: loss {r['compressed_loss']:.4f}, largest "
+          f"parameter move {r['compressed_moved']:.3e}; remesh onto the "
+          f"same mesh bitwise {r['remesh_bitwise']}, then "
+          f"{r['after_remesh']}; child {time.perf_counter() - t0:.1f} s")
+    if (r["mesh"] != r["meshless"] or len(r["mesh"]) != 3
+            or not np.isfinite(r["compressed_loss"])
+            or not r["compressed_moved"] > 0 or not r["remesh_bitwise"]
+            or not np.isfinite(list(r["after_remesh"].values())).all()):
+        raise AssertionError("the mesh training phase failed its checks")
+    return r
+
+
 def serves(torch, ops, card: str) -> dict:
     """Serves 1-9 and serve 6 on int8 and fp8 slot caches, each with its
     checks; returns their launch counts (``c1``..``c9``, ``c6_int8``,
@@ -3220,6 +3548,7 @@ def serves(torch, ops, card: str) -> dict:
             or c3["paged_decode_attention_quant"]):
         raise AssertionError("serve 3 did not decode through the dense "
                              "decode kernel alone")
+    c3s = sharded_serve_phase(torch, ops, card, s3)["launches"]
     print("serve 4:")
     t0 = time.perf_counter()
     c4 = serial_phase(torch, ops, card, SERVE4_ARGV)["launches"]
@@ -3257,7 +3586,7 @@ def serves(torch, ops, card: str) -> dict:
             "c7": s7["launches"], "c7_train": s7["train_launches"],
             "c8": s8["launches"], "c8l": s8l["launches"],
             "c9": s9["launches"], "c6_int8": s6q["int8"]["launches"],
-            "c6_fp8": s6q["fp8"]["launches"]}
+            "c6_fp8": s6q["fp8"]["launches"], "c3_sharded": c3s}
 
 
 def main() -> None:
@@ -3265,6 +3594,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--exact-resume", metavar="DIR",
                     help=argparse.SUPPRESS)    # the train phase's child
+    ap.add_argument("--mesh-train", action="store_true",
+                    help=argparse.SUPPRESS)    # the mesh phase's child
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3286,6 +3617,10 @@ def main() -> None:
     if args.exact_resume:
         build.build()
         print(json.dumps(exact_resume(torch, ops, args.exact_resume)))
+        return
+    if args.mesh_train:
+        build.build()
+        print(json.dumps(mesh_training(torch, ops)))
         return
     card = card_line()
     print(f"card: {card}")
@@ -3334,6 +3669,9 @@ def main() -> None:
     whisper_reference(torch)
     recurrent_quant_reference(torch)
     decode_horizon_phase(torch)
+    t1 = time.perf_counter()
+    sharded_reference(torch, ops)
+    print(f"  sharded reference: {time.perf_counter() - t1:.1f} s")
     print(f"reference: {time.perf_counter() - t0:.1f} s")
     print("kernel demo (examples/kernels_demo_torch.py):")
     t0 = time.perf_counter()
@@ -3382,6 +3720,11 @@ def main() -> None:
                 c_train_subject=tr["subject"]["launches"],
                 c_experiments=tr["experiments"]["launches"])
     print(f"  train: {time.perf_counter() - t0:.1f} s")
+    print("multi-GPU on a 1 x 1 mesh (horizon syncs, launch.train --mesh):")
+    t0 = time.perf_counter()
+    sharded_horizon_sync(torch)
+    mesh_training_phase(torch, card)
+    print(f"  multi-GPU phases: {time.perf_counter() - t0:.1f} s")
     # each kernel's launches come from the serve whose path runs it
     c = runs
     home = {"paged_decode_attention_quant": c["c2"], "decode_attention":
@@ -3391,6 +3734,7 @@ def main() -> None:
         for i in range(1, 17):
             e[f"launches_serve{i}"] = c[f"c{i}"][e["name"]]
         e["launches_serve_fp8_slot"] = c["c_fp8_slot"][e["name"]]
+        e["launches_serve3_sharded"] = c["c3_sharded"][e["name"]]
         for kv in ("int8", "fp8"):
             e[f"launches_serve6_{kv}"] = c[f"c6_{kv}"][e["name"]]
         e["demo_max_abs_err"] = demo[e["name"]]

@@ -52,7 +52,14 @@ trace of (batch, prompt) requests. Two serving paths:
 
 Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead (for tests). Without a GPU and without ``--device cpu`` it
-raises. The sharded executor is a later slice (ROADMAP queue 1, item 16).
+raises.
+
+``--executor sharded --mesh DATAxMODEL|auto`` serves on a mesh of ranks
+(masked mode): one process per card, every process running this same
+command on the same seed, e.g.
+``torchrun --nproc-per-node 4 -m repro_torch.launch.serve --executor
+sharded --mesh 2x2 --mode masked``; without torchrun, a world of one
+(``--mesh 1x1``). ``cuda`` runs NCCL, ``--device cpu`` gloo.
 """
 from __future__ import annotations
 
@@ -89,7 +96,13 @@ def _parser() -> argparse.ArgumentParser:
                     default="local",
                     help="local = dense slot caches (dense decode kernel); "
                          "paged = a KV page pool with per-request page "
-                         "tables (paged decode kernel)")
+                         "tables (paged decode kernel); sharded = slot "
+                         "groups on a mesh of ranks (masked mode; see "
+                         "--mesh; one process per card under torchrun)")
+    ap.add_argument("--mesh", default="auto",
+                    help="sharded executor mesh as DATAxMODEL (e.g. 2x2) "
+                         "over the world's ranks; 'auto' picks a "
+                         "DP-majority mesh whose data axis divides --slots")
     ap.add_argument("--serial", action="store_true",
                     help="one-shot RAPServer replay instead of the engine")
     ap.add_argument("--episodes", type=int, default=0,
@@ -170,20 +183,35 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
     args = ap.parse_args(argv)
     if args.chunked_prefill and args.max_prefill_tokens <= 0:
         args.max_prefill_tokens = 64
-    if args.executor == "sharded":
-        raise NotImplementedError(
-            "--executor sharded: multi-GPU serving is ROADMAP queue 1, "
-            "item 16")
     if args.serial and args.executor != "local":
         ap.error(f"--executor {args.executor} drives the batching engine; "
                  f"drop --serial")
+    from repro_torch.launch import resolve_device
+    device = resolve_device(args.device)
+    if args.executor != "sharded":
+        return _serve(ap, args, device)
+    # the world first: under torchrun it picks this rank's card, which the
+    # model's weights are then drawn on; torn down here if started here
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import destroy_distributed, init_distributed
+    started = not dist.is_initialized()
+    init_distributed(device)
+    try:
+        return _serve(ap, args, device)
+    finally:
+        if started:
+            destroy_distributed()
+
+
+def _serve(ap, args, device):
+    """Build the model, the policy and the engine's trace; serve and print
+    the report; returns (engine, report) — or the one-shot server's
+    (server, [ServeResult]) under ``--serial``."""
     import time
 
     import numpy as np
     import torch
-
-    from repro_torch.launch import resolve_device
-    device = resolve_device(args.device)
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import dqn, env as env_lib, masks, memory, workload
@@ -193,7 +221,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
     from repro_torch.models import registry
     from repro_torch.runtime import (EngineConfig, EngineRequest,
                                      LocalExecutor, PagedExecutor, RAPEngine,
-                                     staircase_trace, workload_budget_trace)
+                                     ShardedExecutor, staircase_trace,
+                                     workload_budget_trace)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     RAPEngine.check_servable(cfg)       # before any model or policy is built
@@ -258,9 +287,17 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
         print(f"--kv-dtype auto → {kv_dtype or 'model precision'} "
               f"(pool {kv_cap / 1e6:.1f}MB vs {slots} dense requests "
               f"{slots * dense_req / 1e6:.1f}MB)")
-    make = PagedExecutor if args.executor == "paged" else LocalExecutor
-    executor = make(model, params, mode=args.mode, max_active=slots,
-                    kv_dtype=kv_dtype, bucket_quant=args.bucket_quant)
+    if args.executor == "sharded":
+        mesh = _sharded_mesh(ap, args, slots, device)
+        print(f"sharded mesh: {dict(mesh.shape)} over {mesh.size} of "
+              f"{torch.distributed.get_world_size()} ranks")
+        executor = ShardedExecutor(model, mesh, params=params,
+                                   mode=args.mode, max_active=slots,
+                                   kv_dtype=kv_dtype)
+    else:
+        make = PagedExecutor if args.executor == "paged" else LocalExecutor
+        executor = make(model, params, mode=args.mode, max_active=slots,
+                        kv_dtype=kv_dtype, bucket_quant=args.bucket_quant)
     engine = RAPEngine(model, params, policy, EngineConfig(
         mode=args.mode, bucket_quant=args.bucket_quant,
         max_new_tokens=args.max_new, max_active=slots,
@@ -339,6 +376,34 @@ def main(argv: Optional[List[str]] = None) -> Tuple[object, object]:
           f"{int(rep.pool['overcommit_events'])}")
     print("bucket stats:", executor.stats())
     return engine, rep
+
+
+def _sharded_mesh(ap, args, slots: int, device):
+    """The ``--mesh`` of ``--executor sharded`` over the running world
+    (torchrun's ranks, else a world of one): 'auto' the DP-majority serve
+    mesh; DATAxMODEL exactly that mesh, an error when the world has
+    another size, a warning when the data axis does not divide the
+    slots."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh, make_serve_mesh
+    if args.mesh == "auto":
+        return make_serve_mesh(slots, device=device)
+    try:
+        d, m = (int(x) for x in args.mesh.lower().split("x"))
+    except ValueError:
+        ap.error(f"--mesh must be DATAxMODEL (e.g. 2x2), got {args.mesh!r}")
+    world = dist.get_world_size()
+    if d * m != world:
+        ap.error(f"--mesh {args.mesh} needs {d * m} ranks, the world has "
+                 f"{world} (torchrun --nproc-per-node {d * m})")
+    if slots % d != 0:
+        # serve_state_pspecs replicates the slot axis then: every data rank
+        # decodes every slot, no DP sharding
+        print(f"WARNING: data axis {d} does not divide {slots} slots — the "
+              f"slot axis will replicate instead of sharding (pick --slots "
+              f"a multiple of {d}, or --mesh auto)")
+    return make_host_mesh((d, m), ("data", "model"), device=device)
 
 
 def _serve_serial(args, model, params, policy, mm, corpus, reqs, rng):

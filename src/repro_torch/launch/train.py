@@ -11,7 +11,10 @@ launcher does), checkpointing in the JAX package's format every
 automatically: rerunning the same command after a crash (or with more
 ``--steps``) continues the run and prints "resumed from checkpoint at step
 N". Runs on the GPU; ``--device cpu`` runs the kernels' plain versions on
-the CPU instead. ``--mesh`` (multi-GPU) is ROADMAP queue 1, item 16.
+the CPU instead. ``--mesh`` trains on JAX's host mesh, (world, 1) ("data",
+"model") over the running world — one process per card under
+``torchrun --nproc-per-node N -m repro_torch.launch.train --mesh``, a
+world of one without torchrun — with NCCL on the card and gloo on the CPU.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", action="store_true",
-                    help="build a mesh over available devices (multi-GPU: "
-                         "not ported yet)")
+                    help="train on a (world, 1) data-parallel mesh over the "
+                         "running world (torchrun's ranks, else one)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap
@@ -61,12 +64,25 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Parse ``argv``, train, print the log; returns ``Trainer.run``'s
     summary."""
     args = _parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: multi-GPU training is ROADMAP queue 1, item 16")
     from repro_torch.launch import resolve_device
     device = resolve_device(args.device)
+    if not args.mesh:
+        return _train(args, device, None)
+    import torch.distributed as dist
 
+    from repro_torch.launch.mesh import destroy_distributed, make_host_mesh
+    started = not dist.is_initialized()
+    try:
+        mesh = make_host_mesh(device=device)
+        print(f"mesh: {dict(mesh.shape)} over {mesh.size} ranks")
+        return _train(args, device, mesh)
+    finally:
+        if started:
+            destroy_distributed()
+
+
+def _train(args, device, mesh) -> dict:
+    """Train on ``mesh`` (None: meshless) and print the log."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data import SyntheticCorpus, batch_iterator
     from repro_torch.models import registry
@@ -85,7 +101,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         on_log=lambda s, m: print(
             f"step {s:5d}  loss {m['loss']:.4f}  ppl {m['ppl']:.2f}  "
             f"gnorm {m['grad_norm']:.3f}", flush=True),
-        device=device)
+        device=device, mesh=mesh)
     start = trainer.step if trainer.maybe_restore() else 0
     if start:
         print(f"resumed from checkpoint at step {start}")

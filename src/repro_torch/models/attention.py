@@ -18,11 +18,16 @@ float8_e4m3fn with one f32 scale per (page, kv head) (:func:`page_quant`).
 Chunk attention (one prompt chunk against a partly filled cache) is a
 plain masked softmax over the cache, as JAX's XLA path is: no kernel runs
 there.
+
+Under a model axis wider than one (``parallel.activation.use``) every
+path computes this rank's heads and sums the output projection over
+"model" (:func:`_tp_mode`, :func:`out_proj`): the same kernels on
+rank-local shapes.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,6 +36,7 @@ from repro_torch.kernels.ref import (_causal_mask, _raw, _sdpa,
                                      gather_pages, page_dequant, put_pages,
                                      take_pages)
 from repro_torch.models import layers
+from repro_torch.parallel import tp
 
 __all__ = ["init_attn_params", "attention", "kv_quant", "init_kv_cache",
            "store_kv", "load_kv", "decode_attention", "page_qmax",
@@ -63,11 +69,63 @@ def init_attn_params(gen, cfg, n: int, device) -> dict:
     return p
 
 
+def _widths(cfg) -> dict:
+    """The leaves the rules may cut over "model", with their dim and whole
+    width (``parallel.tp.block_mode``)."""
+    qd, kd = (-1, cfg.q_dim), (-1, cfg.kv_dim)
+    return {"wq": qd, "bq": qd, "wk": kd, "bk": kd, "wv": kd, "bv": kd,
+            "wo": (-2, cfg.q_dim)}
+
+
+_QKV = ("wq", "bq", "wk", "bk", "wv", "bv")
+
+
+def _tp_mode(params, cfg) -> Tuple[Optional[str], Optional[slice]]:
+    """(``parallel.tp.block_mode``, kv_sel): the block is partial when its
+    heads divide the model axis m — this rank's H/m query heads, its K/m
+    KV heads (``kv_sel`` None), or, when K < m divides it, every KV head
+    computed whole and the one its query heads read (``kv_sel``)."""
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    mode = tp.block_mode(params, _widths(cfg), "wq", units=lambda m: (
+        H % m == 0 and (K % m == 0 or m % K == 0)))
+    if mode != "partial" or K % tp.active().nmdl == 0:
+        return mode, None
+    g = tp.active().nmdl // K                 # query-head ranks per KV head
+    r = tp.active().mrank // g
+    return mode, slice(r, r + 1)
+
+
+def _tp_weights(params, cfg, mode: str, kv_sel) -> dict:
+    """The projection weights this rank computes with: a whole block's cut
+    leaves gathered over "model", and a whole-K block's K/V leaves too; a
+    replicated leaf a partial block reads marked for its gradient."""
+    if mode == "whole":
+        return tp.gather_cut(params, _widths(cfg), _QKV)
+    p = dict(params)
+    whole = _widths(cfg)
+    for n in (("wk", "wv", "bk", "bv") if kv_sel is not None else ()):
+        if n in p:
+            p[n] = (tp.gather(p[n], -1, partial=True)
+                    if p[n].shape[-1] != whole[n][1] else tp.copy_to(p[n]))
+    for n in ("q_norm", "k_norm"):
+        if n in p:
+            p[n] = tp.copy_to(p[n])
+    return p
+
+
 def _project_qkv(params, cfg, x):
     """x: [B, S, D] → q [B,S,H,Dh], k/v [B,S,K,Dh]: the projections, the
     biases after them (``qkv_bias``) and the per-head RMSNorm of q and k
     (``qk_norm``, before RoPE). Every path projects through here: prefill,
-    chunked prefill, slot and paged decode, and the scoring forward."""
+    chunked prefill, slot and paged decode, and the scoring forward. Under
+    a model axis (``_tp_mode``) H and K are this rank's heads, read from
+    the weights' widths; K is every KV head where a whole-K block stores
+    them all (its cache too) and reads ``kv_heads``."""
+    mode, kv_sel = _tp_mode(params, cfg)
+    if mode is not None:
+        params = _tp_weights(params, cfg, mode, kv_sel)
+        if mode == "partial":
+            x = tp.copy_to(x)
     B, S = x.shape[:2]
     q = torch.matmul(x, params["wq"].to(x.dtype))
     k = torch.matmul(x, params["wk"].to(x.dtype))
@@ -76,13 +134,32 @@ def _project_qkv(params, cfg, x):
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, cfg.dh)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.dh)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.dh)
+    q = q.reshape(B, S, q.shape[-1] // cfg.dh, cfg.dh)
+    k = k.reshape(B, S, k.shape[-1] // cfg.dh, cfg.dh)
+    v = v.reshape(B, S, v.shape[-1] // cfg.dh, cfg.dh)
     if cfg.qk_norm:
         q = layers.rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = layers.rms_norm(k, params["k_norm"], cfg.norm_eps)
     return q, k, v
+
+
+def kv_heads(params, cfg, kv):
+    """The KV heads this rank's query heads read (``kv [..., K, Dh]``): all
+    of them, except in a whole-K block under a model axis."""
+    _, kv_sel = _tp_mode(params, cfg)
+    return kv if kv_sel is None else kv[..., kv_sel, :].contiguous()
+
+
+def out_proj(params, cfg, out, dtype):
+    """The output projection of heads ``out [B, S, H, Dh]``: ``wo``, summed
+    over "model" in a partial block (``wo`` cut on its rows), gathered
+    whole in a whole one."""
+    mode, _ = _tp_mode(params, cfg)
+    y_in = out.reshape(*out.shape[:2], -1)
+    wo = (tp.gather_cut(params, _widths(cfg), ("wo",))["wo"]
+          if mode == "whole" else params["wo"])
+    y = torch.matmul(y_in, wo.to(dtype))
+    return tp.reduce_from(y) if mode == "partial" else y
 
 
 def attention(params, cfg, x, positions, *,
@@ -92,11 +169,10 @@ def attention(params, cfg, x, positions, *,
     if cfg.use_rope:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-    out = kops.flash_attention(q, k, v, causal=True, window=window,
-                               softcap=cfg.logit_softcap)
-    y = torch.matmul(out.reshape(*out.shape[:2], -1),
-                     params["wo"].to(x.dtype))
-    return y, {"k": k, "v": v}
+    out = kops.flash_attention(q, kv_heads(params, cfg, k),
+                               kv_heads(params, cfg, v), causal=True,
+                               window=window, softcap=cfg.logit_softcap)
+    return out_proj(params, cfg, out, x.dtype), {"k": k, "v": v}
 
 
 # ------------------------------------------------------------ slot cache
@@ -193,10 +269,12 @@ def decode_attention(params, cfg, x, kv: dict, pos, *, window: int = 0,
     else:
         valid = kpos <= posc                                # [B or 1, S]
     ck, cv = load_kv(kv, q.dtype)
-    out = kops.decode_attention(q, ck, cv, valid if batched else valid[0],
+    out = kops.decode_attention(q, kv_heads(params, cfg, ck),
+                                kv_heads(params, cfg, cv),
+                                valid if batched else valid[0],
                                 softcap=cfg.logit_softcap,
                                 split_rows=split_rows)
-    return torch.matmul(out.reshape(B, 1, -1), params["wo"].to(x.dtype))
+    return out_proj(params, cfg, out, x.dtype)
 
 
 # ------------------------------------------------------- quantized pages
@@ -301,7 +379,7 @@ def paged_decode_attention(params, cfg, x, kv: dict, page_table, pos, *,
                                       v_scales=kv.get("vs"),
                                       softcap=cfg.logit_softcap,
                                       split_rows=split_rows)
-    return torch.matmul(out.reshape(B, 1, -1), params["wo"].to(x.dtype))
+    return out_proj(params, cfg, out, x.dtype)
 
 
 # ------------------------------------------------------- chunked prefill
@@ -327,8 +405,9 @@ def chunk_attention(params, cfg, x, kv: dict,
         kv[key][:, start:start + C] = val
     ck, cv = load_kv(kv, q.dtype)
     mask = _causal_mask(C, ck.shape[1], 0, q_offset=start, device=x.device)
-    out = _sdpa(q, ck, cv, mask, cfg.logit_softcap)
-    return torch.matmul(out.reshape(B, C, -1), params["wo"].to(x.dtype))
+    out = _sdpa(q, kv_heads(params, cfg, ck), kv_heads(params, cfg, cv),
+                mask, cfg.logit_softcap)
+    return out_proj(params, cfg, out, x.dtype)
 
 
 def paged_chunk_attention(params, cfg, x, kv: dict, page_table, start: int,
@@ -388,5 +467,6 @@ def paged_chunk_attention(params, cfg, x, kv: dict, page_table, start: int,
     ck = gather_pages(kv["k"], page_table, q.dtype, kv.get("ks"))
     cv = gather_pages(kv["v"], page_table, q.dtype, kv.get("vs"))
     mask = _causal_mask(C, ck.shape[1], 0, q_offset=start, device=dev)
-    out = _sdpa(q, ck, cv, mask, cfg.logit_softcap)
-    return torch.matmul(out.reshape(B, C, -1), params["wo"].to(x.dtype))
+    out = _sdpa(q, kv_heads(params, cfg, ck), kv_heads(params, cfg, cv),
+                mask, cfg.logit_softcap)
+    return out_proj(params, cfg, out, x.dtype)

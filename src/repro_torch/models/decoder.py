@@ -32,6 +32,15 @@ patch embeddings prepended to the token stream (``extra_embeds`` on
 as JAX's ``vmap`` over scoring candidates does). Encoder-decoder models
 (whisper) have their own module, ``models/encdec.py``, built by
 ``registry.build``; the decoder-only entry points here refuse them.
+
+Under a mesh policy with a model axis wider than one
+(``parallel.activation.use``), ``params`` are this rank's blocks
+(``parallel.sharding``) and every block computes its part: the embedding
+looks up its vocab rows (:func:`embed_lookup`), the head gives its vocab
+columns (:func:`vocab_logits`, gathered unless the greedy path reads them
+through :func:`greedy`), and attention, FFN, RG-LRU and MoE blocks their
+heads, features, width and experts (``parallel.tp``); caches hold the
+rank's KV heads and width (:func:`local_cfg`).
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ import torch.utils.checkpoint
 from repro_torch.models import attention, ffn as ffn_mod, layers
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod, ssm as ssm_mod
+from repro_torch.parallel import tp
 
 
 class LayerSlot(NamedTuple):
@@ -151,12 +161,56 @@ def tree_slice(tree, idx: int):
 
 
 # --------------------------------------------------------------- helpers
+def embed_lookup(params, cfg, tokens):
+    """``params["embed"]`` rows of ``tokens`` in the model dtype. Under a
+    model axis with the table cut on vocab (``parallel.tp``), each rank
+    looks up the ids in its rows (zeros elsewhere) and the rows are summed
+    over "model": one nonzero term per id, so the lookup is exact."""
+    emb = params["embed"]
+    if tp.block_mode(params, {"embed": (0, cfg.vocab_padded)},
+                     "embed") != "partial":
+        return emb[tokens].to(cfg.torch_dtype())
+    v = emb.shape[0]
+    ids = tokens - tp.active().mrank * v
+    inside = ((ids >= 0) & (ids < v))[..., None]
+    h = emb[torch.clamp(ids, 0, v - 1)].to(cfg.torch_dtype())
+    return tp.reduce_from(torch.where(inside, h, torch.zeros((), dtype=h.dtype,
+                                                             device=h.device)))
+
+
+def vocab_logits(cfg, h, w, *, gather: bool = True):
+    """f32 logits ``h @ w`` (``w [D, Vp]``, the LM head or the tied
+    embedding's transpose). Under a model axis with ``w`` cut on vocab:
+    this rank's columns, all-gathered unless ``gather=False`` (the greedy
+    path reads them through ``tp.argmax``)."""
+    if not _vocab_cut(cfg, w):
+        return torch.matmul(h, w.to(h.dtype)).float()
+    local = torch.matmul(tp.copy_to(h), w.to(h.dtype)).float()
+    return tp.gather(local, -1, partial=False) if gather else local
+
+
+def _vocab_cut(cfg, x) -> bool:
+    """Whether ``x [..., V]`` (a head, logits) is this rank's cut of the
+    vocab (``parallel.tp.block_mode``)."""
+    return tp.block_mode({"x": x}, {"x": (-1, cfg.vocab_padded)},
+                         "x") == "partial"
+
+
+def greedy(cfg, logits) -> torch.Tensor:
+    """int32 argmax over the vocab of logits [..., V]: the whole row, or
+    the rank's vocab columns (``vocab_logits(..., gather=False)``) through
+    ``tp.argmax``."""
+    if _vocab_cut(cfg, logits):
+        return tp.argmax(logits).to(torch.int32)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 def _embed(params, cfg, tokens, extra_embeds=None):
     """Token embeddings in the model dtype (times sqrt(d_model), rounded
     to that dtype first as in JAX, under ``embed_scale``), with
     ``extra_embeds [B, P, D]`` (a vision model's patch embeddings)
     prepended: [B, P + S, D]."""
-    h = params["embed"][tokens].to(cfg.torch_dtype())
+    h = embed_lookup(params, cfg, tokens)
     if cfg.embed_scale:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
     if extra_embeds is not None:
@@ -164,13 +218,14 @@ def _embed(params, cfg, tokens, extra_embeds=None):
     return h
 
 
-def _unembed(params, cfg, h):
+def _unembed(params, cfg, h, *, gather: bool = True):
     """Final norm + LM head → f32 logits. The product runs in the model
     dtype (JAX accumulates a bf16 einsum straight into f32; here a bf16
-    product is rounded once before the cast)."""
+    product is rounded once before the cast). ``gather`` as in
+    :func:`vocab_logits`."""
     h = layers.apply_norm(cfg, params["final_norm"], h)
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(h, w.to(h.dtype)).float()
+    return vocab_logits(cfg, h, w, gather=gather)
 
 
 def _ones_gates(n_layers: int, device):
@@ -291,6 +346,26 @@ def forward(params, cfg, tokens, *, gates=None, extra_embeds=None,
 
 
 # ---------------------------------------------------------------------- cache
+def local_cfg(params, cfg):
+    """The config whose cache shapes this rank holds: ``cfg`` itself, or
+    under a model axis (``parallel.tp``) its K/m KV heads where the heads
+    divide it and its W/m RG-LRU width where that block is cut (read from
+    this rank's weights)."""
+    pol = tp.active()
+    if pol is None:
+        return cfg
+    kw = {}
+    st = params["stacks"]
+    if "attn" in st:        # the decoder's (and whisper's) self-attention
+        mode, kv_sel = attention._tp_mode(st["attn"], cfg)
+        if mode == "partial" and kv_sel is None:
+            kw.update(n_kv_heads=cfg.n_kv_heads // pol.nmdl,
+                      head_dim=cfg.dh)
+    if "rglru" in st and rglru_mod.tp_mode(st["rglru"], cfg) == "partial":
+        kw["rnn_width"] = (cfg.rnn_width or cfg.d_model) // pol.nmdl
+    return cfg.replace(**kw) if kw else cfg
+
+
 def init_cache(cfg, batch: int, max_len: int, kv_dtype=None,
                device=None, layout=None) -> dict:
     """Zeroed decode state for every stateful kind of ``layout`` (default
@@ -351,8 +426,8 @@ def prefill(params, cfg, tokens, max_len: int, *, gates=None,
     h = _embed(params, cfg, tokens, extra_embeds)
     B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device)[None, :]
-    cache = init_cache(cfg, B, max_len, kv_dtype or h.dtype, h.device,
-                       layout)
+    cache = init_cache(local_cfg(params, cfg), B, max_len,
+                       kv_dtype or h.dtype, h.device, layout)
     cidx = _cache_indices(layout)
     for i, slot in enumerate(layout):
         if slot.mixer is None:
@@ -443,8 +518,8 @@ def _pool_layer(pools: dict, i: int) -> dict:
 
 # --------------------------------------------------------------------- decode
 def decode_step(params, cfg, cache: dict, tokens, *, gates=None,
-                split_rows: int = 0,
-                layout=None) -> Tuple[torch.Tensor, dict]:
+                split_rows: int = 0, layout=None,
+                gather: bool = True) -> Tuple[torch.Tensor, dict]:
     """One autoregressive step against a slot cache (updated in place).
 
     ``cache["pos"]`` is a scalar (the one-shot path: the whole batch at one
@@ -454,7 +529,9 @@ def decode_step(params, cfg, cache: dict, tokens, *, gates=None,
     its ring buffer) and run the dense decode kernel; recurrent layers
     advance their state and conv buffer. ``split_rows`` (0: B) is the row
     count the decode kernel's split-KV cut is chosen for. Returns (logits
-    [B, 1, Vp], cache) with ``cache["pos"]`` advanced by one."""
+    [B, 1, Vp], cache) with ``cache["pos"]`` advanced by one; under a model
+    axis, ``gather=False`` leaves the logits cut on vocab
+    (:func:`vocab_logits`)."""
     check_supported(cfg)
     layout = default_layout(cfg) if layout is None else layout
     gates = gates or _ones_gates(len(layout), tokens.device)
@@ -482,7 +559,7 @@ def decode_step(params, cfg, cache: dict, tokens, *, gates=None,
                 window=_window(cfg, slot), split_rows=split_rows)
         h = _block(params, cfg, slot, i, h, gates, out)
     cache["pos"] = pos + 1
-    return _unembed(params, cfg, h), cache
+    return _unembed(params, cfg, h, gather=gather), cache
 
 
 def decode_horizon(params, cfg, cache: dict, tokens, horizon: int, *,
@@ -499,8 +576,9 @@ def decode_horizon(params, cfg, cache: dict, tokens, horizon: int, *,
     toks = []
     for _ in range(horizon):
         logits, cache = decode_step(params, cfg, cache, tok, gates=gates,
-                                    split_rows=split_rows, layout=layout)
-        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+                                    split_rows=split_rows, layout=layout,
+                                    gather=False)
+        nxt = greedy(cfg, logits[:, -1])
         toks.append(nxt)
         tok = nxt[:, None]
     return torch.stack(toks, dim=1), cache

@@ -30,7 +30,8 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention, ffn as ffn_mod, layers
 from repro_torch.models.decoder import (_bgate, _checkpointed, _ones_gates,
-                                        _pool_layer, tree_slice)
+                                        _pool_layer, embed_lookup,
+                                        local_cfg, tree_slice, vocab_logits)
 
 
 def _sinusoid(positions, d_model: int):
@@ -80,10 +81,6 @@ def _bidir_attend(cfg, q, k, v):
                                 softcap=cfg.logit_softcap)
 
 
-def _out_proj(p, out, dtype):
-    return torch.matmul(out.reshape(*out.shape[:2], -1), p["wo"].to(dtype))
-
-
 def encode(params, cfg, frames, *, remat: bool = False):
     """frames: [B, T_enc, D] (stub frontend output) → [B, T_enc, D]."""
     dt = cfg.torch_dtype()
@@ -92,7 +89,9 @@ def encode(params, cfg, frames, *, remat: bool = False):
     def layer(h, pa, pf):
         hn = layers.apply_norm(cfg, pa["norm"], h)
         q, k, v = attention._project_qkv(pa, cfg, hn)
-        h = h + _out_proj(pa, _bidir_attend(cfg, q, k, v), h.dtype)
+        h = h + attention.out_proj(pa, cfg, _bidir_attend(
+            cfg, q, attention.kv_heads(pa, cfg, k),
+            attention.kv_heads(pa, cfg, v)), h.dtype)
         hn = layers.apply_norm(cfg, pf["norm"], h)
         return h + ffn_mod.ffn(pf, cfg, hn)
 
@@ -120,8 +119,9 @@ def _decoder_layer(cfg, h, positions, pa, pc, pf, gm, gf, xk, xv):
     h = h + _bgate(gm, h) * out
     hn = layers.apply_norm(cfg, pc["norm"], h)
     q, _, _ = attention._project_qkv(pc, cfg, hn)
-    xout = _bidir_attend(cfg, q, xk.to(h.dtype), xv.to(h.dtype))
-    h = h + _bgate(gm, h) * _out_proj(pc, xout, h.dtype)
+    xout = _bidir_attend(cfg, q, attention.kv_heads(pc, cfg, xk.to(h.dtype)),
+                         attention.kv_heads(pc, cfg, xv.to(h.dtype)))
+    h = h + _bgate(gm, h) * attention.out_proj(pc, cfg, xout, h.dtype)
     hn = layers.apply_norm(cfg, pf["norm"], h)
     return h + _bgate(gf, h) * ffn_mod.ffn(pf, cfg, hn), kv
 
@@ -150,7 +150,7 @@ def _decoder_pass(params, cfg, h, positions, enc_h, gates, *,
 def _embed_tokens(params, cfg, tokens, offset):
     """Token embeddings plus sinusoidal positions ``offset..offset+S-1``:
     (h [B, S, D] in the model dtype, positions [1, S])."""
-    h = params["embed"][tokens].to(cfg.torch_dtype())
+    h = embed_lookup(params, cfg, tokens)
     pos = torch.arange(tokens.shape[1], device=tokens.device) + offset
     return h + _sinusoid(pos, cfg.d_model)[None].to(h.dtype), pos[None]
 
@@ -158,7 +158,7 @@ def _embed_tokens(params, cfg, tokens, offset):
 def unembed(params, cfg, h):
     """Final norm + the tied LM head → f32 logits."""
     h = layers.apply_norm(cfg, params["final_norm"], h)
-    return torch.matmul(h, params["embed"].t().to(h.dtype)).float()
+    return vocab_logits(cfg, h, params["embed"].t())
 
 
 _unembed = unembed      # :func:`forward`'s ``unembed`` flag shadows the name
@@ -202,7 +202,8 @@ def prefill(params, cfg, tokens, frames, max_len: int, *, gates=None,
     gates = gates or _ones_gates(cfg.n_layers, tokens.device)
     B, S = tokens.shape
     enc_h = encode(params, cfg, frames)
-    cache = init_cache(cfg, B, max_len, kv_dtype, tokens.device)
+    cache = init_cache(local_cfg(params, cfg), B, max_len, kv_dtype,
+                       tokens.device)
     h, positions = _embed_tokens(params, cfg, tokens, 0)
     cross, entry = cache["cross"], cache["attn"]
     for i in range(cfg.n_layers):
@@ -227,7 +228,6 @@ def decode_step(params, cfg, cache: dict, tokens, *,
     gates = gates or _ones_gates(cfg.n_layers, tokens.device)
     pos = cache["pos"]
     h, _ = _embed_tokens(params, cfg, tokens, pos)
-    B = h.shape[0]
     cross = cache["cross"]
     every = torch.ones(cross["k"].shape[2], dtype=torch.bool,
                        device=h.device)
@@ -240,11 +240,11 @@ def decode_step(params, cfg, cache: dict, tokens, *,
         h = h + _bgate(gm, h) * out
         hn = layers.apply_norm(cfg, pc["norm"], h)
         q, _, _ = attention._project_qkv(pc, cfg, hn)
-        xout = kops.decode_attention(q, cross["k"][i].to(h.dtype),
-                                     cross["v"][i].to(h.dtype), every,
-                                     softcap=cfg.logit_softcap)
-        h = h + _bgate(gm, h) * torch.matmul(xout.reshape(B, 1, -1),
-                                             pc["wo"].to(h.dtype))
+        xout = kops.decode_attention(
+            q, attention.kv_heads(pc, cfg, cross["k"][i].to(h.dtype)),
+            attention.kv_heads(pc, cfg, cross["v"][i].to(h.dtype)), every,
+            softcap=cfg.logit_softcap)
+        h = h + _bgate(gm, h) * attention.out_proj(pc, cfg, xout, h.dtype)
         hn = layers.apply_norm(cfg, pf["norm"], h)
         h = h + _bgate(gf, h) * ffn_mod.ffn(pf, cfg, hn)
     cache["pos"] = pos + 1

@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
+from repro_torch.parallel import tp
 
 
 def init_ffn_params(gen, cfg, n: int, device) -> dict:
@@ -35,7 +36,23 @@ def glu_activate(h, activation: str):
 
 def ffn(params, cfg, x):
     """The GLU goes through the fused GLU kernel; the plain tanh-gelu FFN
-    (whisper) has no kernel on either side, as in JAX."""
-    h = torch.matmul(x, params["wi"].to(x.dtype))
+    (whisper) has no kernel on either side, as in JAX.
+
+    Under a model axis of m > 1 (``parallel.tp``) with ``wo`` cut on its
+    F rows, the block is partial: this rank's F/m features (its ``wi``
+    block holds ``[gate_r | up_r]``, ``parallel/sharding.py``'s GLU cut),
+    the ``wo`` product summed over "model". Where F does not divide m,
+    every rank gathers the cut leaves and computes the whole block."""
+    widths = {"wi": (-1, 2 * cfg.d_ff if is_glu(cfg) else cfg.d_ff),
+              "wo": (-2, cfg.d_ff)}
+    mode = tp.block_mode(params, widths, "wo")
+    partial = mode == "partial"
+    if mode == "whole":     # F does not divide the axis: wi's cut is 2F/m
+        params = tp.gather_cut(params, widths)
+    wi, wo = params["wi"], params["wo"]
+    if partial:
+        x = tp.copy_to(x)
+    h = torch.matmul(x, wi.to(x.dtype))
     h = glu_activate(h, cfg.activation) if is_glu(cfg) else layers.gelu(h)
-    return torch.matmul(h, params["wo"].to(x.dtype))
+    y = torch.matmul(h, wo.to(x.dtype))
+    return tp.reduce_from(y) if partial else y

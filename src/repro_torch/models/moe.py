@@ -22,8 +22,10 @@ scatter-add, so two launches give the same bits.
 ``groups`` splits the batch axis into independent token groups, each with
 its own capacity and ranking: the twin of JAX's ``vmap`` over candidate
 masks in GSI scoring (``core/gsi.py`` batches the candidates into one
-forward). The expert-parallel dispatch (``moe_ffn_ep``) is multi-GPU,
-ROADMAP queue 1, item 16.
+forward). Under a model axis that divides the experts, ``moe_ffn`` takes
+the expert-parallel dispatch (:func:`moe_ffn_ep`): each model rank runs
+its E/m experts on every token of the call and the partial combines are
+summed over "model".
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.models import layers
 from repro_torch.models.ffn import glu_activate
+from repro_torch.parallel import tp
 
 
 def init_moe_params(gen, cfg, n: int, device) -> dict:
@@ -144,10 +147,81 @@ def moe_ffn_scatter(params, cfg, x, groups: int = 1):
     return out.reshape(B, S, D)
 
 
+def _local_dispatch(cfg, xt, weights, idx, wi, wo, e_lo: int, E_loc: int):
+    """Capacity dispatch restricted to experts [e_lo, e_lo + E_loc).
+
+    xt [T, D]; weights/idx [T, k]; wi [E_loc, D, 2F]; wo [E_loc, F, D].
+    Returns the partial combine ([T, D]) of the local experts only: every
+    assignment takes its rank among its expert's assignments in
+    (token-major, k-minor) order, as in :func:`dispatch`, so the kept set
+    is the one the whole dispatch keeps; assignments to other experts go
+    to a sentinel bin and add nothing."""
+    T, D = xt.shape
+    k = idx.shape[1]
+    C = _capacity(cfg, T)
+    dev = xt.device
+    flat_e = idx.reshape(-1) - e_lo                        # local ids
+    inside = (flat_e >= 0) & (flat_e < E_loc)
+    flat_e = torch.where(inside, flat_e, E_loc)            # sentinel bin
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(E_loc + 1, device=dev, dtype=sorted_e.dtype))
+    sorted_rank = torch.arange(T * k, device=dev) - seg_start[sorted_e]
+    ranks = torch.empty_like(sorted_rank).scatter_(0, order, sorted_rank)
+    keep = inside & (ranks < C)
+    slot = torch.where(keep, ranks, C)
+    tok = torch.arange(T, device=dev).repeat_interleave(k)
+    row = torch.clamp(flat_e, max=E_loc - 1) * (C + 1) + slot
+    src = torch.where(keep[:, None], xt[tok],
+                      torch.zeros((), dtype=xt.dtype, device=dev))
+    buf = torch.zeros(E_loc * (C + 1), D, dtype=xt.dtype, device=dev)
+    buf[row] = src
+    h = torch.bmm(buf.view(E_loc, C + 1, D), wi.to(xt.dtype))
+    h = glu_activate(h, cfg.activation)
+    y = torch.bmm(h, wo.to(xt.dtype)).view(-1, D)
+    gathered = y[row] * keep[:, None].to(xt.dtype)
+    wflat = weights.reshape(-1, 1).to(xt.dtype)
+    return (gathered * wflat).view(T, k, D).sum(dim=1)
+
+
+def moe_ffn_ep(params, cfg, x, pol, groups: int = 1):
+    """Expert-parallel dispatch over the policy's model group.
+
+    x is replicated across "model" (each data rank's own tokens), so no
+    token all-to-all is needed: each model rank routes every token, runs
+    only its E/m experts at the capacity of the whole call, and the
+    partial combines are summed with one all-reduce over "model" (the
+    wire of a dense FFN's ``wo``). ``groups`` (dividing B) dispatches each
+    group of rows on its own, as :func:`moe_ffn_scatter` does."""
+    B, S, D = x.shape
+    G = int(groups)
+    if B % G:
+        raise ValueError(f"{G} token groups do not divide a batch of {B}")
+    m, r = pol.nmdl, pol.mrank
+    E_loc = cfg.n_experts // m
+    router = params["router"]
+    if tp.active() is not None:
+        x, router = tp.copy_to(x), tp.copy_to(router)
+    xt = x.reshape(-1, D)
+    weights, idx = _route({"router": router}, cfg, xt)
+    T = xt.shape[0] // G
+    out = torch.cat([_local_dispatch(cfg, xt[g * T:(g + 1) * T],
+                                     weights[g * T:(g + 1) * T],
+                                     idx[g * T:(g + 1) * T], params["wi"],
+                                     params["wo"], r * E_loc, E_loc)
+                     for g in range(G)])
+    return tp.reduce_from(out, pol.model_group).reshape(B, S, D)
+
+
 def moe_ffn(params, cfg, x, *, impl: str = "scatter", groups: int = 1):
-    """``impl="dense"``: the oracle; anything else the scatter path.
-    ``groups``: independent token groups along the batch axis (scatter
-    only; the dense path drops nothing, so groups do not change it)."""
+    """``impl="dense"``: the oracle; anything else the scatter path, or,
+    under a model axis of m > 1 that divides the experts, the
+    expert-parallel one (:func:`moe_ffn_ep`). ``groups``: independent
+    token groups along the batch axis (the dense path drops nothing, so
+    groups do not change it)."""
     if impl == "dense":
         return moe_ffn_dense(params, cfg, x)
+    if tp.block_mode(params, {"wi": (-3, cfg.n_experts)}, "wi") == "partial":
+        return moe_ffn_ep(params, cfg, x, tp.active(), groups)
     return moe_ffn_scatter(params, cfg, x, groups)

@@ -11,7 +11,8 @@ W_a / W_i are block-diagonal (n_blocks = n_heads). The sequence pass runs
 the recurrence through ``kernels.ops.rglru`` (the CUDA kernel on the card;
 its plain sequential loop, the counterpart of JAX's ``blocked_scan``, on
 the CPU). JAX wraps the projections in ``parallel.activation.width``, a
-sharding hint that is the identity on one device; the port leaves it out.
+sharding hint that is the identity on one device; under a model axis the
+port computes the width leaves on this rank's columns (:func:`_tp`).
 The decode state (``init_rglru_cache``) is f32 whatever the model dtype.
 """
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
+from repro_torch.parallel import tp
 
 _C = 8.0
 _CONV_W = 4
@@ -87,11 +89,46 @@ def _gates(params, u):
     return torch.exp(log_a), b_scale * (i * u.float())
 
 
+def _widths(cfg) -> dict:
+    """The leaves the rules may cut over "model", with their dim and whole
+    width (``parallel.tp.block_mode``): the width W, or the gate blocks."""
+    W, nb = (-1, cfg.rnn_width or cfg.d_model), (-3, _n_blocks(cfg))
+    return {"wx": W, "w_gate": W, "conv_w": W, "conv_b": W, "ba": W,
+            "bi": W, "lam": W, "wa": nb, "wi": nb,
+            "wo": (-2, cfg.rnn_width or cfg.d_model)}
+
+
+def tp_mode(params, cfg):
+    """``parallel.tp.block_mode`` of these (this rank's) RG-LRU leaves:
+    partial where the width and the gate blocks are both cut."""
+    return tp.block_mode(params, _widths(cfg), "wx",
+                         units=lambda m: _n_blocks(cfg) % m == 0)
+
+
+def _tp(params, cfg, x):
+    """(params, x, partial) of this rank under a model axis of m > 1
+    (``parallel.tp``). A partial block runs on this rank's W/m columns,
+    its state too, and ``wo``'s product is summed over "model"
+    (:func:`_out`); a whole one gathers the cut leaves."""
+    mode = tp_mode(params, cfg)
+    if mode == "partial":
+        return params, tp.copy_to(x), True
+    if mode == "whole":
+        params = tp.gather_cut(params, _widths(cfg))
+    return params, x, False
+
+
+def _out(params, y, dtype, partial: bool):
+    y = torch.matmul(y, params["wo"].to(dtype))
+    return tp.reduce_from(y) if partial else y
+
+
 def rglru_sequence(params, cfg, x):
     """Full-sequence Griffin block. x: [B,T,D] → (out [B,T,D], final h
     [B,W] f32, conv buffer [B,3,W] f32: the last 3 pre-conv inputs,
     zero-padded on the left when T < 3, as the causal conv's own padding
-    is)."""
+    is). Under a partial model axis W is this rank's width."""
+    params, x, partial = _tp(params, cfg, x)
     u = torch.matmul(x, params["wx"].to(x.dtype))
     g = torch.matmul(x, params["w_gate"].to(x.dtype))
     K = params["conv_w"].shape[0]
@@ -103,8 +140,7 @@ def rglru_sequence(params, cfg, x):
     a, b = _gates(params, uc)                               # [B,T,W] f32
     h = kops.rglru(a.contiguous(), b.contiguous())
     y = h.to(x.dtype) * layers.gelu(g)
-    return (torch.matmul(y, params["wo"].to(x.dtype)), h[:, -1],
-            conv_buf)
+    return _out(params, y, x.dtype, partial), h[:, -1], conv_buf
 
 
 def rglru_mixer(params, cfg, x):
@@ -125,7 +161,8 @@ def rglru_decode_step(params, cfg, x, h_prev, conv_buf):
     """One token. x: [B,1,D]; h_prev: [B,W]; conv_buf: [B,3,W].
 
     Returns (y [B,1,D], h, conv_buf) — new tensors; the caller stores
-    them."""
+    them. Under a partial model axis W is this rank's width."""
+    params, x, partial = _tp(params, cfg, x)
     u = torch.matmul(x, params["wx"].to(x.dtype))
     g = torch.matmul(x, params["w_gate"].to(x.dtype))
     full = torch.cat([conv_buf.to(u.dtype), u], dim=1)       # [B,4,W]
@@ -134,4 +171,4 @@ def rglru_decode_step(params, cfg, x, h_prev, conv_buf):
     a, b = _gates(params, u_t)                                # [B,W]
     h = a * h_prev + b
     y = (h.to(x.dtype) * layers.gelu(g[:, 0]))[:, None, :]
-    return (torch.matmul(y, params["wo"].to(x.dtype)), h, full[:, 1:])
+    return _out(params, y, x.dtype, partial), h, full[:, 1:]

@@ -85,9 +85,12 @@ def global_norm(tree) -> torch.Tensor:
                           for leaf in _leaves(tree)))
 
 
-def apply(cfg: AdamWConfig, params, grads, state: AdamWState):
-    """Returns (new_params, new_state, metrics)."""
-    gnorm = global_norm(grads)
+def apply(cfg: AdamWConfig, params, grads, state: AdamWState, *,
+          grad_norm=None):
+    """Returns (new_params, new_state, metrics). ``grad_norm``: the global
+    norm to clip by when the caller holds only blocks of the gradients (a
+    mesh: ``steps.make_sharded_train_step``); default, that of ``grads``."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = (torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
              if cfg.clip_norm > 0 else 1.0)
     step = state.step + 1

@@ -1,11 +1,13 @@
-"""Serving runtime: KV pool, scheduler, executors, engine, one-shot server,
-fault-injection scenarios; the step functions and the trainer."""
+"""Serving runtime: KV pool, scheduler, executors (local, paged, sharded on
+a mesh), engine, one-shot server, fault-injection scenarios; the step
+functions and the trainer."""
 from repro_torch.runtime import scenarios, steps
 from repro_torch.runtime.engine import (EngineConfig, EngineReport,
                                         EngineRequest, RAPEngine,
                                         RequestResult)
 from repro_torch.runtime.executor import (LocalExecutor, ModelExecutor,
                                           PagedExecutor, PagedGroup,
+                                          ShardedExecutor, ShardedSlotGroup,
                                           SlotGroup, chunk_widths)
 from repro_torch.runtime.kv_pool import (KVPool, PageAllocation,
                                          PoolExhausted, SpilledAllocation,
@@ -29,7 +31,8 @@ __all__ = ["steps", "Trainer", "TrainerConfig", "RAPEngine", "EngineConfig", "En
            "SchedulerOutput", "FIFOScheduler", "SJFScheduler",
            "PriorityScheduler", "VictimCandidate", "SCHEDULERS",
            "make_scheduler", "ModelExecutor", "LocalExecutor", "SlotGroup",
-           "PagedExecutor", "PagedGroup", "RAPServer", "ServeResult",
+           "PagedExecutor", "PagedGroup", "ShardedExecutor",
+           "ShardedSlotGroup", "RAPServer", "ServeResult",
            "chunk_widths", "scenarios", "TickStaircase", "staircase_trace",
            "workload_budget_trace", "heavy_tailed_requests",
            "run_budget_shock", "run_cancellation_storm", "token_agreement"]

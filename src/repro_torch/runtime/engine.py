@@ -406,7 +406,13 @@ class RAPEngine:
         self._stall_ticks = 0
 
     def _now(self) -> float:
-        return (time.perf_counter() - self._t0) + self._skew
+        """The run's virtual clock. An executor with ``agree_clock`` (the
+        sharded one: every rank runs this engine) turns each rank's reading
+        into one value every rank shares, so arrivals, budget breakpoints
+        and idle skips decide alike everywhere."""
+        t = (time.perf_counter() - self._t0) + self._skew
+        agree = getattr(self.executor, "agree_clock", None)
+        return agree(t) if agree is not None else t
 
     # ------------------------------------------------------------ capacity
     def ensure_capacity(self, batch: int, total_len: int) -> None:

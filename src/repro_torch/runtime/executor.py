@@ -22,6 +22,11 @@ execute. Two backends, each in masked or structural mode:
     device), prefill writes KV straight into granted pages, and one decode
     horizon advances any mix of cache lengths
     through a per-request page table and the paged decode kernel.
+  * :class:`ShardedExecutor` — the local executor's masked groups on a mesh
+    of ranks (``launch.mesh.Mesh``, explicit SPMD: every rank runs the same
+    engine): each data rank holds its share of the slots, each model rank
+    its heads / features of the weights and the cache
+    (:class:`ShardedSlotGroup`).
 
 Decode state is device-resident: a group keeps its cache (or page-table
 rows), positions, seed tokens and ``[2, L, n_slots]`` gates (L: the
@@ -77,7 +82,8 @@ from repro_torch.kernels.ref import put_slots, take_slots
 from repro_torch.runtime.kv_pool import resolve_kv_dtype
 
 __all__ = ["ModelExecutor", "SlotGroup", "LocalExecutor", "PagedExecutor",
-           "PagedGroup", "chunk_widths"]
+           "PagedGroup", "ShardedSlotGroup", "ShardedExecutor",
+           "chunk_widths"]
 
 
 def chunk_widths(n_tokens: int, max_chunk: int) -> List[int]:
@@ -450,7 +456,7 @@ class LocalExecutor(ModelExecutor):
         _, store, _, _ = resolve_kv_dtype(kv_dtype)
         self.mcfg = model.cfg
         self.params = params
-        self.device = params["embed"].device
+        self.device = params["embed"].device if params is not None else None
         self.mode = mode
         self.bucket_quant = bucket_quant
         self.max_groups = int(max_groups)
@@ -1129,3 +1135,431 @@ class PagedExecutor(ModelExecutor):
                 "bucket_signatures": len({g.key for g in self._groups.values()
                                           if g.key != "masked"}),
                 "resident_param_stacks": 0}
+
+
+# ----------------------------------------------------------------- sharded
+_ROADMAP_STRUCTURAL = (
+    "structural sharded buckets (per-bucket layouts placed on the mesh) "
+    "are ROADMAP item 16b, and JAX refuses them too — use LocalExecutor "
+    "for structural serving")
+
+
+def _digest(*parts) -> int:
+    """A signed 64-bit digest of ``parts`` (arrays, numbers, strings)."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in parts:
+        if isinstance(p, np.ndarray) or torch.is_tensor(p):
+            a = np.ascontiguousarray(np.asarray(p))
+            h.update(str((a.dtype.str, a.shape)).encode())
+            h.update(a.tobytes())
+        else:
+            h.update(repr(p).encode())
+    return int.from_bytes(h.digest()[:8], "little", signed=True)
+
+
+class ShardedSlotGroup(SlotGroup):
+    """A :class:`SlotGroup` whose decode state is **mesh-resident**
+    (DESIGN.md §7 "Sharded serving"), in explicit SPMD: every rank holds
+    the group's host bookkeeping for all ``n_slots`` slots (occupants,
+    positions, reservations — the engine's view, identical on every
+    rank) and, on the device, only its own block of the state.
+
+    The slot axis is the mesh's data-parallel dimension, as
+    ``parallel.sharding.serve_state_pspecs`` lays it out: DP rank d of D
+    owns slots [d·n/D, (d+1)·n/D) (when D does not divide ``n_slots`` the
+    rules replicate the slot axis, and every rank holds every slot). KV
+    leaves hold this rank's K/m heads where K divides the model axis, all
+    K heads otherwise; an RG-LRU state holds the rank's W/m width where
+    that block is cut (the rules replicate it over "model"; each rank
+    stores the columns it computes). Gates follow the slots.
+
+    A horizon decodes the rank's own slots (every slot steps: there is no
+    bucketed gather, the slot axis IS the mesh axis), with the group's
+    global width as ``split_rows`` so that a row takes the split count it
+    takes under :class:`LocalExecutor`, then all-gathers the ``[n_slots,
+    H]`` tokens over the data axis: the one result every rank reads back."""
+
+    def __init__(self, executor: "ShardedExecutor", n_slots: int,
+                 cache_len: int):
+        mesh = executor.mesh
+        self._exec = executor
+        self.key = "masked"
+        self.layout = None
+        self.mask = None
+        self.gate_rows = None
+        self.n_slots = int(n_slots)
+        self.cache_len = int(cache_len)
+        self.device = executor.device
+        self.occupants: List[Optional[str]] = [None] * self.n_slots
+        self.reserved: set = set()
+        self.pos = np.zeros(self.n_slots, np.int64)
+        self._mcfg = executor.mcfg
+        self._iidx_cache: Dict[Tuple[int, ...], torch.Tensor] = {}
+        dp = mesh.dp_axes
+        self.dp_group = mesh.group(dp)
+        D, d = mesh.axis_size(dp), mesh.coord(dp)
+        self.split = self.n_slots % D == 0
+        per = self.n_slots // D if self.split else self.n_slots
+        self.lo = d * per if self.split else 0
+        self.n_local = per
+        self.cache = decoder.init_cache(executor.lcfg, per, self.cache_len,
+                                        executor.kv_dtype, self.device)
+        self.cache["pos"] = torch.zeros(per, dtype=torch.int32,
+                                        device=self.device)
+        self.tokens = torch.zeros(per, 1, dtype=torch.int32,
+                                  device=self.device)
+        self.gates_dev = torch.ones(2, executor.mcfg.n_layers, per,
+                                    device=self.device)
+        full = decoder.init_cache(executor.mcfg, self.n_slots,
+                                  self.cache_len, executor.kv_dtype, "meta")
+        self.attn_bytes = sum(t.numel() * t.element_size()
+                              for t in full.get("attn", {}).values())
+
+    # ---------------------------------------------------------- ownership
+    def owner(self, slot: int) -> int:
+        """The data coordinate that holds ``slot``."""
+        return slot // self.n_local if self.split else 0
+
+    def owned(self, slots: Sequence[int]) -> List[Tuple[int, int]]:
+        """(row in ``slots``, local slot) of the slots this rank holds."""
+        return [(i, s - self.lo) for i, s in enumerate(slots)
+                if self.lo <= s < self.lo + self.n_local]
+
+    def place(self, rid: str, slots: List[int], req_cache: Optional[dict],
+              cols: np.ndarray, prompt_len: int,
+              first_dev: Optional[torch.Tensor]) -> None:
+        """Seat a request: the host bookkeeping of every slot, and the
+        device rows of the slots this rank holds (``req_cache``: every
+        leaf with ``len(slots)`` rows at axis 1; None on a rank that holds
+        none of them)."""
+        self.reserved.difference_update(slots)
+        for s in slots:
+            self.occupants[s] = rid
+            self.pos[s] = prompt_len
+        mine = self.owned(slots)
+        if not mine:
+            return
+        rows = self.iidx([i for i, _ in mine])
+        lidx = self.iidx([j for _, j in mine])
+        for kind, leaves in _state_leaves(self.cache).items():
+            for key, leaf in leaves.items():
+                put_slots(leaf, lidx, take_slots(req_cache[kind][key], rows))
+        self.cache["pos"][lidx] = int(prompt_len)
+        self.tokens[lidx, 0] = first_dev[rows]
+        self.gates_dev[:, :, lidx] = torch.from_numpy(cols).to(
+            self.device)[:, :, None]
+
+    def launch_horizon(self, horizon: int, buckets: Sequence[int] = ()
+                       ) -> Tuple[torch.Tensor, Optional[List[int]]]:
+        """H greedy steps of this rank's slots, then the tokens of every
+        slot all-gathered over the data axis: (device toks [n_slots, H],
+        None — the full width)."""
+        if buckets:
+            raise NotImplementedError(
+                "sharded slot groups always step full width — the slot "
+                "axis is the mesh's DP dimension (ShardedExecutor runs "
+                "with decode_buckets=())")
+        g = self.gates_dev
+        with self._exec.context():
+            toks, self.cache = decoder.decode_horizon(
+                self._exec.compute_params(), self._mcfg, self.cache,
+                self.tokens, horizon, gates={"mixer": g[0], "ffn": g[1]},
+                split_rows=self.n_slots)
+        self.tokens = toks[:, -1:].contiguous()
+        if self.split:
+            from repro_torch.parallel.tp import all_gather_cat
+            toks = all_gather_cat(toks, self.dp_group)
+        return toks, None
+
+
+class ShardedExecutor(LocalExecutor):
+    """Mesh-resident slot-group execution (DESIGN.md §7 "Sharded
+    serving"), explicit SPMD over a :class:`repro_torch.launch.mesh.Mesh`.
+
+    Every rank runs the same engine on the same seed and requests, and
+    this executor on its own blocks: parameters are placed under the
+    production rules (``parallel.sharding.param_pspecs``: TP over feature
+    dims, vocab and experts; ``fsdp=True`` also ZeRO-3 over "data",
+    gathered once per call), and groups are :class:`ShardedSlotGroup`.
+    The model code runs under ``parallel.activation.use(mesh)``, so a
+    model axis wider than one computes each rank's heads, features,
+    width and experts with the collectives of ``parallel.tp``.
+
+    Prefill and placement run on the data rank that holds the request's
+    slots (every rank of its model group), and its first tokens are
+    broadcast over the data axis; a horizon decodes each rank's slots and
+    all-gathers the tokens. Whatever a rank reads back is therefore
+    rank-identical. ``group_for`` and ``prefill_into`` all-gather a
+    digest of the keep-mask (and the prompt) over the world and raise if
+    the ranks disagree. A spilled request's state is gathered to every
+    data rank (:meth:`spill_state`), so it may resume in slots another
+    rank holds.
+
+    Masked mode only — one gated group per cache length serves every
+    keep-mask; structural sharded buckets are refused, as in JAX, and so
+    are ``shard_seq`` (sequence parallelism, ROADMAP item 16b) and a
+    bucketed horizon. ``kv_int8=True`` is refused too: its one consumer
+    in JAX, ``lower_decode``, is analysis (ROADMAP item 17); the slot
+    caches' precision is ``kv_dtype``."""
+
+    def __init__(self, model, mesh, *, params=None, fsdp: bool = False,
+                 shard_seq: bool = False, kv_int8: bool = False,
+                 mode: str = "masked", max_active: int = 8, kv_dtype=None):
+        if mode != "masked":
+            raise NotImplementedError(
+                f"sharded serving is masked-mode only (got {mode!r}); "
+                + _ROADMAP_STRUCTURAL)
+        if shard_seq:
+            raise NotImplementedError(
+                "shard_seq: sequence parallelism is ROADMAP item 16b")
+        if kv_int8:
+            raise NotImplementedError(
+                "kv_int8: its one consumer, lower_decode, is ROADMAP item "
+                "17; the slot caches' precision is kv_dtype (\"int8\")")
+        self.mesh = mesh
+        self.policy = {"fsdp": bool(fsdp)}
+        self.model = model
+        self._specs = None
+        placed = self.place_params(params) if params is not None else None
+        super().__init__(model, placed, mode="masked",
+                         max_active=max_active, kv_dtype=kv_dtype,
+                         decode_buckets=())
+        self.device = mesh.device
+        self.lcfg = model.cfg       # the cache shapes this rank holds
+        if placed is not None:
+            with self.context():
+                self.lcfg = decoder.local_cfg(placed, model.cfg)
+
+    # ----------------------------------------------------------- placement
+    def param_specs(self):
+        """The parameters' partition specs on this mesh."""
+        from repro_torch.parallel.sharding import param_pspecs
+        if self._specs is None:
+            self._specs = param_pspecs(self.model.init(0, "meta"), self.mesh,
+                                       fsdp=self.policy["fsdp"])
+        return self._specs
+
+    def place_params(self, params):
+        """This rank's blocks of ``params`` under the production rules (a
+        view of each leaf where nothing is cut)."""
+        from repro_torch.parallel.sharding import shard_params
+        return shard_params(params, self.param_specs(), self.mesh,
+                            self.mesh.coords, self.model.cfg)
+
+    def context(self):
+        """The mesh policy the model code runs under."""
+        from repro_torch.parallel import activation as act
+        return act.use(self.mesh, fsdp=self.policy["fsdp"])
+
+    def compute_params(self):
+        """The parameters a call computes with: the placed blocks, with
+        ZeRO-3 leaves gathered over "data" for the call (a collective:
+        every rank calls it, whether or not it holds the call's slots)."""
+        if self.policy["fsdp"] and self.mesh.axis_size(
+                self.mesh.dp_axes) > 1:
+            from repro_torch.parallel.tp import gather_fsdp
+            return gather_fsdp(self.params, self.param_specs(), self.mesh)
+        return self.params
+
+    # ------------------------------------------------------------ agreement
+    def _agree(self, what: str, *parts) -> None:
+        """Raise unless every rank passes the same ``parts``."""
+        import torch.distributed as dist
+        from repro_torch.parallel.tp import all_gather_cat
+        mine = torch.tensor([_digest(*parts)], dtype=torch.int64,
+                            device=self.device)
+        every = all_gather_cat(mine, None).cpu().numpy()
+        if (every != every[0]).any():
+            raise RuntimeError(
+                f"ShardedExecutor.{what}: the ranks disagree (digests "
+                f"{every.tolist()}, this is rank {dist.get_rank()}); every "
+                f"rank must run the same engine on the same requests")
+
+    def agree_clock(self, t: float) -> float:
+        """The engine's clock reading, the same on every rank: the latest
+        of the ranks' readings (a world of one reads its own)."""
+        import torch.distributed as dist
+        if dist.get_world_size() == 1:
+            return t
+        x = torch.tensor([t], dtype=torch.float64, device=self.device)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX)
+        return float(x[0])
+
+    # ------------------------------------------------------------ serve API
+    def group_for(self, mask: np.ndarray,
+                  cache_len: Optional[int] = None) -> ShardedSlotGroup:
+        """One gated mesh-resident group per cache length (every keep-mask
+        shares it, as on the local path)."""
+        if self.params is None:
+            raise RuntimeError(
+                "ShardedExecutor has no params — construct with params= "
+                "to serve")
+        self._agree("group_for", np.asarray(mask, np.float32),
+                    int(cache_len))
+        gkey = ("masked", int(cache_len))
+        group = self._groups.get(gkey)
+        if group is None:
+            group = self._groups[gkey] = ShardedSlotGroup(
+                self, self.max_active, int(cache_len))
+            self.groups_minted += 1
+        return group
+
+    def _first_tokens(self, group: ShardedSlotGroup, slots: List[int],
+                      first_dev: Optional[torch.Tensor],
+                      b: int) -> torch.Tensor:
+        """The first tokens of a request, on every rank: broadcast over
+        the data axis from the lowest data rank that holds its slots."""
+        if not group.split:
+            return first_dev
+        import torch.distributed as dist
+        src = min(group.owner(s) for s in slots)
+        buf = (first_dev.contiguous().clone() if first_dev is not None
+               else torch.zeros(b, dtype=torch.int32, device=self.device))
+        dist.broadcast(buf, src=dist.get_global_rank(group.dp_group, src),
+                       group=group.dp_group)
+        return buf
+
+    def prefill_into(self, group: ShardedSlotGroup, slots: List[int],
+                     rid: str, prompt: np.ndarray,
+                     mask: np.ndarray) -> np.ndarray:
+        """Prefill on the data rank(s) holding ``slots`` (the whole
+        request, as :class:`LocalExecutor` does), broadcast its first
+        tokens, seat it; returns the first tokens ``[b]``."""
+        prompt = np.asarray(prompt, np.int32)
+        self._agree("prefill_into", prompt, np.asarray(mask, np.float32),
+                    list(slots), rid)
+        b, S = prompt.shape
+        cols = _gate_cols(mask, None)
+        t0 = time.perf_counter()
+        first_dev, state = None, None
+        params = self.compute_params()      # a collective under fsdp
+        if group.owned(slots):
+            with self.context():
+                logits, cache = decoder.prefill(
+                    params, self.mcfg,
+                    torch.from_numpy(prompt).to(self.device),
+                    group.cache_len, gates=_gate_tensors(cols, self.device),
+                    kv_dtype=self.kv_dtype)
+            first_dev = torch.argmax(logits, dim=-1).to(torch.int32)
+            state = _state_leaves(cache)
+        first_dev = self._first_tokens(group, slots, first_dev, b)
+        first = first_dev.cpu().numpy()
+        self.launch_s += time.perf_counter() - t0
+        group.place(rid, slots, state, cols, S, first_dev)
+        return first
+
+    def prefill_begin(self, group: ShardedSlotGroup, slots: List[int],
+                      rid: str, prompt: np.ndarray, mask: np.ndarray, *,
+                      max_chunk: int) -> _PrefillTask:
+        """Reserve the slots on every rank; the data rank(s) holding them
+        mint the request-sized cache the chunks accumulate into."""
+        prompt = np.asarray(prompt, np.int32)
+        self._agree("prefill_begin", prompt, np.asarray(mask, np.float32),
+                    list(slots), rid)
+        group.reserved.update(slots)
+        state = None
+        if group.owned(slots):
+            state = decoder.init_cache(self.lcfg, prompt.shape[0],
+                                       group.cache_len, self.kv_dtype,
+                                       self.device)
+        return _PrefillTask(group=group, slots=list(slots), rid=rid,
+                            prompt=prompt, cols=_gate_cols(mask, None),
+                            widths=chunk_widths(prompt.shape[1], max_chunk),
+                            state=state)
+
+    def prefill_step(self, task: _PrefillTask) -> Optional[np.ndarray]:
+        """The task's next chunk on the holding rank(s); once the last is
+        done, the first tokens are broadcast and the request seated."""
+        S = task.prompt.shape[1]
+        c = task.widths[task.step]
+        t0 = time.perf_counter()
+        logits = None
+        params = self.compute_params()      # a collective under fsdp
+        if task.state is not None:
+            with self.context():
+                logits = decoder.prefill_chunk(
+                    params, self.mcfg, task.state,
+                    torch.from_numpy(task.prompt[:, task.pos:task.pos + c]
+                                     ).to(self.device), task.pos,
+                    gates=_gate_tensors(task.cols, self.device))
+        task.pos += c
+        task.step += 1
+        if not task.done:
+            self.launch_s += time.perf_counter() - t0
+            return None
+        first_dev = (torch.argmax(logits, dim=-1).to(torch.int32)
+                     if logits is not None else None)
+        first_dev = self._first_tokens(task.group, task.slots, first_dev,
+                                       task.prompt.shape[0])
+        first = first_dev.cpu().numpy()
+        self.launch_s += time.perf_counter() - t0
+        task.group.place(task.rid, task.slots,
+                         _state_leaves(task.state) if task.state else None,
+                         task.cols, S, first_dev)
+        task.state = None
+        return first
+
+    # ---------------------------------------------------- preemption seam
+    def spill_state(self, group: ShardedSlotGroup, slots: List[int]) -> dict:
+        """The request's rows of every state leaf, its position and seed
+        tokens, on every data rank: each holder fills its rows, the blocks
+        are all-gathered over the data axis and each row is taken from its
+        holder's block (a gather, not a sum: the bits travel unchanged),
+        then copied to the host."""
+        if not group.split:
+            return LocalExecutor.spill_state(self, group, slots)
+        from repro_torch.parallel.tp import all_gather_cat
+        b = len(slots)
+        mine = group.owned(slots)
+        rows = group.iidx([i for i, _ in mine]) if mine else None
+        lidx = group.iidx([j for _, j in mine]) if mine else None
+        owners = torch.tensor([group.owner(s) for s in slots],
+                              device=self.device)
+        pick = owners * b + torch.arange(b, device=self.device)
+
+        def share(leaf: torch.Tensor) -> torch.Tensor:
+            """Rows ``slots`` of a [L, n_local, ...] leaf (slot axis 1)."""
+            buf = torch.zeros((leaf.shape[0], b) + tuple(leaf.shape[2:]),
+                              dtype=leaf.dtype, device=self.device)
+            if mine:
+                put_slots(buf, rows, take_slots(leaf, lidx))
+            # as bytes: the codes of every dtype cross unchanged
+            every = all_gather_cat(buf.view(torch.uint8), group.dp_group,
+                                   dim=1).view(leaf.dtype)
+            return take_slots(every, pick).cpu()
+
+        cache = {kind: {k: share(v) for k, v in leaves.items()}
+                 for kind, leaves in _state_leaves(group.cache).items()}
+        pos = share(group.cache["pos"][None])[0]
+        first = share(group.tokens[None, :, 0])[0]
+        return {"cache": cache, "pos": int(pos[0]), "first": first}
+
+    def restore_state(self, group: ShardedSlotGroup, slots: List[int],
+                      rid: str, state: dict, mask, rows=None) -> None:
+        """Reseat through the ordinary placement: each rank writes the rows
+        of the slots it holds, whichever rank spilled them."""
+        dev = self.device
+        cache = {kind: {k: v.to(dev) for k, v in leaves.items()}
+                 for kind, leaves in state["cache"].items()}
+        group.place(rid, list(slots), cache, _gate_cols(mask, None),
+                    state["pos"], state["first"].to(dev))
+
+    # ---------------------------------------------------------- utilization
+    def kv_utilization(self) -> Tuple[float, float]:
+        """The mesh's logical KV bytes, as :class:`LocalExecutor` counts
+        them for the same groups (the same on every rank)."""
+        used = phys = 0.0
+        for g in self._groups.values():
+            if not g.attn_bytes:
+                continue
+            phys += g.attn_bytes
+            per_tok = g.attn_bytes / (g.n_slots * g.cache_len)
+            used += sum(min(int(g.pos[s]), g.cache_len)
+                        for s in g.occupied_slots()) * per_tok
+        return used, phys
+
+    def stats(self) -> Dict[str, int]:
+        s = super().stats()
+        s["mesh_devices"] = int(self.mesh.size)
+        return s

@@ -12,10 +12,17 @@
     next steps. A run's last step is saved once: where the periodic save
     already wrote it, the final save only waits for that write.
 
+  * elastic re-mesh — ``remesh(new_mesh)`` gathers the live state whole,
+    rebuilds the step for the new mesh and cuts the state again: with a
+    checkpoint restore, the shrink/grow-the-job path.
+
 The step is ``steps.make_train_step`` run eagerly on ``device`` (the card
-unless the caller asks for the CPU). Elastic re-meshing and sharded
-training (``mesh=``, ``remesh``) are multi-GPU work, ROADMAP queue 1,
-item 16.
+unless the caller asks for the CPU), or, with ``mesh=`` (a
+``launch.mesh.Mesh``), ``steps.make_sharded_train_step``: every rank runs
+this trainer on the same batches, holds its blocks of the parameters and
+moments under ``parallel.sharding.param_pspecs`` and takes its data shard.
+A checkpoint holds the whole state in JAX's format, gathered and written
+by rank 0; a restore cuts it for the current mesh (or none).
 """
 from __future__ import annotations
 
@@ -29,9 +36,6 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.optim import adamw
 from repro_torch.runtime import steps as steps_lib
-
-_MULTI_GPU = ("multi-GPU training (a mesh, elastic re-meshing) is ROADMAP "
-              "queue 1, item 16")
 
 
 @dataclasses.dataclass
@@ -61,8 +65,6 @@ class Trainer:
                  on_straggler: Optional[Callable[[int, float], None]] = None,
                  on_log: Optional[Callable[[int, Dict], None]] = None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(f"mesh=: {_MULTI_GPU}")
         self.model = model
         self.opt_cfg = opt_cfg
         self.cfg = cfg
@@ -77,37 +79,89 @@ class Trainer:
         self._ewma = None
         self._saved_step = None
         self.straggler_events = []
-        self._step_fn = steps_lib.make_train_step(model, opt_cfg,
-                                                  remat=cfg.remat)
+        self.mesh = mesh
+        self._build()
 
     # ------------------------------------------------------------- plumbing
+    def _build(self):
+        """The step (and, on a mesh, the partition specs) for
+        ``self.mesh``."""
+        if self.mesh is None:
+            self._specs = None
+            self._step_fn = steps_lib.make_train_step(
+                self.model, self.opt_cfg, remat=self.cfg.remat)
+            return
+        from repro_torch.parallel.sharding import P, param_pspecs
+        specs = param_pspecs(self.model.init(self.cfg.seed, "meta"),
+                             self.mesh)
+        self._specs = {"params": specs,
+                       "opt": adamw.AdamWState(step=P(), mu=specs, nu=specs)}
+        self._step_fn = steps_lib.make_sharded_train_step(
+            self.model, self.opt_cfg, self.mesh, specs=specs,
+            remat=self.cfg.remat)
+
+    def _cut(self, state: dict) -> dict:
+        """This rank's blocks of a whole {"params", "opt"} state."""
+        if self.mesh is None:
+            return state
+        from repro_torch.parallel.sharding import shard_params
+        return shard_params(state, self._specs, self.mesh, self.mesh.coords,
+                            self.model.cfg)
+
+    def gathered_state(self, *, dst=None) -> Optional[dict]:
+        """The whole {"params", "opt"} state: on every rank, or with
+        ``dst`` on that rank's host alone (None elsewhere). A collective
+        on a mesh: every rank calls it. Leaves that nothing cuts are the
+        live tensors themselves."""
+        state = {"params": self.params, "opt": self.opt_state}
+        if self.mesh is None:
+            return state
+        from repro_torch.parallel.tp import gather_tree
+        return gather_tree(state, self._specs, self.mesh, self.model.cfg,
+                           dst=dst)
+
+    def _set(self, state: dict) -> None:
+        state = self._cut(state)
+        self.params, self.opt_state = state["params"], state["opt"]
+
     def init_state(self):
-        self.params = self.model.init(self.cfg.seed, self.device)
-        self.opt_state = adamw.init(self.params)
+        params = self.model.init(self.cfg.seed, self.device)
+        self._set({"params": params, "opt": adamw.init(params)})
         self.step = 0
 
     def maybe_restore(self) -> bool:
-        """True if a checkpoint was restored."""
+        """True if a checkpoint was restored (cut for the current mesh)."""
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return False
         shapes = self.model.init(self.cfg.seed, "meta")   # no weights drawn
         template = {"params": shapes, "opt": adamw.init(shapes)}
         state, manifest = self.ckpt.restore(template, device=self.device)
-        self.params, self.opt_state = state["params"], state["opt"]
+        self._set(state)
         self.step = self._saved_step = manifest["step"]
         return True
 
     def save(self, blocking: Optional[bool] = None):
+        """Checkpoint the whole state (on a mesh: gathered to rank 0, which
+        writes it)."""
         if self.ckpt is None:
             return
-        self.ckpt.save({"params": self.params, "opt": self.opt_state},
-                       self.step,
-                       blocking=(not self.cfg.ckpt_async
-                                 if blocking is None else blocking))
+        state = self.gathered_state(dst=0)
+        if state is not None:
+            self.ckpt.save(state, self.step,
+                           blocking=(not self.cfg.ckpt_async
+                                     if blocking is None else blocking))
         self._saved_step = self.step
 
+    # ------------------------------------------------------------- elastic
     def remesh(self, new_mesh):
-        raise NotImplementedError(f"remesh: {_MULTI_GPU}")
+        """Elastic scaling: gather the live state whole, rebuild the step
+        and the specs for ``new_mesh`` (None: meshless) and cut the state
+        again, as JAX's (which goes through the host)."""
+        state = self.gathered_state() if self.params is not None else None
+        self.mesh = new_mesh
+        self._build()
+        if state is not None:
+            self._set(state)
 
     # ----------------------------------------------------------------- run
     def run(self, batches: Iterator[Dict], *,
@@ -139,7 +193,10 @@ class Trainer:
                         and self.step % self.cfg.ckpt_every == 0):
                     self.save()
         except BaseException:
-            if self.ckpt is not None and self.params is not None:
+            # on a mesh of several ranks the save is a collective that a
+            # rank failing alone would hang: no emergency save there
+            if (self.ckpt is not None and self.params is not None
+                    and (self.mesh is None or self.mesh.size == 1)):
                 try:
                     self.save(blocking=True)   # emergency checkpoint
                 except Exception:

@@ -12,7 +12,8 @@ Checkpoints use the JAX package's on-disk format, so they move both ways:
   round trip and its error raised on the next ``wait()``;
 * ``Trainer``: exact resume after a restart (losses equal to an
   uninterrupted run's), the emergency checkpoint on a crash, the straggler
-  hook, ``remesh``/``mesh=`` refused (multi-GPU, ROADMAP queue 1 item 16);
+  hook, ``remesh``/``mesh=`` on a 1 x 1 mesh (multi-GPU worlds:
+  ``test_torch_mesh_train.py``);
   the twins of ``tests/test_runtime.py``'s trainer tests;
 * ``launch.train --smoke --device cpu`` run twice resumes;
 * ``benchmarks.common``: a few subject steps restore from their cache, and
@@ -270,12 +271,24 @@ def test_trainer_straggler_detection(tmp_path):
 
 
 def test_trainer_remesh_is_refused(tmp_path):
+    """Formerly the refusal pin of multi-GPU training: ``remesh`` and
+    ``mesh=`` now work. On a world of one, a run re-meshed onto 1 x 1
+    keeps training, and a trainer builds on the mesh."""
+    from repro_torch.launch.mesh import destroy_distributed, make_host_mesh
     model, tr = _small_trainer(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tr.remesh(object())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Trainer(model, adamw.AdamWConfig(), TrainerConfig(), mesh=object(),
-                device="cpu")
+    corpus = SyntheticCorpus(model.cfg.vocab_size, seed=1)
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"), device="cpu")
+        tr.run(batch_iterator(corpus, 2, 32), steps=3)
+        tr.remesh(mesh)
+        out = tr.run(batch_iterator(corpus, 2, 32, start=tr.step), steps=3)
+        assert out["final_step"] == 6
+        assert np.isfinite(out["history"][-1]["loss"])
+        meshed = Trainer(model, adamw.AdamWConfig(), TrainerConfig(),
+                         mesh=mesh, device="cpu")
+        assert meshed.mesh is mesh
+    finally:
+        destroy_distributed()
 
 
 # ----------------------------------------------------------------- launcher
@@ -290,8 +303,12 @@ def test_train_launcher_resumes_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from checkpoint at step 4" in out
     assert second["final_step"] == 6 and "done at step 6" in out
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train.main(argv + ["--mesh"])
+    # --mesh: the (world, 1) mesh of a world of one, resuming the same run
+    third = train.main(argv + ["--steps", "8", "--mesh"])
+    out = capsys.readouterr().out
+    assert "mesh: {'data': 1, 'model': 1}" in out
+    assert "resumed from checkpoint at step 6" in out
+    assert third["final_step"] == 8
 
 
 def test_train_launcher_without_gpu_raises(monkeypatch):

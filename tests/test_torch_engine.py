@@ -177,14 +177,22 @@ def test_serve_without_gpu_raises(monkeypatch):
 
 
 def test_later_slices_raise(served):
+    """What JAX refuses, the port refuses: a static baseline without its
+    probe's context, and sharded serving in structural mode. Sharded
+    serving itself is ported: masked mode serves on a 1 x 1 mesh."""
     s = served
     from repro_torch.launch import serve
     # the static baselines are ported: without their probe's context they
     # refuse as JAX's do, not as a later slice
     with pytest.raises(ValueError, match="requires model, params, calib"):
         make_policy("shortgpt", mm=s["mm"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="masked-mode only"):
         serve.main(["--smoke", "--device", "cpu", "--executor", "sharded"])
+    engine, rep = serve.main(["--smoke", "--device", "cpu", "--executor",
+                              "sharded", "--mode", "masked", "--mesh", "1x1",
+                              "--requests", "2"])
+    assert {r.status for r in rep.results} == {"done"}
+    assert engine.executor.stats()["mesh_devices"] == 1
 
 
 def test_pool_allocates_on_the_given_device():
@@ -211,6 +219,10 @@ TWINS = %r
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
+for need in ("repro_torch.parallel", "repro_torch.parallel.sharding",
+             "repro_torch.parallel.activation", "repro_torch.parallel.tp",
+             "repro_torch.parallel.compression", "repro_torch.launch.mesh"):
+    assert need in sys.modules, need
 for name, path in [("chip_smoke", "chip_smoke.py")] + [
         (n, f"examples/{n}.py") for n in TWINS]:
     spec = importlib.util.spec_from_file_location(name, path)

@@ -207,12 +207,18 @@ def test_gate_zero_drops_the_block(pair):
 
 
 def test_other_architectures_are_later_slices():
-    """Every architecture is ported now (the MoE and encoder-decoder ones
-    last); what is left is multi-GPU, which raises naming its ROADMAP
-    item."""
+    """Every architecture is ported (the MoE and encoder-decoder ones
+    last), and so is multi-GPU serving: ``--executor sharded`` serves in
+    masked mode on a mesh ('auto': 1 x 1 in a world of one), and in
+    structural mode it refuses naming the ROADMAP, as JAX's does."""
     from repro_torch.launch import serve
     assert get_smoke_config("olmoe-1b-7b").n_experts == 8
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.main(["--smoke", "--device", "cpu", "--executor", "sharded"])
+    engine, rep = serve.main(["--smoke", "--device", "cpu", "--executor",
+                              "sharded", "--mode", "masked", "--mesh", "auto",
+                              "--requests", "2", "--arch", "olmoe-1b-7b"])
+    assert {r.status for r in rep.results} == {"done"}
+    assert engine.executor.mesh.shape == {"data": 1, "model": 1}
     with pytest.raises(KeyError):
         get_smoke_config("no-such-arch")
