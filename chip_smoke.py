@@ -217,6 +217,25 @@ under deterministic algorithms) with the meshless run's losses bit for
 bit, one ``make_compressed_train_step`` step, and a ``remesh`` onto the
 same mesh that leaves the state bitwise.
 
+Analysis (``repro_torch.launch.dryrun``, ``ShardedExecutor.lower_decode``,
+``launch.rap_sweep``, ``repro_torch.roofline``): two production-mesh cells
+counted on a fake world of 256 ranks on this host (qwen3-14b decode_32k,
+gemma-2b train_4k: the ``"fake"`` backend on this torch), their roofline
+rows printed; then llama2-7b at full width (32 layers, bf16) on the 1 x 1
+mesh at ``CARD_DECODE`` (batch 8, a full random cache of 4096): the step's
+logits through the kernels against the same step through their plain
+versions, in f32 at 2 layers (elementwise) and in bf16 at 32 (no further
+from them than PyTorch's own sdpa and GLU ops), then ``lower_decode``'s
+record beside 20 real decode steps timed with CUDA events (the wall,
+host-bound) and 5 under
+``torch.profiler`` (the device's busy time, which the roofline share
+divides). The record's kernel calls must equal the real steps' launches,
+and its counted peak must lie within ``PEAK_TOL`` of
+``max_memory_allocated`` over the steps; the RAP sweep (``RAP_FRACS``:
+32, 26 and 19 layers) prints its predicted bound ratios beside the
+measured device-busy (and wall) ratios, each within ``SWEEP_TOL`` of its
+prediction.
+
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a GPU, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
@@ -234,10 +253,6 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
-            "torch.float32": 67e12}  # dense tensor bf16 / non-tensor f32
-TF32_OPS = 495e12              # dense tensor TF32 (ssd's 3xTF32 products)
 BASE_ARGV = ["--arch", "llama2-7b", "--mode", "masked", "--policy", "rl",
              "--episodes", "0", "--max-new", "8", "--seed", "0"]
 SERVE_ARGV = BASE_ARGV + ["--executor", "paged", "--requests", "6",
@@ -355,9 +370,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[str(dtype)] * 1e3
+def bound_ms(cost) -> tuple:
+    """(ms, what bounds it) of one kernel call (``kernels.ref.Cost``, from
+    the kernel module's ``cost()``): its bytes over the card's HBM rate or
+    its operations over the peak of their type (``launch.mesh``'s
+    data-sheet figures), the larger."""
+    from repro_torch.launch.mesh import HBM_BW, peak_flops
+    t_bytes = cost.bytes / HBM_BW * 1e3
+    t_ops = cost.flops / peak_flops(cost.op_dtype) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -426,8 +446,7 @@ def glu_timing(torch, swiglu, g, T, F, act) -> dict:
     shape = f"h [{T}, {2 * F}] {act} {dt}"
     err = check(f"timed fused_glu {shape}", swiglu.fused_glu_cuda(h, act),
                 swiglu.glu_ref(h, act), dt)
-    bms, by = bound_ms(3 * T * F * h.element_size(), 5 * T * F,
-                       torch.float32)
+    bms, by = bound_ms(swiglu.cost(h, act))
     return {"max_abs_err": err,
             "ms": time_ms(lambda: swiglu.fused_glu_cuda(h, act)),
             "busy_ms": time_ms(lambda: swiglu.fused_glu_cuda(h, act),
@@ -499,11 +518,11 @@ def decode_calls(torch, dec, pdec, attention, B, H, K, D, S) -> dict:
     """The three decode bodies on the same tokens: bf16 pages of 16 tokens
     (``paged_inputs`` seed 12: ragged lengths, row 0 full), int8 pages of
     them with bf16 q, and a contiguous bf16 cache of the table's width with
-    per-row prefix masks. Per body: the kernel and plain calls, the bytes
-    the function must move and a shape label; ``sdpa``: the
+    per-row prefix masks. Per body: the kernel and plain calls, its
+    kernel module's ``cost()`` on these inputs (the bytes the function must
+    move, its operations) and a shape label; ``sdpa``: the
     ``scaled_dot_product_attention`` call (boolean mask) for the dense
-    body; ``ops``: the operations (4·D per attended token and query
-    head)."""
+    body."""
     pt, dt = 16, torch.bfloat16
     q, kp, vp, table, lengths = paged_inputs(torch, B, H, K, D, pt, S,
                                              torch.float32, 12)
@@ -515,9 +534,6 @@ def decode_calls(torch, dec, pdec, attention, B, H, K, D, S) -> dict:
     vd = vp[table.long()].reshape(B, n, K, D)
     rows = torch.arange(n, device="cuda")[None, :] < lengths[:, None]
     toks = int(lengths.sum())
-    pages = int(((lengths + pt - 1) // pt).sum())
-    io = 2 * q.numel() * 2                      # q read, out written
-    index = table.numel() * 4 + lengths.numel() * 4
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kd, vd))
     gqa = {"enable_gqa": True} if K < H else {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -528,21 +544,20 @@ def decode_calls(torch, dec, pdec, attention, B, H, K, D, S) -> dict:
                       q, kp, vp, table, lengths),
                   lambda: pdec.paged_decode_attention_ref(
                       q, kp, vp, table, lengths),
-                  io + 2 * toks * K * D * 2 + index,
+                  pdec.cost(q, kp, vp, table, lengths),
                   f"{shape}, bf16 pages of {pt}"),
         "quant": (lambda: pdec.paged_decode_attention_quant_cuda(
                       q, kq, vq, ks, vs, table, lengths),
                   lambda: pdec.paged_decode_attention_quant_ref(
                       q, kq, vq, ks, vs, table, lengths),
-                  io + 2 * toks * K * D + 2 * pages * K * 4 + index,
+                  pdec.cost_quant(q, kq, vq, ks, vs, table, lengths),
                   f"{shape}, int8 pages of {pt}"),
         "dense": (lambda: dec.decode_attention_cuda(q, kd, vd, rows),
                   lambda: dec.decode_attention_ref(q, kd, vd, rows),
-                  io + 2 * toks * K * D * 2 + rows.numel(),
+                  dec.cost(q, kd, vd, rows),
                   f"{shape}, cache of {n}, per-row prefix masks"),
         "sdpa": lambda: sdpa(qt, kt, vt, attn_mask=rows[:, None, None, :],
-                             **gqa),
-        "ops": 4 * toks * H * D}
+                             **gqa)}
 
 
 def decode_timing(torch, dec, pdec, attention, B, H, K, D, S) -> dict:
@@ -554,10 +569,10 @@ def decode_timing(torch, dec, pdec, attention, B, H, K, D, S) -> dict:
     calls = decode_calls(torch, dec, pdec, attention, B, H, K, D, S)
     out = {}
     for body in ("paged", "quant", "dense"):
-        kernel, plain, nbytes, shape = calls[body]
+        kernel, plain, cost, shape = calls[body]
         check(f"timed {body} decode {shape}", kernel(), plain(),
               torch.bfloat16)
-        bms, by = bound_ms(nbytes, calls["ops"], torch.bfloat16)
+        bms, by = bound_ms(cost)
         out[body] = {"ms": time_ms(kernel),
                      "busy_ms": time_ms(kernel, hide_launch=True),
                      "plain_ms": time_ms(plain), "bound_ms": bms,
@@ -669,18 +684,6 @@ FLASH_TIMED = {"prefill": (8, 256, 32, 32, 128, 0),
                "recurrentgemma": (8, 264, 16, 1, 256, 2048)}
 
 
-def flash_bound(B, S, H, K, D, window, dtype, causal=True) -> tuple:
-    """Bound of causal (banded) or unmasked attention over S tokens: q and
-    out read and written at H heads, k and v read at K heads; 4·D
-    operations per kept (query, key) pair and query head."""
-    es = {"torch.float32": 4}.get(str(dtype), 2)
-    pairs = S * S if not causal else sum(
-        qi + 1 - (max(0, qi - window + 1) if window > 0 else 0)
-        for qi in range(S))
-    return bound_ms((2 * B * S * H * D + 2 * B * S * K * D) * es,
-                    4 * B * H * D * pairs, dtype)
-
-
 def flash_calls(torch, fa, g, B, S, H, K, D, window, dt,
                 causal=True) -> dict:
     """Random bf16/fp16 inputs at one ``FLASH_TIMED`` shape and three calls
@@ -708,7 +711,9 @@ def flash_timing(torch, fa, g, B, S, H, K, D, window, dt,
              f"{f' window={window}' if window else ''} {dt}")
     err = check(f"flash_attention {shape}", calls["kernel"](),
                 calls["plain"](), dt)
-    bms, by = flash_bound(B, S, H, K, D, window, dt, causal)
+    meta = lambda n: torch.empty(B, S, n, D, dtype=dt, device="meta")
+    bms, by = bound_ms(fa.cost(meta(H), meta(K), meta(K), causal=causal,
+                               window=window))
     return {"max_abs_err": err, "ms": time_ms(calls["kernel"]),
             "plain_ms": time_ms(calls["plain"]), "bound_ms": bms,
             "bound_by": by, "library_ms": time_ms(calls["library"]),
@@ -822,6 +827,10 @@ def decode_cases(torch, ops, dec, pdec, attention, timed):
     cases += [(4, 16, 16, 64, 448, 0.0, None, "rows"),
               (4, 16, 16, 64, 1500, 0.0,
                torch.ones(1500, dtype=torch.bool, device="cuda"), "all")]
+    # the analysis phase's llama2-7b step: 8 rows of a full 4096-token cache
+    # under one shared mask (3 splits of 22 tiles on 132 SMs)
+    cases += [(8, 32, 32, 128, 4096, 0.0,
+               torch.ones(4096, dtype=torch.bool, device="cuda"), "all")]
     for i, (b, h, k, d, s, cap, valid, kind) in enumerate(cases):
         if valid is None:
             lens = torch.randint(1, s + 1, (b,), generator=g).cuda()
@@ -925,24 +934,15 @@ SSD_TIMED = {"prefill": (8, 256, 32, 64, 128, 256),
              "three_chunks": (2, 600, 32, 64, 128, 256)}
 
 
-def ssd_bound(torch, B, T, H, P, N, Q) -> tuple:
+def ssd_bound(torch, ssd, xh, log_a, Bm, Cm, Q) -> tuple:
     """(bound ms, what bounds it, bound ms on TF32 tensor cores) of the
-    chunked scan. Bytes: xh, log_a, B and C read once, y and the final
-    state written once. Operations on causal pairs only: C·Bᵀ once per
-    (batch, chunk) for every head (one group); per head (C·Bᵀ ⊙ L)·x and
-    the chunk's own state 2·q·N·P, and C·stateᵀ 2·q·N·P only after the
-    first chunk, whose carried state is zero. The first bound takes the
-    f32 FMA rate (the inputs' type); the kernel's 3xTF32 products make
-    three TF32 products of each, at 495 TFLOP/s."""
-    chunks = [min(Q, T - c) for c in range(0, T, Q)]
-    pairs = sum(q * (q + 1) // 2 for q in chunks)
-    ops = (B * 2 * pairs * N
-           + B * H * (2 * pairs * P + 2 * T * N * P
-                      + 2 * (T - chunks[0]) * N * P))
-    nbytes = 4 * (2 * B * T * H * P + B * T * H + 2 * B * T * N
-                  + B * H * P * N)
-    bms, by = bound_ms(nbytes, ops, torch.float32)
-    return bms, by, max(nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS) * 1e3
+    chunked scan, from ``ssd.cost`` (bytes; operations on causal pairs).
+    The first bound takes the f32 FMA rate (the inputs' type); the
+    kernel's 3xTF32 products make three TF32 products of each."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_TF32
+    c = ssd.cost(xh, log_a, Bm, Cm, Q)
+    bms, by = bound_ms(c)
+    return bms, by, max(c.bytes / HBM_BW, 3 * c.flops / PEAK_FLOPS_TF32) * 1e3
 
 
 def ssd_timing(torch, ssd, B, T, H, P, N, Q) -> dict:
@@ -961,7 +961,7 @@ def ssd_timing(torch, ssd, B, T, H, P, N, Q) -> dict:
     if not (torch.equal(y, y2) and torch.equal(fin, fin2)):
         raise AssertionError(f"two launches of ssd at {shape} gave "
                              f"different bits")
-    bms, by, tc_ms = ssd_bound(torch, B, T, H, P, N, Q)
+    bms, by, tc_ms = ssd_bound(torch, ssd, xh, log_a, Bm, Cm, Q)
     run = lambda: ssd.ssd_cuda(xh, log_a, Bm, Cm, Q)
     return {"max_abs_err": err, "ms": time_ms(run),
             "busy_ms": time_ms(run, hide_launch=True),
@@ -1006,7 +1006,7 @@ def rglru_cases(torch, ops, rglru):
                                rglru.rglru_ref(a, b), SCAN_TOL["rglru"]))
     _, _, _, _, a, b = scan_inputs(torch)
     B, T, W = a.shape
-    bms, by = bound_ms(3 * 4 * a.numel(), 2 * a.numel(), torch.float32)
+    bms, by = bound_ms(rglru.cost(a, b))
     return {"name": "rglru", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rglru.cu",
             "replaces": "src/repro/kernels/rglru.py:49",
@@ -3516,6 +3516,324 @@ def mesh_training_phase(torch, card: str) -> dict:
     return r
 
 
+# the analysis phase: llama2-7b at full width on the 1 x 1 mesh at a decode
+# shape one card holds (13.5 GB of bf16 weights, 17.2 GB of bf16 KV: 8 rows
+# of a full 4096-token cache), and the sweep's keep fractions (32, 26, 19
+# layers); the counted peak against the allocator's, within 2%; each
+# variant's device-busy ms over the dense one's within 0.05 of its counted
+# bound over the dense bound (the embedding and the head, which do not
+# shrink, are under 1% of the bytes)
+CARD_DECODE = ("card_decode", 4096, 8, "decode")
+RAP_FRACS = (1.0, 0.8, 0.6)
+ANALYSIS_STEPS = 20
+PROFILED_STEPS = 5
+PEAK_TOL = 0.02
+SWEEP_TOL = 0.05
+PRODUCTION_CELLS = (("qwen3-14b", "decode_32k"), ("gemma-2b", "train_4k"))
+
+
+def production_cells(card: str) -> list:
+    """The ``PRODUCTION_CELLS`` counted on a fake world of 256 ranks (no
+    card), their records checked and their roofline rows printed."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis
+    rows = []
+    with tempfile.TemporaryDirectory() as d:
+        for arch, shape in PRODUCTION_CELLS:
+            t0 = time.perf_counter()
+            r = dryrun.run_cell(arch, shape, False, d)
+            if r.get("error") or not r["kernels"]:
+                raise AssertionError(f"dry run {arch} x {shape}: "
+                                     f"{r.get('error', 'no kernel calls')}")
+            prev, analysis.DRYRUN_DIR = analysis.DRYRUN_DIR, d
+            try:
+                row = analysis.analyze_cell(arch, shape)
+            finally:
+                analysis.DRYRUN_DIR = prev
+            rows.append(row)
+            calls = {k: v["calls"] for k, v in r["kernels"].items()}
+            print(f"  dry run {arch} x {shape} (fake world of 256, counted, "
+                  f"not measured; counted on this host in "
+                  f"{time.perf_counter() - t0:.1f} s): "
+                  f"{r['cost']['flops'] / 1e12:.2f} TFLOP, "
+                  f"{r['cost']['bytes_accessed'] / 1e9:.2f} GB, wire "
+                  f"{r['collectives']['total_wire_bytes'] / 1e9:.3f} GB, peak "
+                  f"{r['memory']['real_bytes'] / 1e9:.2f} GB a rank; kernels "
+                  f"{calls}")
+            print(f"    H100 terms: compute {row['compute_s']:.6f} s, memory "
+                  f"{row['memory_s']:.6f} s, collective "
+                  f"{row['collective_s']:.6f} s -> {row['dominant']}-bound, "
+                  f"roofline_frac {row['roofline_frac']:.3f}, fits 80 GB "
+                  f"{row['fits_hbm']} [data sheet, not {card}]")
+    return rows
+
+
+def device_busy_ms(torch, fn, steps: int) -> float:
+    """Device-busy ms a call of ``fn``: the union of the device's activity
+    intervals over ``steps`` calls under ``torch.profiler``, over
+    ``steps``. The host's gaps between launches are left out, so on a
+    host-bound step this is the time the card's work takes."""
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("torch.profiler recorded no device activity")
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3 / steps
+
+
+def _plain_attention(q, k, v, valid, *, softcap=0.0, split_rows=0):
+    from repro_torch.kernels import decode_attention as dec
+    return dec.decode_attention_ref(q, k, v, valid, softcap=softcap)
+
+
+def _library_attention(q, k, v, valid, *, softcap=0.0, split_rows=0):
+    """The decode attention by ``scaled_dot_product_attention`` (boolean
+    mask, no softcap: llama2-7b's)."""
+    import torch
+    H, K = q.shape[2], k.shape[2]
+    kk, vv = (x.transpose(1, 2).repeat_interleave(H // K, 1) for x in (k, v))
+    mask = valid if valid.ndim == 2 else valid[None].expand(q.shape[0], -1)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), kk, vv,
+        attn_mask=mask[:, None, None, :]).transpose(1, 2)
+
+
+def _library_glu(h, activation="swiglu"):
+    """SwiGLU in PyTorch's own ops, in ``h``'s dtype."""
+    import torch
+    gate, up = h.chunk(2, dim=-1)
+    return torch.nn.functional.silu(gate) * up
+
+
+def decode_step_routes(torch, ops, step, params, cache, tokens) -> dict:
+    """One decode step's logits three ways on the same inputs: through the
+    kernels, through their plain versions and through PyTorch's own calls
+    (the model code calls ``ops.decode_attention`` and ``ops.fused_glu``
+    through ``ops``, so the two are swapped there for the call). The cache
+    position is put back after each, so all three see the same cache."""
+    from repro_torch.kernels import swiglu
+    routes = {"kernels": (ops.decode_attention, ops.fused_glu),
+              "plain": (_plain_attention, swiglu.glu_ref),
+              "library": (_library_attention, _library_glu)}
+    saved, pos, out = routes["kernels"], cache["pos"], {}
+    try:
+        for name, (attn, glu) in routes.items():
+            ops.decode_attention, ops.fused_glu = attn, glu
+            out[name], _ = step(params, cache, tokens)
+            cache["pos"] = pos
+    finally:
+        ops.decode_attention, ops.fused_glu = saved
+    return out
+
+
+def rel_dist(a, b) -> float:
+    """|a - b| / |b| (Frobenius)."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def random_cache(torch, cache, seed: int) -> None:
+    """Fill a decode cache's K and V with normal values (seeded), so that
+    the attention reads a cache worth comparing."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for v in cache["attn"].values():
+        v.normal_(generator=g)
+
+
+def analysis_step_f32(torch, ops) -> None:
+    """llama2-7b at full width, 2 layers, f32, on ``CARD_DECODE``'s random
+    cache: the decode step's logits through the kernels against its plain
+    versions, elementwise at the f32 tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.runtime import steps
+    _, S, B, _ = CARD_DECODE
+    cfg = get_config("llama2-7b").replace(n_layers=2, param_dtype="float32",
+                                          dtype="float32")
+    model = registry.build(cfg)
+    params = model.init(0, "cuda")
+    cache = model.init_cache(B, S, device="cuda")
+    random_cache(torch, cache, 5)
+    cache["pos"] = S - 1
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), device="cuda",
+                           dtype=torch.int32,
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(3))
+    out = decode_step_routes(torch, ops, steps.make_decode_step(model),
+                             params, cache, tokens)
+    rel = rel_dist(out["kernels"], out["plain"])
+    check(f"llama2-7b decode step logits B={B} S={S} f32, 2 layers, kernels "
+          f"vs plain versions (|Δ|/|ref| {rel:.3e})", out["kernels"],
+          out["plain"], torch.float32)
+
+
+def analysis_phase(torch, ops, card: str) -> dict:
+    """The production cells, then ``lower_decode``'s record of llama2-7b's
+    decode step at ``CARD_DECODE`` beside the real step, and the RAP sweep
+    measured (module docstring). Returns the timed steps' launches."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import rap_sweep
+    from repro_torch.launch.mesh import destroy_distributed, make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.runtime import ShardedExecutor, steps
+    from repro_torch.tree import flatten, unflatten
+    t_phase = time.perf_counter()
+    production_cells(card)
+    analysis_step_f32(torch, ops)
+    shape = ShapeConfig(*CARD_DECODE)
+    _, S, B, _ = CARD_DECODE
+    base = get_config("llama2-7b")
+    mesh = make_host_mesh((1, 1), ("data", "model"), device="cuda")
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    rows = []
+    out_dir = tempfile.mkdtemp(prefix="rap_sweep_")
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        model = registry.build(base)
+        params = model.init(0, "cuda")
+        cache = model.init_cache(B, S, device="cuda")
+        random_cache(torch, cache, 5)
+        tokens = torch.randint(0, base.vocab_size, (B, 1), device="cuda",
+                               dtype=torch.int32,
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(3))
+        for frac in RAP_FRACS:
+            t0 = time.perf_counter()
+            rec = rap_sweep.lower_pruned_decode("llama2-7b", shape, frac,
+                                                out_dir, mesh=mesh)
+            L = rec["n_layers"]
+            count_s = time.perf_counter() - t0
+            pm = registry.build(base.replace(n_layers=L))
+            ex = ShardedExecutor(pm, mesh)
+            p = unflatten(params, {k: v[:L] if k.startswith("stacks/") else v
+                                   for k, v in flatten(params).items()})
+            c = {"pos": S - 1, "attn": {n: v[:L]
+                                         for n, v in cache["attn"].items()}}
+            step = steps.make_decode_step(pm)
+
+            def run():
+                nonlocal c
+                with ex.context():
+                    _, c = step(p, c, tokens)
+                c["pos"] = S - 1            # every step on the full cache
+            for _ in range(3):
+                run()
+            if frac == 1.0:
+                # the step the phase times, through the kernels, their plain
+                # versions and PyTorch's own calls: 32 bf16 layers carry each
+                # one's rounding on, so the kernels' step may lie no further
+                # from the plain versions' than PyTorch's does (each kernel
+                # alone is held elementwise at this shape in decode_cases,
+                # the step in f32 by analysis_step_f32)
+                with ex.context():
+                    out = decode_step_routes(torch, ops, step, p, c, tokens)
+                rk = rel_dist(out["kernels"], out["plain"])
+                rl = rel_dist(out["library"], out["plain"])
+                same = (out["kernels"].argmax(-1)
+                        == out["plain"].argmax(-1)).float().mean()
+                err = max_err(out["kernels"], out["plain"])
+                print(f"  llama2-7b decode step logits B={B} S={S} bf16, {L} "
+                      f"layers, against the plain versions: kernels "
+                      f"|Δ|/|ref| {rk:.3e} (max|Δ| {err:.3e}), PyTorch's "
+                      f"sdpa and GLU ops {rl:.3e}; greedy tokens equal "
+                      f"{float(same):.3f}")
+                if not (rk <= rl and torch.isfinite(out["kernels"]).all()):
+                    raise AssertionError("the decode step through the "
+                                         "kernels lies further from the plain "
+                                         "versions than PyTorch's own calls")
+                del out
+            torch.cuda.synchronize()
+            if frac == 1.0:
+                torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(ANALYSIS_STEPS):
+                run()
+            b.record()
+            b.synchronize()
+            ms = a.elapsed_time(b) / ANALYSIS_STEPS
+            busy = device_busy_ms(torch, run, PROFILED_STEPS)
+            got = ops.launch_counts()
+            for k, v in got.items():
+                launches[k] += v
+            n_steps = ANALYSIS_STEPS + PROFILED_STEPS
+            per_step = {k: v["calls"] for k, v in rec["kernels"].items()}
+            want = {k: v * n_steps for k, v in per_step.items()}
+            if {k: v for k, v in got.items() if v} != want:
+                raise AssertionError(f"keep {frac}: the record's kernel calls "
+                                     f"{rec['kernels']} x {n_steps} are not "
+                                     f"the real steps' launches {got}")
+            terms = {"compute": rec["compute_s"], "memory": rec["memory_s"],
+                     "collective": rec["collective_s"]}
+            bound = max(terms.values())
+            row = {"keep": frac, "layers": L, "ms": ms, "busy_ms": busy,
+                   **terms, "dominant": max(terms, key=terms.get),
+                   "share": bound * 1e3 / busy, "bound_s": bound}
+            rows.append(row)
+            print(f"  llama2-7b decode B={B} S={S} bf16, {L} layers (keep "
+                  f"{frac}) [{card}]: device busy {busy:.4f} ms a step "
+                  f"(torch.profiler, {PROFILED_STEPS} steps); wall {ms:.4f} "
+                  f"ms a step (mean of {ANALYSIS_STEPS}, CUDA events, "
+                  f"host-bound);"
+                  f" counted (not measured, in {count_s:.1f} s): compute "
+                  f"{rec['compute_s'] * 1e3:.4f} ms, memory "
+                  f"{rec['memory_s'] * 1e3:.4f} ms, collective "
+                  f"{rec['collective_s'] * 1e3:.4f} ms -> {row['dominant']}-"
+                  f"bound; roofline share of the device time "
+                  f"{row['share']:.3f} (of the wall {bound * 1e3 / ms:.3f}); "
+                  f"kernel calls a step {per_step}, each launched so")
+            if frac == 1.0:
+                peak = torch.cuda.max_memory_allocated() - before
+                counted = rec["real_gb"] * 1e9
+                print(f"  peak over the steps [{card}]: "
+                      f"{peak / 1e9:.3f} GB (max_memory_allocated) vs counted "
+                      f"{counted / 1e9:.3f} GB ({peak / counted - 1:+.2%}, "
+                      f"tolerance {PEAK_TOL:.0%})")
+                if abs(peak / counted - 1) > PEAK_TOL:
+                    raise AssertionError("the counted peak is not the card's")
+            del ex, c, p
+        dense = rows[0]
+        for r in rows[1:]:
+            want = r["bound_s"] / dense["bound_s"]
+            got = r["busy_ms"] / dense["busy_ms"]
+            print(f"  RAP sweep keep {r['keep']} ({r['layers']} layers) "
+                  f"[{card}]: predicted bound {want:.3f}x of dense (counted), "
+                  f"measured device busy {got:.3f}x (wall, host-bound "
+                  f"{r['ms'] / dense['ms']:.3f}x; tolerance {SWEEP_TOL})")
+            if abs(got - want) > SWEEP_TOL:
+                raise AssertionError(f"keep {r['keep']}: the device time does "
+                                     f"not follow the counted bound")
+        del params, cache, tokens
+    finally:
+        destroy_distributed()
+        shutil.rmtree(out_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  analysis phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def serves(torch, ops, card: str) -> dict:
     """Serves 1-9 and serve 6 on int8 and fp8 slot caches, each with its
     checks; returns their launch counts (``c1``..``c9``, ``c6_int8``,
@@ -3725,6 +4043,9 @@ def main() -> None:
     sharded_horizon_sync(torch)
     mesh_training_phase(torch, card)
     print(f"  multi-GPU phases: {time.perf_counter() - t0:.1f} s")
+    print("analysis (dry run on a fake world, lower_decode vs the card, "
+          "the RAP sweep):")
+    analysis_launches = analysis_phase(torch, ops, card)
     # each kernel's launches come from the serve whose path runs it
     c = runs
     home = {"paged_decode_attention_quant": c["c2"], "decode_attention":
@@ -3748,6 +4069,7 @@ def main() -> None:
         e["launches_serve11_shortgpt_order"] = c["c11_order"][e["name"]]
         e["launches_train_full_width"] = c["c_train_full"][e["name"]]
         e["launches_train_subject"] = c["c_train_subject"][e["name"]]
+        e["launches_analysis"] = analysis_launches[e["name"]]
         for name, run in shock.items():
             e[f"launches_{name.replace(' ', '_')}"] = run["launches"][
                 e["name"]]

@@ -4,10 +4,10 @@
 
 Each module prints a CSV block and writes
 ``experiments/bench_torch/<name>.json`` (``common.BENCH_DIR``). Everything
-runs on the card unless ``--device cpu`` is passed. The JAX package's
-``roofline`` entry parses TPU HLO; its H100 form is ROADMAP queue 1, item
-17, so ``--only roofline`` raises ``NotImplementedError`` and the default
-run lists only the ported experiments. Exits 1 if any experiment failed.
+runs on the card unless ``--device cpu`` is passed. ``roofline`` reads
+the dry run's records (``python -m repro_torch.launch.dryrun --all``;
+``repro_torch.roofline.analysis.DRYRUN_DIR``) and runs nothing on the
+card. Exits 1 if any experiment failed.
 """
 from __future__ import annotations
 
@@ -36,10 +36,9 @@ BENCHES = [
      "Fig. 10 — α/β penalty sensitivity"),
     ("fig11", "repro_torch.benchmarks.fig11_overhead",
      "Fig. 11 — controller overhead"),
+    ("roofline", "repro_torch.benchmarks.roofline",
+     "§Roofline — 3 terms per arch × shape from the dry-run"),
 ]
-# the JAX package's one entry not ported yet
-ROOFLINE = ("§Roofline parses TPU HLO; its H100 form is ROADMAP queue 1, "
-            "item 17")
 
 
 def main(argv=None) -> None:
@@ -50,8 +49,6 @@ def main(argv=None) -> None:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     want = set(args.only.split(",")) if args.only else None
-    if want and "roofline" in want:
-        raise NotImplementedError(f"--only roofline: {ROOFLINE}")
     unknown = sorted((want or set()) - {b[0] for b in BENCHES})
     if unknown:
         ap.error(f"unknown benchmarks {unknown}; available: "

@@ -4,13 +4,19 @@ Every architecture of the JAX package: the dense decoders (llama2-7b,
 gemma-2b, glm4-9b, qwen3-14b, qwen1.5-32b), the MoE decoders olmoe-1b-7b
 and dbrx-132b, the vision-language internvl2-1b, the sub-quadratic
 mamba2-370m and recurrentgemma-9b, and the encoder-decoder
-whisper-medium.
+whisper-medium. ``ASSIGNED_ARCHS`` (every one but llama2-7b, the paper's
+own subject, in the JAX package's order) and ``SHAPES`` span the dry
+run's cells; ``shape_applicable`` drops the full-attention ones at
+``long_500k``.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from typing import Dict, List
+
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      get_shape)
 
 _MODULES = {
     "llama2-7b": "repro_torch.configs.llama2_7b",
@@ -27,6 +33,11 @@ _MODULES = {
 }
 
 
+ASSIGNED_ARCHS: List[str] = [
+    "internvl2-1b", "recurrentgemma-9b", "glm4-9b", "qwen1.5-32b", "gemma-2b",
+    "qwen3-14b", "mamba2-370m", "olmoe-1b-7b", "dbrx-132b", "whisper-medium"]
+
+
 def _module(name: str):
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(_MODULES)}")
@@ -41,4 +52,18 @@ def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).SMOKE
 
 
-__all__ = ["ModelConfig", "get_config", "get_smoke_config"]
+def all_configs() -> Dict[str, ModelConfig]:
+    return {k: get_config(k) for k in _MODULES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """Cell-applicability rules of the dry run."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic():
+        return False  # pure full-attention archs skip long-context decode
+    return True
+
+
+__all__ = [
+    "ModelConfig", "ShapeConfig", "SHAPES", "get_shape", "get_config",
+    "get_smoke_config", "all_configs", "ASSIGNED_ARCHS", "shape_applicable",
+]

@@ -3,7 +3,9 @@
 The same ``ModelConfig`` as the JAX package's ``configs/base.py``: every
 architecture is a frozen dataclass whose ``layer_specs()`` lists per-layer
 (mixer_kind, ffn_kind), and whose parameter counts feed the analytical
-memory model. Only the dtype accessors differ: they return torch dtypes.
+memory model and the roofline. Only the dtype accessors differ: they
+return torch dtypes. ``ShapeConfig`` / ``SHAPES`` are the dry run's four
+input-shape cells.
 
 Mixer kinds:   'attn' | 'local_attn' | 'rglru' | 'ssd'
 FFN kinds:     'dense' | 'moe' | 'none'
@@ -128,7 +130,15 @@ class ModelConfig:
     def mixer_kinds(self) -> Tuple[str, ...]:
         return tuple(m for m, _ in self.layer_specs())
 
-    # parameter counting (used by the memory model) ------------------------------
+    def n_attn_layers(self) -> int:
+        return sum(1 for m in self.mixer_kinds() if m in ("attn", "local_attn"))
+
+    def sub_quadratic(self) -> bool:
+        """True if decode-time cache is bounded independent of seq_len."""
+        kinds = set(self.mixer_kinds())
+        return kinds <= {"ssd", "rglru", "local_attn"}
+
+    # parameter counting (used by the memory model and the roofline) -------------
     def block_param_counts(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
         """(per-layer mixer params, per-layer ffn params), embeddings excluded."""
         mixers, ffns = [], []
@@ -194,6 +204,16 @@ class ModelConfig:
                                       + self.q_dim * self.d_model + self.d_model)
         return total
 
+    def active_params(self) -> int:
+        """MoE: experts actually used per token (for MODEL_FLOPS = 6·N_active·D)."""
+        if self.n_experts == 0:
+            return self.total_params()
+        m, _ = self.block_param_counts()
+        act_ffn = self.n_layers * (self.moe_top_k *
+                                   (self.d_model * 2 * self.d_ff + self.d_ff * self.d_model)
+                                   + self.d_model * self.n_experts + self.d_model)
+        return sum(m) + act_ffn + self.embed_params()
+
     def torch_dtype(self) -> torch.dtype:
         return _TORCH_DTYPES[self.dtype]
 
@@ -202,3 +222,27 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the dry run: a global batch of sequences."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

@@ -21,7 +21,8 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import _sdpa, decode_splits
+from repro_torch.kernels.ref import (H100_SMS, Cost, _sdpa, concrete,
+                                    decode_splits)
 
 
 def split_scratch(q, B: int, K: int, S: int, split_rows: int = 0):
@@ -38,6 +39,42 @@ def split_scratch(q, B: int, K: int, S: int, split_rows: int = 0):
     part = torch.empty(B * H * n * (D + 2) if n > 1 else 0,
                        dtype=torch.float32, device=q.device)
     return split, n, part
+
+
+def split_scratch_bytes(q, B: int, K: int, S: int, split_rows: int = 0
+                        ) -> int:
+    """Bytes of :func:`split_scratch`'s partials, from shapes alone (the
+    card's SM count on a CUDA tensor, an H100's elsewhere)."""
+    sms = build.sm_count(q.device) if q.is_cuda else H100_SMS
+    _, n = decode_splits(split_rows or B, K, S, sms)
+    return B * q.shape[2] * n * (q.shape[3] + 2) * 4 if n > 1 else 0
+
+
+def io_cost(q, toks: int, K: int, kv_bytes: float, other_bytes: float,
+            scratch: int) -> Cost:
+    """A decode launch that attends ``toks`` (row, token) pairs of K heads
+    of ``kv_bytes`` per element (K and V): q read and out written, the
+    attended K/V read once, ``other_bytes`` of masks, tables or scales; 4·D
+    operations per attended token and query head."""
+    H, D = q.shape[2], q.shape[3]
+    return Cost(flops=4.0 * toks * H * D,
+                bytes=float(2 * q.numel() * q.element_size()
+                            + 2 * toks * K * D * kv_bytes + other_bytes),
+                outputs=((tuple(q.shape), q.dtype),), scratch_bytes=scratch,
+                op_dtype=q.dtype)
+
+
+def cost(q, k, v, valid, *, softcap: float = 0.0, split_rows: int = 0
+         ) -> Cost:
+    """The attended tokens are the mask's (every slot of a fake or meta
+    mask: a full cache); the mask is read once."""
+    B, S, K = q.shape[0], k.shape[1], k.shape[2]
+    if concrete(valid):
+        toks = int(valid.sum()) * (B if valid.ndim == 1 else 1)
+    else:
+        toks = B * S
+    return io_cost(q, toks, K, k.element_size(), valid.numel(),
+                   split_scratch_bytes(q, B, K, S, split_rows))
 
 
 def decode_attention_ref(q, k, v, valid, *, softcap: float = 0.0):

@@ -13,10 +13,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import _causal_mask, _sdpa
+from repro_torch.kernels.ref import Cost, _causal_mask, _sdpa
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -31,6 +32,27 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         mask = (kpos > qpos - window if window > 0
                 else torch.ones(Sq, Skv, dtype=torch.bool, device=q.device))[None]
     return _sdpa(q, k, v, mask, softcap)
+
+
+def cost(q, k, v, *, causal: bool = True, window: int = 0,
+         softcap: float = 0.0) -> Cost:
+    """q and out read and written at H heads, k and v read at K heads; 4·D
+    operations per kept (query, key) pair and query head (the pairs of
+    ``attention_ref``'s mask)."""
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    qi = np.arange(Sq, dtype=np.int64)
+    if causal:
+        hi = np.minimum(qi + 1, Skv)
+        lo = np.maximum(qi - window + 1, 0) if window > 0 else 0
+    else:
+        hi = np.full(Sq, Skv, dtype=np.int64)
+        lo = np.maximum(qi - window + 1, 0) if window > 0 else 0
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    return Cost(flops=4.0 * B * H * D * pairs,
+                bytes=float((2 * B * Sq * H * D + 2 * B * Skv * K * D)
+                            * q.element_size()),
+                outputs=((tuple(q.shape), q.dtype),), op_dtype=q.dtype)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,

@@ -21,10 +21,21 @@ differentiate XLA code. A hand-written backward kernel is optional speed
 work (ROADMAP queue 2). The three decode kernels are never in a loss; on a
 CUDA input that requires grad while grad mode is on they raise rather than
 cut the graph.
+
+Analysis. Inside :func:`analysis` (the dry run asks for it: a mode, never
+a fallback) every wrapper takes fake tensors only, and in place of a
+launch adds its kernel's ``cost()`` to the record, one call as the card
+would launch it, and returns fresh outputs of the kernel's shapes; no
+plain version runs in the forward, so none of its operations or S x S
+intermediates are counted, and the ``launches`` counters stay as they
+are. A loss differentiated through a forward kernel goes through
+:class:`KernelGrad` as on the card, so its backward is the plain
+version's autograd, counted.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import contextlib
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -70,6 +81,48 @@ class KernelGrad(torch.autograd.Function):
                                           for n in need)
 
 
+_ANALYSIS: Optional[object] = None    # the record of a running analysis
+
+
+@contextlib.contextmanager
+def analysis(record):
+    """Route every wrapper to the analysis form for the block's duration:
+    ``record.kernel(name, cost)`` receives each call's
+    ``kernels.ref.Cost``."""
+    global _ANALYSIS
+    prev, _ANALYSIS = _ANALYSIS, record
+    try:
+        yield record
+    finally:
+        _ANALYSIS = prev
+
+
+def _analyze(name: str, cost: Callable, plain: Optional[Callable], inputs,
+             **kw):
+    """One kernel call inside :func:`analysis`: ``cost(*inputs, **kw)``
+    recorded under ``name``, fresh outputs of its shapes returned (through
+    :class:`KernelGrad` where a loss is differentiated through it, for the
+    forward kernels, which give their ``plain`` version)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    for t in inputs:
+        if torch.is_tensor(t) and not isinstance(t, FakeTensor):
+            raise RuntimeError(
+                f"kernels.ops.analysis counts fake tensors only; {name} got "
+                f"a real {t.device.type} tensor {tuple(t.shape)}")
+    record = _ANALYSIS
+
+    def kernel(*xs, **kw):
+        c = cost(*xs, **kw)
+        record.kernel(name, c)
+        outs = tuple(torch.empty(shape, dtype=dt, device=xs[0].device)
+                     for shape, dt in c.outputs)
+        return outs if len(outs) > 1 else outs[0]
+
+    if plain is None:
+        return kernel(*inputs, **kw)
+    return _launch(kernel, plain, *inputs, **kw)
+
+
 def _wants_grad(inputs) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
 
@@ -92,6 +145,9 @@ def _no_grad_input(name: str, inputs) -> None:
 
 def fused_glu(h, activation: str = "swiglu"):
     """h: [..., 2F] fused (gate, up) → act(gate) * up, [..., F]."""
+    if _ANALYSIS is not None:
+        return _analyze("fused_glu", _glu.cost, _glu.glu_ref, (h,),
+                        activation=activation)
     if h.is_cuda:
         fused_glu.launches += 1
         return _launch(_glu.fused_glu_cuda, _glu.glu_ref, h,
@@ -114,6 +170,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         return paged_decode_attention_quant(
             q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
             softcap=softcap, split_rows=split_rows)
+    if _ANALYSIS is not None:
+        return _analyze("paged_decode_attention", _pdec.cost, None,
+                        (q, k_pages, v_pages, page_table, lengths),
+                        softcap=softcap, split_rows=split_rows)
     if q.is_cuda:
         _no_grad_input("paged_decode_attention", (q, k_pages, v_pages))
         paged_decode_attention.launches += 1
@@ -129,6 +189,11 @@ def paged_decode_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
                                  softcap: float = 0.0, split_rows: int = 0):
     """Fused-dequant paged decode: int8/fp8 pages with per-(page, kv head)
     f32 scales ``[n_pages, K]``; otherwise as :func:`paged_decode_attention`."""
+    if _ANALYSIS is not None:
+        return _analyze("paged_decode_attention_quant", _pdec.cost_quant,
+                        None, (q, k_pages, v_pages, k_scales, v_scales,
+                               page_table, lengths),
+                        softcap=softcap, split_rows=split_rows)
     if q.is_cuda:
         _no_grad_input("paged_decode_attention_quant",
                        (q, k_pages, v_pages, k_scales, v_scales))
@@ -146,6 +211,9 @@ def decode_attention(q, k, v, valid, *, softcap: float = 0.0,
     """q: [B,1,H,D]; k/v: [B,S,K,D] contiguous cache; valid: bool [S] (one
     mask for all rows) or [B,S] (one per row) → [B,1,H,D]. ``split_rows``
     as in :func:`paged_decode_attention`."""
+    if _ANALYSIS is not None:
+        return _analyze("decode_attention", _dec.cost, None, (q, k, v, valid),
+                        softcap=softcap, split_rows=split_rows)
     if q.is_cuda:
         _no_grad_input("decode_attention", (q, k, v))
         decode_attention.launches += 1
@@ -157,6 +225,10 @@ def decode_attention(q, k, v, valid, *, softcap: float = 0.0,
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """q: [B,Sq,H,D]; k/v: [B,Skv,K,D] → [B,Sq,H,D] (q.dtype)."""
+    if _ANALYSIS is not None:
+        return _analyze("flash_attention", _fa.cost, _fa.attention_ref,
+                        (q, k, v), causal=causal, window=window,
+                        softcap=softcap)
     if q.is_cuda:
         flash_attention.launches += 1
         return _launch(_fa.flash_attention_cuda, _fa.attention_ref, q, k, v,
@@ -168,6 +240,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def ssd(xh, log_a, Bm, Cm, chunk: int = 256):
     """Chunked SSD scan: xh [B,T,H,P], log_a [B,T,H], Bm/Cm [B,T,N], all
     f32 and contiguous → (y [B,T,H,P], final state [B,H,P,N]), f32."""
+    if _ANALYSIS is not None:
+        return _analyze("ssd", _ssd.cost, _ssd.ssd_ref, (xh, log_a, Bm, Cm),
+                        chunk=chunk)
     if xh.is_cuda:
         ssd.launches += 1
         return _launch(_ssd.ssd_cuda, _ssd.ssd_ref, xh, log_a, Bm, Cm,
@@ -177,6 +252,8 @@ def ssd(xh, log_a, Bm, Cm, chunk: int = 256):
 
 def rglru(a, b):
     """h_t = a_t * h_{t-1} + b_t from zero: a, b [B,T,W] f32 → h f32."""
+    if _ANALYSIS is not None:
+        return _analyze("rglru", _rg.cost, _rg.rglru_ref, (a, b))
     if a.is_cuda:
         rglru.launches += 1
         return _launch(_rg.rglru_cuda, _rg.rglru_ref, a, b)

@@ -23,8 +23,44 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import split_scratch
-from repro_torch.kernels.ref import _sdpa, gather_pages
+from repro_torch.kernels.decode_attention import (io_cost, split_scratch,
+                                                  split_scratch_bytes)
+from repro_torch.kernels.ref import _sdpa, concrete, gather_pages
+
+
+def _tokens_pages(k_pages, page_table, lengths):
+    """(attended tokens, touched pages): the rows' lengths (every slot of
+    the table for fake or meta lengths)."""
+    pt = k_pages.shape[1]
+    if concrete(lengths):
+        return (int(lengths.sum()),
+                int(((lengths.long() + pt - 1) // pt).sum()))
+    return page_table.numel() * pt, page_table.numel()
+
+
+def cost(q, k_pages, v_pages, page_table, lengths, *, softcap: float = 0.0,
+         split_rows: int = 0):
+    """The rows' tokens read from their pages, the table and lengths
+    once."""
+    toks, _ = _tokens_pages(k_pages, page_table, lengths)
+    B, K = q.shape[0], k_pages.shape[2]
+    slots = page_table.shape[1] * k_pages.shape[1]
+    return io_cost(q, toks, K, k_pages.element_size(),
+                   4 * (page_table.numel() + lengths.numel()),
+                   split_scratch_bytes(q, B, K, slots, split_rows))
+
+
+def cost_quant(q, k_pages, v_pages, k_scales, v_scales, page_table, lengths,
+               *, softcap: float = 0.0, split_rows: int = 0):
+    """As :func:`cost` on int8/fp8 codes, plus one f32 scale per touched
+    (page, kv head) of K and of V."""
+    toks, pages = _tokens_pages(k_pages, page_table, lengths)
+    B, K = q.shape[0], k_pages.shape[2]
+    slots = page_table.shape[1] * k_pages.shape[1]
+    return io_cost(q, toks, K, k_pages.element_size(),
+                   2 * pages * K * 4
+                   + 4 * (page_table.numel() + lengths.numel()),
+                   split_scratch_bytes(q, B, K, slots, split_rows))
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, *,

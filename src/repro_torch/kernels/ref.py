@@ -27,16 +27,48 @@ Quantized page pools (int8 / float8_e4m3fn codes with one f32 scale per
 the fused-dequant kernel is pinned against; :func:`take_pages` and
 :func:`put_pages` gather and scatter whole pages of any pool, and
 :func:`gather_pages` lays each row's pages out as one contiguous cache.
+
+Each kernel module's ``cost(...)`` takes its wrapper's arguments and
+returns a :class:`Cost`: the operations the kernel does, the bytes it must
+move (each input read once, each output written once), its outputs' shapes
+and its scratch. ``chip_smoke.py`` divides these by the card's peaks for
+each kernel's bound, and the dry run (``kernels.ops.analysis``) adds them
+to a counted step in place of the kernel.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.models import layers
 
 NEG_INF = -2.0e38
+H100_SMS = 132              # SMs of an H100 SXM5: the split count off the card
+
+
+class Cost(NamedTuple):
+    """What one launch of a kernel costs. ``flops``: its operations, of
+    type ``op_dtype`` (the peak they run at); ``bytes``: what it must move;
+    ``outputs``: the (shape, dtype) of each tensor it returns;
+    ``scratch_bytes``: device scratch its wrapper allocates beside them."""
+    flops: float
+    bytes: float
+    outputs: Tuple[Tuple[Tuple[int, ...], torch.dtype], ...]
+    scratch_bytes: int = 0
+    op_dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def out_bytes(self) -> int:
+        return sum(math.prod(s) * d.itemsize for s, d in self.outputs)
+
+
+def concrete(t) -> bool:
+    """True for a tensor that holds values (not a fake or meta one): a cost
+    reads data-dependent counts (valid tokens) only from such a tensor."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return not isinstance(t, FakeTensor) and t.device.type != "meta"
 
 
 def page_dequant(q, scales):

@@ -12,15 +12,26 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import Cost
 
 
 def rglru_ref(a, b):
+    """The steps' states are stacked once at the end: writing each into a
+    preallocated output would make autograd copy the whole output's
+    gradient once per step in the backward (quadratic in T)."""
     h = torch.zeros_like(a[:, 0], dtype=torch.float32)
-    out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    hs = []
     for t in range(a.shape[1]):
         h = a[:, t].float() * h + b[:, t].float()
-        out[:, t] = h
-    return out
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def cost(a, b) -> Cost:
+    """a and b read, h written (f32); a multiply and an add per element."""
+    return Cost(flops=2.0 * a.numel(), bytes=float(3 * 4 * a.numel()),
+                outputs=((tuple(a.shape), torch.float32),),
+                op_dtype=torch.float32)
 
 
 def rglru_cuda(a, b):

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import Cost
 
 TILE = 64          # csrc/ssd.cu kT: query and key tiles of C·Bᵀ
 
@@ -52,6 +53,32 @@ def ssd_ref(xh, log_a, Bm, Cm, chunk: int = 256):
             "bqhp,bqn->bhpn", x * decay_in[..., None], Bc)
         ys.append(y)
     return torch.cat(ys, dim=1), state
+
+
+def cost(xh, log_a, Bm, Cm, chunk: int = 256) -> Cost:
+    """Bytes: xh, log_a, B and C read once, y and the final state written
+    once. Operations on causal pairs only: C·Bᵀ once per (batch, chunk)
+    for every head (one group); per head (C·Bᵀ ⊙ L)·x and the chunk's own
+    state 2·q·N·P, and C·stateᵀ 2·q·N·P only after the first chunk, whose
+    carried state is zero. Scratch: ``ssd_cuda``'s C·Bᵀ tiles and, past one
+    chunk, the chunks' states."""
+    B, T, H, P = xh.shape
+    N = Bm.shape[-1]
+    Q = min(int(chunk), T)
+    chunks = [min(Q, T - c) for c in range(0, T, Q)]
+    pairs = sum(q * (q + 1) // 2 for q in chunks)
+    ops = (B * 2 * pairs * N
+           + B * H * (2 * pairs * P + 2 * T * N * P
+                      + 2 * (T - chunks[0]) * N * P))
+    nbytes = 4 * (2 * B * T * H * P + B * T * H + 2 * B * T * N
+                  + B * H * P * N)
+    nc, qp = len(chunks), TILE * -(-Q // TILE)
+    scratch = 4 * (B * nc * qp * qp
+                   + (B * nc * H * (P * N + 1) if nc > 1 else 0))
+    return Cost(flops=float(ops), bytes=float(nbytes),
+                outputs=((tuple(xh.shape), torch.float32),
+                         ((B, H, P, N), torch.float32)),
+                scratch_bytes=scratch, op_dtype=torch.float32)
 
 
 def ssd_cuda(xh, log_a, Bm, Cm, chunk: int = 256):

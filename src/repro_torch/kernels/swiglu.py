@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import Cost
 from repro_torch.models import layers
 
 _ACTS = {"swiglu": 0, "geglu": 1}
@@ -21,6 +22,16 @@ def glu_ref(h, activation: str = "swiglu"):
     gate, up = h.float().chunk(2, dim=-1)
     act = layers.silu(gate) if activation == "swiglu" else layers.gelu(gate)
     return (act * up).to(h.dtype)
+
+
+def cost(h, activation: str = "swiglu") -> Cost:
+    """(gate, up) read, the product written; 5 f32 operations an output
+    element."""
+    F = h.shape[-1] // 2
+    T = h.numel() // max(2 * F, 1)
+    return Cost(flops=5.0 * T * F, bytes=float(3 * T * F * h.element_size()),
+                outputs=((tuple(h.shape[:-1]) + (F,), h.dtype),),
+                op_dtype=torch.float32)
 
 
 def fused_glu_cuda(h, activation: str = "swiglu"):

@@ -1,4 +1,5 @@
-"""Serving and training launchers."""
+"""Serving and training launchers, and the analysis tools (``dryrun``,
+``rap_sweep``) that count the port's steps at the production mesh."""
 
 
 def resolve_device(name: str):

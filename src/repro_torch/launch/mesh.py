@@ -14,11 +14,21 @@ otherwise a world of one on a ``FileStore`` in a fresh temporary
 directory. The backend follows the device — ``cuda`` NCCL, ``cpu`` gloo —
 and nothing switches it. Every group gets an explicit timeout.
 
+:func:`fake_world` starts the ``"fake"`` backend as rank 0 of ``n``: no
+peer exists and no collective moves data, so the dry run
+(``launch/dryrun.py``) builds the production mesh and runs one rank's
+program on fake tensors, recording every collective it would issue.
+
+The card's data-sheet figures (``PEAK_FLOPS_BF16`` ... ``CARDS_PER_NODE``)
+are the roofline's denominators (``repro_torch.roofline``) and the
+kernels' bounds (``chip_smoke.py``).
+
 Importing this module touches no process group: meshes are built inside
 functions only.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import tempfile
@@ -30,11 +40,38 @@ import torch.distributed as dist
 
 from repro_torch.parallel import sharding
 
-__all__ = ["Mesh", "init_distributed", "destroy_distributed",
-           "make_production_mesh", "make_host_mesh", "make_serve_mesh",
-           "PG_TIMEOUT"]
+__all__ = ["Mesh", "init_distributed", "destroy_distributed", "fake_world",
+           "is_fake_world", "make_production_mesh", "make_host_mesh",
+           "make_serve_mesh", "PG_TIMEOUT", "PEAK_FLOPS_BF16",
+           "PEAK_FLOPS_TF32", "PEAK_FLOPS_F32", "HBM_BW", "HBM_PER_CARD",
+           "NVLINK_BW", "NET_BW", "CARDS_PER_NODE"]
 
 PG_TIMEOUT = timedelta(seconds=600)
+
+# Hardware constants of one NVIDIA H100 SXM5 80GB (700 W), dense rates.
+# NVIDIA H100 Tensor Core GPU data sheet,
+# https://resources.nvidia.com/en-us-tensor-core/nvidia-tensor-core-gpu-datasheet
+# (its tensor-core rates are quoted with 2:4 sparsity; dense is half):
+PEAK_FLOPS_BF16 = 989e12     # FLOP/s, BF16/FP16 tensor cores (1979 sparse)
+PEAK_FLOPS_TF32 = 495e12     # FLOP/s, TF32 tensor cores (989 sparse)
+PEAK_FLOPS_F32 = 67e12       # FLOP/s, FP32 outside the tensor cores
+HBM_BW = 3.35e12             # bytes/s, HBM3
+HBM_PER_CARD = 80e9          # bytes of HBM3
+NVLINK_BW = 450e9            # bytes/s per direction per GPU: half of the
+                             # data sheet's 900 GB/s NVLink total
+# NVIDIA DGX H100 user guide, "Introduction to the NVIDIA DGX H100 System",
+# https://docs.nvidia.com/dgx/dgxh100-user-guide/introduction-to-dgxh100.html:
+# eight GPUs a node on NVSwitch, and one 400 Gb/s ConnectX-7 (InfiniBand
+# NDR) port per GPU for the compute fabric between nodes
+NET_BW = 50e9                # bytes/s per GPU between nodes
+CARDS_PER_NODE = 8
+
+
+def peak_flops(dtype) -> float:
+    """The card's peak rate for operations on ``dtype`` (a torch dtype or
+    its name): the tensor cores' for 16-bit types, the FP32 units' for
+    f32."""
+    return PEAK_FLOPS_F32 if "float32" in str(dtype) else PEAK_FLOPS_BF16
 
 _STORE_DIR: Optional[str] = None    # the FileStore of a world of one
 
@@ -80,6 +117,30 @@ def destroy_distributed() -> None:
         _STORE_DIR = None
 
 
+def is_fake_world() -> bool:
+    """True inside :func:`fake_world`."""
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """Rank 0 of a world of ``n`` on the ``"fake"`` backend, for counting
+    one rank's program (``launch/dryrun.py``): collectives return at once
+    and move nothing. Refuses to start beside a running process group, and
+    destroys its own on exit, so nothing after it sees a group."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already running; "
+                           "a fake world replaces none")
+    # importing it registers the "fake" backend where torch does not
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(n))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 class Mesh:
     """A device mesh over the running world, row-major over ``axes``.
 
@@ -87,12 +148,15 @@ class Mesh:
     read; ``coords`` ({axis: index}) is this rank's place; ``group(axis)``
     is the process group along one axis (this rank's row of it), and
     ``group(("pod", "data"))`` the group over several. ``device`` is the
-    card this rank computes on (or the CPU, under gloo)."""
+    card this rank computes on (or the CPU, under gloo and on a
+    :func:`fake_world`, whose ranks compute on fake CPU tensors)."""
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str],
                  device_type: str = "cuda"):
         from torch.distributed.device_mesh import init_device_mesh
         shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if is_fake_world():
+            device_type = "cpu"
         if len(shape) != len(axes):
             raise ValueError(f"mesh shape {shape} vs axes {axes}")
         world = dist.get_world_size()

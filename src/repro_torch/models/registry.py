@@ -14,6 +14,9 @@ encoder-decoder (``audio``: whisper).
                                      → (last_logits, slot cache)
   decode(params, cache, tokens, gates=None) → (logits [B,1,Vp], cache)
   init_cache(batch_size, max_len, kv_dtype=None, device="cuda") → cache
+  input_specs(shape_cfg)             → {name: meta tensor}: the batch of a
+                                       dry-run cell (``configs.ShapeConfig``),
+                                       the twin of JAX's ``ShapeDtypeStruct``s
 
 Batches are dicts of tensors with ``tokens`` / ``labels`` (and an optional
 ``loss_mask``); a ``vlm`` batch may carry ``vision_embeds [B, P, D]``,
@@ -24,8 +27,7 @@ encoder-decoder batch carries ``frames [B, n_audio_frames, D]`` (not
 tokens the loss takes the chunked cross-entropy, as JAX's does.
 ``groups`` splits the batch into independent groups of rows for the MoE
 FFN's capacity (the GSI scorer's candidates; ``decoder.forward``); the
-encoder-decoder has no MoE and ignores it. ``input_specs`` (the dry run's
-shapes) is ROADMAP queue 1, item 17.
+encoder-decoder has no MoE and ignores it.
 """
 from __future__ import annotations
 
@@ -45,6 +47,11 @@ class Model(NamedTuple):
     prefill: Callable
     decode: Callable
     init_cache: Callable
+    input_specs: Callable
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 CHUNKED_CE_MIN_SEQ = 2048
@@ -149,7 +156,26 @@ def _lm_build(cfg) -> Model:
     def init_cache(batch_size, max_len, kv_dtype=None, device="cuda"):
         return decoder.init_cache(cfg, batch_size, max_len, kv_dtype, device)
 
-    return Model(cfg, init, loss, logits, prefill, decode, init_cache)
+    def input_specs(shape_cfg) -> dict:
+        B, S = shape_cfg.global_batch, shape_cfg.seq_len
+        i32 = torch.int32
+        specs = {}
+        nv = cfg.n_vision_tokens if is_vlm else 0
+        tok_len = S - nv
+        if shape_cfg.kind == "train":
+            specs["tokens"] = _spec((B, tok_len), i32)
+            specs["labels"] = _spec((B, tok_len), i32)
+        elif shape_cfg.kind == "prefill":
+            specs["tokens"] = _spec((B, tok_len), i32)
+        else:  # decode: one new token against a seq_len cache
+            specs["tokens"] = _spec((B, 1), i32)
+        if is_vlm and shape_cfg.kind != "decode":
+            specs["vision_embeds"] = _spec((B, nv, cfg.d_model),
+                                           cfg.torch_dtype())
+        return specs
+
+    return Model(cfg, init, loss, logits, prefill, decode, init_cache,
+                 input_specs)
 
 
 def _generator(seed, device) -> torch.Generator:
@@ -194,7 +220,24 @@ def _encdec_build(cfg) -> Model:
     def init_cache(batch_size, max_len, kv_dtype=None, device="cuda"):
         return encdec.init_cache(cfg, batch_size, max_len, kv_dtype, device)
 
-    return Model(cfg, init, loss, logits, prefill, decode, init_cache)
+    def input_specs(shape_cfg) -> dict:
+        B, S = shape_cfg.global_batch, shape_cfg.seq_len
+        i32 = torch.int32
+        specs = {}
+        if shape_cfg.kind == "train":
+            specs["tokens"] = _spec((B, S), i32)
+            specs["labels"] = _spec((B, S), i32)
+        elif shape_cfg.kind == "prefill":
+            specs["tokens"] = _spec((B, S), i32)
+        else:  # decode: the encoder ran at prefill; cache holds cross-KV
+            specs["tokens"] = _spec((B, 1), i32)
+        if shape_cfg.kind in ("train", "prefill"):
+            specs["frames"] = _spec((B, cfg.n_audio_frames, cfg.d_model),
+                                    cfg.torch_dtype())
+        return specs
+
+    return Model(cfg, init, loss, logits, prefill, decode, init_cache,
+                 input_specs)
 
 
 def build(cfg) -> Model:

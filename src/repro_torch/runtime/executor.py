@@ -1273,6 +1273,9 @@ class ShardedSlotGroup(SlotGroup):
         return toks, None
 
 
+SHARD_SEQ = "shard_seq: sequence parallelism is ROADMAP item 16b"
+
+
 class ShardedExecutor(LocalExecutor):
     """Mesh-resident slot-group execution (DESIGN.md §7 "Sharded
     serving"), explicit SPMD over a :class:`repro_torch.launch.mesh.Mesh`.
@@ -1299,9 +1302,8 @@ class ShardedExecutor(LocalExecutor):
     Masked mode only — one gated group per cache length serves every
     keep-mask; structural sharded buckets are refused, as in JAX, and so
     are ``shard_seq`` (sequence parallelism, ROADMAP item 16b) and a
-    bucketed horizon. ``kv_int8=True`` is refused too: its one consumer
-    in JAX, ``lower_decode``, is analysis (ROADMAP item 17); the slot
-    caches' precision is ``kv_dtype``."""
+    bucketed horizon. ``kv_int8=True`` is read by :meth:`lower_decode`
+    alone, as in JAX; the slot caches' precision is ``kv_dtype``."""
 
     def __init__(self, model, mesh, *, params=None, fsdp: bool = False,
                  shard_seq: bool = False, kv_int8: bool = False,
@@ -1311,14 +1313,10 @@ class ShardedExecutor(LocalExecutor):
                 f"sharded serving is masked-mode only (got {mode!r}); "
                 + _ROADMAP_STRUCTURAL)
         if shard_seq:
-            raise NotImplementedError(
-                "shard_seq: sequence parallelism is ROADMAP item 16b")
-        if kv_int8:
-            raise NotImplementedError(
-                "kv_int8: its one consumer, lower_decode, is ROADMAP item "
-                "17; the slot caches' precision is kv_dtype (\"int8\")")
+            raise NotImplementedError(SHARD_SEQ)
         self.mesh = mesh
-        self.policy = {"fsdp": bool(fsdp)}
+        self.policy = {"fsdp": bool(fsdp), "shard_seq": False,
+                       "kv_int8": bool(kv_int8)}
         self.model = model
         self._specs = None
         placed = self.place_params(params) if params is not None else None
@@ -1361,6 +1359,28 @@ class ShardedExecutor(LocalExecutor):
             from repro_torch.parallel.tp import gather_fsdp
             return gather_fsdp(self.params, self.param_specs(), self.mesh)
         return self.params
+
+    def lower_decode(self, shape) -> dict:
+        """The counted record of one sharded decode step at ``shape`` (a
+        ``configs.ShapeConfig``: its global batch, a cache of its
+        ``seq_len``, every slot valid) on this rank: the step JAX lowers
+        here for cost, memory and collective analysis. The port compiles
+        nothing, so the step runs once on fake tensors of this rank's
+        blocks under ``runtime.count.count_step`` (``memory``, ``cost``,
+        ``collectives``, ``kernels``); the cache is int8 under
+        ``kv_int8``. Needs no ``params``."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from repro_torch.runtime import count
+        with FakeTensorMode():
+            params, specs, cache, tokens = count.fake_decode_args(
+                self.model, self.mesh, shape, self.policy, shape.seq_len)
+            counted = count.count_step(
+                count.decode_step_fn(self.model, self.mesh, self.policy,
+                                     specs), params, cache, tokens)
+        return {"shape": shape.name, "n_devices": int(self.mesh.size),
+                "mesh": dict(self.mesh.shape), "policy": dict(self.policy),
+                **counted}
 
     # ------------------------------------------------------------ agreement
     def _agree(self, what: str, *parts) -> None:

@@ -15,7 +15,7 @@ error-feedback all-reduce).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
@@ -35,30 +35,41 @@ def loss_and_grads(model, params, batch, *, remat: bool = False):
             unflatten(params, dict(zip(marked, grads))))
 
 
+def accumulated_grads(model, params, batch, *, remat: bool = True,
+                      microbatches: int = 1):
+    """(loss, aux, grads) of the loss on ``batch``; ``microbatches > 1``
+    cuts the batch into m slices along its rows, accumulates their
+    gradients in f32 (activation memory scales 1/m) and averages them, the
+    loss and metrics too, as JAX's scan does."""
+    m = int(microbatches)
+    if m <= 1:
+        return loss_and_grads(model, params, batch, remat=remat)
+    gsum, auxes, losses = {}, [], []
+    for i in range(m):
+        one = {k: v.reshape(m, v.shape[0] // m, *v.shape[1:])[i]
+               for k, v in batch.items()}
+        loss, aux, g = loss_and_grads(model, params, one, remat=remat)
+        for k, x in flatten(g).items():
+            gsum[k] = x.float() + gsum.get(k, 0.0)
+        auxes.append(aux)
+        losses.append(loss)
+    grads = unflatten(params, {k: g / m for k, g in gsum.items()})
+    aux = {k: torch.mean(torch.stack([a[k] for a in auxes]))
+           for k in auxes[0]}
+    return torch.mean(torch.stack(losses)), aux, grads
+
+
 def make_train_step(model, opt_cfg: adamw.AdamWConfig, *,
                     remat: bool = True, microbatches: int = 1) -> Callable:
     """(params, opt_state, batch) → (params', opt_state', metrics).
 
     ``microbatches > 1`` accumulates the gradients of batch slices in f32
-    (activation memory scales 1/m), averages them, then takes one AdamW
-    step; the metrics are the mean over the slices, as in JAX."""
-    m = int(microbatches)
+    (:func:`accumulated_grads`), then takes one AdamW step; the metrics are
+    the mean over the slices, as in JAX."""
 
     def train_step(params, opt_state, batch):
-        if m <= 1:
-            _, aux, grads = loss_and_grads(model, params, batch, remat=remat)
-        else:
-            gsum, auxes = {}, []
-            for i in range(m):
-                one = {k: v.reshape(m, v.shape[0] // m, *v.shape[1:])[i]
-                       for k, v in batch.items()}
-                _, aux, g = loss_and_grads(model, params, one, remat=remat)
-                for k, x in flatten(g).items():
-                    gsum[k] = x.float() + gsum.get(k, 0.0)
-                auxes.append(aux)
-            grads = unflatten(params, {k: g / m for k, g in gsum.items()})
-            aux = {k: torch.mean(torch.stack([a[k] for a in auxes]))
-                   for k in auxes[0]}
+        _, aux, grads = accumulated_grads(model, params, batch, remat=remat,
+                                          microbatches=microbatches)
         params, opt_state, om = adamw.apply(opt_cfg, params, grads,
                                             opt_state)
         return params, opt_state, {**aux, **om}
@@ -96,34 +107,61 @@ def token_count(batch) -> torch.Tensor:
 
 
 def make_sharded_train_step(model, opt_cfg: adamw.AdamWConfig, mesh, *,
-                            specs, remat: bool = True) -> Callable:
+                            specs, remat: bool = True,
+                            microbatches: int = 1,
+                            fsdp: bool = False) -> Callable:
     """The train step on a mesh (explicit SPMD): (params, opt_state, batch)
     → (params', opt_state', metrics), ``params`` this rank's blocks under
     ``specs`` (``parallel.sharding.param_pspecs``), ``batch`` the whole
     batch (every rank the same).
 
     The batch is cut over the data axes and the model runs under the mesh
-    policy (its model axis: tensor parallelism, ``parallel.tp``). The DP
-    gradient is each shard's gradient weighted by its token count and
+    policy (its model axis: tensor parallelism, ``parallel.tp``), on
+    ``microbatches`` slices of the rank's rows (:func:`accumulated_grads`).
+    The DP gradient is each shard's gradient weighted by its token count and
     all-reduced: the gradient of the whole batch's token mean, whatever
-    the shards' counts. The clip norm sums every leaf once: a leaf cut over
-    "model" contributes the model group's sum. On a mesh of one rank this
-    is the meshless step, bit for bit."""
+    the shards' counts. ``fsdp`` (ZeRO-3: ``specs`` from ``param_pspecs(...,
+    fsdp=True)``): the leaves cut over "data" are all-gathered for the
+    step, and their weighted gradient is reduce-scattered over "data" (over
+    "pod" it is all-reduced first), so each rank keeps, and updates, its
+    block. The clip norm sums every leaf once: a leaf cut over "model"
+    and/or "data" contributes the sum over those groups. On a mesh of one
+    rank this is the meshless step, bit for bit."""
     import torch.distributed as dist
 
     from repro_torch.parallel import activation as act
     from repro_torch.parallel.sharding import spec_at
+    from repro_torch.parallel.tp import gather_fsdp
     group, D, d = _dp(mesh)
     nmdl = mesh.axis_size("model")
+    zero = bool(fsdp) and mesh.axis_size("data") > 1
+    npod = mesh.axis_size("pod") if "pod" in mesh.shape else 1
 
-    def cut(key: str) -> bool:
-        return "model" in tuple(spec_at(specs, key))
+    def cut(key: str) -> Tuple[str, ...]:
+        """The axes of size > 1 that cut a leaf, of "data" and "model"."""
+        spec = tuple(spec_at(specs, key))
+        return tuple(a for a in ("data", "model")
+                     if a in spec and mesh.axis_size(a) > 1
+                     and (a == "model" or zero))
+
+    def reduce_block(g, key: str):
+        """A ZeRO-3 leaf's summed gradient: this rank's block of it."""
+        dim = tuple(spec_at(specs, key)).index("data")
+        if npod > 1:
+            dist.all_reduce(g, group=mesh.group("pod"))
+        parts = [p.contiguous() for p in g.chunk(mesh.axis_size("data"),
+                                                  dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=mesh.group("data"))
+        return out
 
     def train_step(params, opt_state, batch):
         local = shard_batch(batch, D, d)
-        with act.use(mesh):
-            loss, aux, grads = loss_and_grads(model, params, local,
-                                              remat=remat)
+        full = gather_fsdp(params, specs, mesh) if zero else params
+        with act.use(mesh, fsdp=fsdp):
+            loss, aux, grads = accumulated_grads(
+                model, full, local, remat=remat, microbatches=microbatches)
+        del full        # the gathered weights are freed before the update
         if D > 1:
             n = token_count(local)
             tot = n.clone()
@@ -131,7 +169,10 @@ def make_sharded_train_step(model, opt_cfg: adamw.AdamWConfig, mesh, *,
             flat = flatten(grads)
             for k, g in flat.items():
                 g = g.float() * n
-                dist.all_reduce(g, group=group)
+                if "data" in cut(k):
+                    g = reduce_block(g, k)
+                else:
+                    dist.all_reduce(g, group=group)
                 flat[k] = g / tot
             grads = unflatten(params, flat)
             loss = loss * n
@@ -139,16 +180,19 @@ def make_sharded_train_step(model, opt_cfg: adamw.AdamWConfig, mesh, *,
             loss = loss / tot
             aux = {"loss": loss, "ppl": torch.exp(loss)}
         gnorm = None
-        if nmdl > 1:
-            sq_cut = sq_rep = torch.zeros((), device=loss.device)
+        if nmdl > 1 or zero:
+            sq = {}
             for k, g in flatten(grads).items():
-                sq = torch.sum(torch.square(g.to(torch.float32)))
-                if cut(k):
-                    sq_cut = sq_cut + sq
-                else:
-                    sq_rep = sq_rep + sq
-            dist.all_reduce(sq_cut, group=mesh.group("model"))
-            gnorm = torch.sqrt(sq_cut + sq_rep)
+                axes = cut(k)
+                sq[axes] = sq.get(axes, 0.0) + torch.sum(
+                    torch.square(g.to(torch.float32)))
+            total = torch.zeros((), device=loss.device)
+            for axes, s in sq.items():
+                s = s.clone()
+                for a in axes:
+                    dist.all_reduce(s, group=mesh.group(a))
+                total = total + s
+            gnorm = torch.sqrt(total)
         params, opt_state, om = adamw.apply(opt_cfg, params, grads,
                                             opt_state, grad_norm=gnorm)
         return params, opt_state, {**aux, **om}

@@ -236,15 +236,33 @@ def test_trained_controller_caches_in_the_jax_layout(pair, tmp_path,
     assert ttr.episode_fits == jtr.episode_fits
 
 
-def test_run_harness_selects_and_refuses(sides, capsys):
-    from repro_torch.benchmarks import run
+def test_run_harness_selects_and_refuses(sides, capsys, tmp_path,
+                                         monkeypatch):
+    """The port's entries are JAX's; ``--only roofline`` renders the
+    dry run's records (here one, in ``tmp_path``)."""
+    from repro_torch.benchmarks import common, run
+    from repro_torch.roofline import analysis
+    from repro_torch.runtime import count
     names = [b[0] for b in run.BENCHES]
     jnames = [b[0] for b in importlib.import_module("benchmarks.run").BENCHES]
-    assert names == [n for n in jnames if n != "roofline"]
-    with pytest.raises(NotImplementedError, match="item 17"):
+    assert names == jnames
+    # --only roofline: the table from a dry-run record in tmp_path
+    cell = count.empty_collectives()
+    count.record_collective(cell, "all-reduce", 1e8, range(16))
+    (tmp_path / "gemma-2b_decode_32k_pod1.json").write_text(json.dumps(
+        {"arch": "gemma-2b", "shape": "decode_32k", "kind": "decode",
+         "unroll": True, "n_devices": 256, "policy": {},
+         "cost": {"flops": 4e13, "bytes_accessed": 2e10},
+         "memory": {"argument_bytes": 5e9, "real_bytes": 5.2e9},
+         "collectives": cell}))
+    with monkeypatch.context() as mp:
+        mp.setattr(analysis, "DRYRUN_DIR", str(tmp_path))
+        mp.setattr(common, "BENCH_DIR", str(tmp_path / "bench"))
         run.main(["--only", "roofline"])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        run.main(["--only", "fig3,roofline"])
+    out = capsys.readouterr().out
+    assert "| gemma-2b | decode_32k |" in out and "===== roofline done" in out
+    assert "1 cells analyzed; 1 fit 80GB/card HBM" in out
+    assert (tmp_path / "bench" / "roofline.json").exists()
     with pytest.raises(SystemExit):
         run.main(["--only", "nothing"])
     run.main(["--only", "fig3,table4", "--device", "cpu"])

@@ -13,7 +13,11 @@ the same batches.
   no mesh; on (2, 1), where nothing is cut, a save issues no collective,
   and on (1, 2) the cut leaves are gathered to rank 0 alone;
 * ``make_compressed_train_step``: a step on (2, 1) has a finite loss,
-  moves the parameters alike on both ranks and leaves residuals.
+  moves the parameters alike on both ranks and leaves residuals;
+* ``make_sharded_train_step(fsdp=True, microbatches=2)`` on (2, 1): each
+  rank holds half of the ZeRO-3 leaves, and the gathered parameters after
+  a step are the meshless ``make_train_step(microbatches=2)``'s within
+  1e-6.
 """
 import numpy as np
 import pytest
@@ -150,6 +154,25 @@ def _body(rank, world, ckpt_dir):
         loss=float(metrics["loss"]), moved=max(moved),
         residual=max(float(v.abs().max()) for v in _flat(new_res).values()),
         digest=float(sum(v.double().sum() for v in _flat(new).values())))
+    # one ZeRO-3 step of two micro-batches against the meshless step
+    from repro_torch.parallel.sharding import param_pspecs, shard_params
+    from repro_torch.parallel.tp import gather_tree
+    want, _, _ = steps.make_train_step(
+        model, adamw.AdamWConfig(), remat=False, microbatches=2)(
+            params, adamw.init(params), batch)
+    specs = param_pspecs(params, dp, fsdp=True)
+    placed = shard_params(params, specs, dp, dp.coords, model.cfg)
+    zstep = steps.make_sharded_train_step(
+        model, adamw.AdamWConfig(), dp, specs=specs, remat=False,
+        microbatches=2, fsdp=True)
+    got, _, zm = zstep(placed, adamw.init(placed), batch)
+    whole = _flat(gather_tree(got, specs, dp, model.cfg))
+    out["zero3"] = dict(
+        halved=sum(v.numel() for v in _flat(placed).values())
+        < sum(v.numel() for v in _flat(params).values()),
+        err=max(float((whole[k] - v).abs().max())
+                for k, v in _flat(want).items()),
+        loss=float(zm["loss"]))
     return out
 
 
@@ -191,6 +214,14 @@ def test_mesh_save_gathers_only_cut_leaves_to_the_writer(world):
         assert calls["gather"] > 0
         assert sum(calls.values()) == calls["gather"]
         assert whole is (True if r == 0 else None)
+
+
+def test_zero3_microbatched_step_gives_meshless_params(world):
+    for rank in world:
+        z = rank["zero3"]
+        assert z["halved"] and np.isfinite(z["loss"])
+        assert z["err"] < 1e-6
+    assert world[0]["zero3"] == world[1]["zero3"]
 
 
 def test_compressed_train_step(world):
