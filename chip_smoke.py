@@ -236,6 +236,20 @@ and its counted peak must lie within ``PEAK_TOL`` of
 measured device-busy (and wall) ratios, each within ``SWEEP_TOL`` of its
 prediction.
 
+Sequence parallelism: the decode kernel with ``return_lse=True`` against
+its plain version (out and log-sum-exp, f32 and bf16) at ``CARD_DECODE``
+and on recurrentgemma-9b's ring of 2048, its output bitwise the kernel's
+without it, timed beside it; the llama2-7b decode step with each layer's
+cache cut into ``SEQ_BLOCKS`` sequence blocks, each attended through the
+kernel and joined by ``parallel.tp.combine_partials`` (what the
+cross-rank path calls after its all-gather), against the unsplit step: in
+f32 at 2 layers elementwise (a full cache, and three empty blocks), in
+bf16 at 32 layers no further from the plain versions than PyTorch's own
+calls with the same greedy tokens, its launches counted from zero just
+before it, device-busy ms of both; and the dry-run cells sequence
+parallelism opens (``SEQ_CELLS``) counted on this host, each rank's peak
+under 80 GB.
+
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a GPU, or without the rest of
 the repository beside this file, it exits non-zero and prints no result.
@@ -3532,19 +3546,24 @@ SWEEP_TOL = 0.05
 PRODUCTION_CELLS = (("qwen3-14b", "decode_32k"), ("gemma-2b", "train_4k"))
 
 
-def production_cells(card: str) -> list:
-    """The ``PRODUCTION_CELLS`` counted on a fake world of 256 ranks (no
-    card), their records checked and their roofline rows printed."""
+def production_cells(card: str, cells=PRODUCTION_CELLS,
+                     must_fit: bool = False) -> list:
+    """The ``cells`` counted on a fake world of 256 ranks (no card), their
+    records checked (a kernel call in each, except a ``long_500k`` decode
+    of mamba2-370m, whose SSD decode step is plain torch; ``must_fit``:
+    each rank's counted peak under the card's 80 GB) and their roofline
+    rows printed."""
     import tempfile
 
     from repro_torch.launch import dryrun
     from repro_torch.roofline import analysis
     rows = []
     with tempfile.TemporaryDirectory() as d:
-        for arch, shape in PRODUCTION_CELLS:
+        for arch, shape in cells:
             t0 = time.perf_counter()
             r = dryrun.run_cell(arch, shape, False, d)
-            if r.get("error") or not r["kernels"]:
+            if r.get("error") or not (r["kernels"] or arch == "mamba2-370m"
+                                      and shape == "long_500k"):
                 raise AssertionError(f"dry run {arch} x {shape}: "
                                      f"{r.get('error', 'no kernel calls')}")
             prev, analysis.DRYRUN_DIR = analysis.DRYRUN_DIR, d
@@ -3567,6 +3586,9 @@ def production_cells(card: str) -> list:
                   f"{row['collective_s']:.6f} s -> {row['dominant']}-bound, "
                   f"roofline_frac {row['roofline_frac']:.3f}, fits 80 GB "
                   f"{row['fits_hbm']} [data sheet, not {card}]")
+            if must_fit and r["memory"]["real_bytes"] >= 80e9:
+                raise AssertionError(f"dry run {arch} x {shape}: a rank's "
+                                     f"counted peak does not fit 80 GB")
     return rows
 
 
@@ -3834,6 +3856,248 @@ def analysis_phase(torch, ops, card: str) -> dict:
     return launches
 
 
+# the sequence-parallel phase (a cache cut into sequence blocks): the decode
+# kernel's log-sum-exp output against its plain version, and the full-width
+# llama2-7b decode step at CARD_DECODE with each layer's cache cut into
+# SEQ_BLOCKS blocks, each attended through the kernel and the blocks joined
+# by tp.combine_partials — the function the cross-rank path calls after its
+# all-gather — held against the unsplit step; then the dry run's cells that
+# sequence parallelism opens, counted on the card's host
+SEQ_BLOCKS = 4
+SEQ_CELLS = (("qwen1.5-32b", "decode_32k"), ("qwen3-14b", "decode_32k"),
+             ("mamba2-370m", "long_500k"), ("recurrentgemma-9b", "long_500k"))
+LSE_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-3}
+SPLIT_F32_TOL = 1e-4
+
+
+def lse_cases(torch, dec) -> dict:
+    """``decode_attention_cuda(..., return_lse=True)`` against the plain
+    version in f32 and bf16 at ``CARD_DECODE``'s shape (8 rows of a full
+    4096-token cache, llama2-7b's 32 heads of 128) and recurrentgemma-9b's
+    ring (8 rows, 16 query heads on one kv head of 256, a ring of 2048
+    slots, rows short of and past a wrap), its f32 output rounded to the
+    input dtype bitwise the kernel's output without the lse; timed in bf16 at ``CARD_DECODE`` beside the kernel
+    without it (A B B A, one call). Returns the decode entry's keys."""
+    g = torch.Generator(device="cpu").manual_seed(29)
+    _, S, B, _ = CARD_DECODE
+    kpos = torch.arange(2048, device="cuda")
+    pos = (1200 + 300 * torch.arange(8, device="cuda"))[:, None]
+    ring = torch.remainder(pos - kpos[None], 2048) < torch.clamp(pos + 1,
+                                                                 max=2048)
+    cases = [("llama2-7b", B, 32, 32, 128, S,
+              torch.ones(S, dtype=torch.bool, device="cuda")),
+             ("recurrentgemma-9b ring", 8, 16, 1, 256, 2048, ring)]
+    errs = {}
+    for name, b, h, k, d, s, valid in cases:
+        q = torch.randn(b, 1, h, d, generator=g).cuda()
+        kc = torch.randn(b, s, k, d, generator=g).cuda()
+        vc = torch.randn(b, s, k, d, generator=g).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            args = [t.to(dt) for t in (q, kc, vc)] + [valid]
+            out, lse = dec.decode_attention_cuda(*args, return_lse=True)
+            ref, ref_lse = dec.decode_attention_ref(*args, return_lse=True)
+            tag = f"{name} B={b} H={h} K={k} D={d} S={s} {dt}"
+            # both outputs f32, from the same inputs: the f32 tolerance
+            errs[(name, str(dt))] = check(f"decode with lse, out (f32), "
+                                          f"{tag}", out, ref, torch.float32)
+            e = max_err(lse, ref_lse)
+            tol = LSE_TOL[str(dt)]
+            print(f"  decode with lse, lse [B, H], {tag}: max|Δ| {e:.3e} "
+                  f"(atol {tol})")
+            if not (e <= tol and torch.isfinite(lse).all()):
+                raise AssertionError(f"{tag}: the kernel's lse disagrees")
+            if not torch.equal(out.to(dt), dec.decode_attention_cuda(*args)):
+                raise AssertionError(f"{tag}: the f32 output rounded is not "
+                                     f"the kernel's output without the lse")
+    dt = torch.bfloat16
+    q = torch.randn(B, 1, 32, 128, generator=g).cuda().to(dt)
+    kc = torch.randn(B, S, 32, 128, generator=g).cuda().to(dt)
+    vc = torch.randn(B, S, 32, 128, generator=g).cuda().to(dt)
+    valid = torch.ones(S, dtype=torch.bool, device="cuda")
+    plain = lambda: dec.decode_attention_cuda(q, kc, vc, valid)
+    with_lse = lambda: dec.decode_attention_cuda(q, kc, vc, valid,
+                                                 return_lse=True)
+    a1, b1, b2, a2 = (time_ms(plain), time_ms(with_lse), time_ms(with_lse),
+                      time_ms(plain))
+    busy = [time_ms(f, hide_launch=True)
+            for f in (plain, with_lse, with_lse, plain)]
+    bms, by = bound_ms(dec.cost(q, kc, vc, valid, return_lse=True))
+    ref_ms = time_ms(lambda: dec.decode_attention_ref(q, kc, vc, valid,
+                                                      return_lse=True))
+    print(f"  decode with lse B={B} S={S} bf16: {b1:.4f} / {b2:.4f} ms "
+          f"beside {a1:.4f} / {a2:.4f} ms without (A B B A; device-only "
+          f"{busy[1]:.4f} / {busy[2]:.4f} beside {busy[0]:.4f} / "
+          f"{busy[3]:.4f}), bound {bms:.4f} ms ({by}), plain {ref_ms:.4f} "
+          f"ms")
+    return {"lse_ms": (b1 + b2) / 2, "lse_no_lse_ms": (a1 + a2) / 2,
+            "lse_busy_ms": (busy[1] + busy[2]) / 2,
+            "lse_no_lse_busy_ms": (busy[0] + busy[3]) / 2,
+            "lse_bound_ms": bms, "lse_bound_by": by, "lse_plain_ms": ref_ms,
+            "lse_shape": f"B={B} H=32 K=32 D=128 S={S} bf16, all valid",
+            "lse_max_abs_err": errs[("llama2-7b", "torch.bfloat16")],
+            "lse_max_abs_err_ring": errs[("recurrentgemma-9b ring",
+                                          "torch.bfloat16")]}
+
+
+def block_attention(torch, ops, kernel, n: int):
+    """A decode attention that cuts the cache into ``n`` sequence blocks,
+    runs ``kernel`` (the ``ops`` wrapper, put back in ``ops`` while it runs:
+    it counts its launches under its own name there) on each with its
+    log-sum-exp and joins them with ``tp.combine_partials``."""
+    from repro_torch.parallel import tp
+
+    def attn(q, k, v, valid, *, softcap=0.0, split_rows=0):
+        w = k.shape[1] // n
+        outs, lses = [], []
+        ops.decode_attention = kernel
+        try:
+            for j in range(n):
+                sl = slice(j * w, (j + 1) * w)
+                o, l = kernel(q, k[:, sl], v[:, sl], valid[..., sl],
+                              softcap=softcap, split_rows=split_rows,
+                              return_lse=True)
+                outs.append(o[:, 0].float())
+                lses.append(l)
+        finally:
+            ops.decode_attention = attn
+        return tp.combine_partials(torch.stack(outs), torch.stack(
+            lses)).to(q.dtype)[:, None]
+    return attn
+
+
+def split_step(torch, ops, step, params, cache, tokens):
+    """One decode step with the cache cut into ``SEQ_BLOCKS`` blocks
+    (``block_attention`` in ``ops.decode_attention``'s place for the
+    call); the cache position is put back."""
+    saved, pos = ops.decode_attention, cache["pos"]
+    ops.decode_attention = block_attention(torch, ops, saved, SEQ_BLOCKS)
+    try:
+        out, _ = step(params, cache, tokens)
+    finally:
+        ops.decode_attention = saved
+        cache["pos"] = pos
+    return out
+
+
+def seq_parallel_phase(torch, ops, dec, card: str) -> dict:
+    """The phase above. Returns the LSE numbers and the launches of the
+    split step's run (counts set to 0 just before it). In bf16 the split
+    step's greedy tokens must equal the unsplit step's on every row but a
+    tie, where the unsplit kernels, the plain versions and sdpa pick
+    different tokens (its token must then be one of theirs); in f32 on
+    every row."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.runtime import steps
+    t_phase = time.perf_counter()
+    out = lse_cases(torch, dec)
+    _, S, B, _ = CARD_DECODE
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    # f32, 2 layers: elementwise, at a full cache and at a position in the
+    # first block (the three others empty)
+    cfg = get_config("llama2-7b").replace(n_layers=2, param_dtype="float32",
+                                          dtype="float32")
+    model = registry.build(cfg)
+    step = steps.make_decode_step(model)
+    params = model.init(0, "cuda")
+    cache = model.init_cache(B, S, device="cuda")
+    random_cache(torch, cache, 5)
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), device="cuda",
+                           dtype=torch.int32, generator=gen(3))
+    for pos in (S - 1, S // SEQ_BLOCKS - 100):
+        cache["pos"] = pos
+        whole, _ = step(params, cache, tokens)
+        cache["pos"] = pos
+        got = split_step(torch, ops, step, params, cache, tokens)
+        e = max_err(got, whole)
+        same = bool((got.argmax(-1) == whole.argmax(-1)).all())
+        print(f"  llama2-7b decode step B={B} S={S} f32, 2 layers, pos "
+              f"{pos}: {SEQ_BLOCKS} sequence blocks joined vs the unsplit "
+              f"step, max|Δ| {e:.3e} (atol {SPLIT_F32_TOL}); greedy tokens "
+              f"equal: {same}")
+        if not (e <= SPLIT_F32_TOL and same):
+            raise AssertionError("the split decode step disagrees in f32")
+    del params, cache, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bf16 at full width: no further from the plain versions than PyTorch's
+    # own calls, the same greedy tokens, device-busy ms of both
+    base = get_config("llama2-7b")
+    model = registry.build(base)
+    step = steps.make_decode_step(model)
+    params = model.init(0, "cuda")
+    cache = model.init_cache(B, S, device="cuda")
+    random_cache(torch, cache, 5)
+    cache["pos"] = S - 1
+    tokens = torch.randint(0, base.vocab_size, (B, 1), device="cuda",
+                           dtype=torch.int32, generator=gen(3))
+    routes = decode_step_routes(torch, ops, step, params, cache, tokens)
+    ops.reset_launches()
+    got = split_step(torch, ops, step, params, cache, tokens)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {"decode_attention": SEQ_BLOCKS * base.n_layers,
+            "fused_glu": base.n_layers}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"the split step launched {launches}, not "
+                             f"{want}")
+    rs = rel_dist(got, routes["plain"])
+    rk = rel_dist(routes["kernels"], routes["plain"])
+    rl = rel_dist(routes["library"], routes["plain"])
+    ref = routes["kernels"].float()[:, -1]
+    top2 = ref.topk(2, -1).values
+    margin = top2[:, 0] - top2[:, 1]
+    tok = {k: v[:, -1].argmax(-1).tolist() for k, v in
+           {**routes, "split": got}.items()}
+    flips = [b for b in range(B) if tok["split"][b] != tok["kernels"][b]]
+    # a row whose unsplit kernels, plain versions and sdpa pick different
+    # tokens is a tie at bf16's resolution: there the split step must pick
+    # one of theirs; on every other row, the unsplit step's
+    picks = [{tok[r][b] for r in ("kernels", "plain", "library")}
+             for b in range(B)]
+    ties = [b for b in range(B) if len(picks[b]) > 1]
+    bad = [b for b in flips if b not in ties or tok["split"][b]
+           not in picks[b]]
+    print(f"  llama2-7b decode step B={B} S={S} bf16, {base.n_layers} "
+          f"layers, against the plain versions: {SEQ_BLOCKS} blocks joined "
+          f"|Δ|/|ref| {rs:.3e}, unsplit kernels {rk:.3e}, PyTorch's sdpa and "
+          f"GLU ops {rl:.3e}; split vs unsplit max|Δ| "
+          f"{max_err(got, routes['kernels']):.3e}; launches {want}")
+    print(f"    greedy tokens (unsplit kernels {tok['kernels']}, split "
+          f"{tok['split']}, plain {tok['plain']}, sdpa {tok['library']}); "
+          f"the unsplit step's top-2 margins "
+          f"{[round(float(m), 4) for m in margin]}; rows where the split "
+          f"step's token differs: {flips}; ties (the three routes disagree): "
+          f"{ties}")
+    if not (rs <= rl and not bad and torch.isfinite(got).all()):
+        raise AssertionError("the split bf16 decode step lies further from "
+                             "the plain versions than PyTorch's own calls, "
+                             "or its greedy tokens differ off a tie")
+
+    def unsplit():
+        step(params, cache, tokens)
+        cache["pos"] = S - 1
+
+    busy = device_busy_ms(torch, unsplit, PROFILED_STEPS)
+    busy_split = device_busy_ms(
+        torch, lambda: split_step(torch, ops, step, params, cache, tokens),
+        PROFILED_STEPS)
+    print(f"  device busy a step [{card}]: unsplit {busy:.4f} ms, "
+          f"{SEQ_BLOCKS} blocks on one card {busy_split:.4f} ms (each block "
+          f"copied contiguous for its launch, which the cross-rank path, "
+          f"holding its block contiguous, does not; torch.profiler, "
+          f"{PROFILED_STEPS} steps)")
+    del params, cache, routes, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    production_cells(card, SEQ_CELLS, must_fit=True)
+    print(f"  sequence-parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    return {**out, "busy_ms_unsplit": busy, "busy_ms_split": busy_split,
+            "launches": launches}
+
+
 def serves(torch, ops, card: str) -> dict:
     """Serves 1-9 and serve 6 on int8 and fp8 slot caches, each with its
     checks; returns their launch counts (``c1``..``c9``, ``c6_int8``,
@@ -4046,6 +4310,11 @@ def main() -> None:
     print("analysis (dry run on a fake world, lower_decode vs the card, "
           "the RAP sweep):")
     analysis_launches = analysis_phase(torch, ops, card)
+    print("sequence parallelism (decode with lse, the cache in sequence "
+          "blocks, the cells it opens):")
+    seq = seq_parallel_phase(torch, ops, dec, card)
+    next(e for e in entries if e["name"] == "decode_attention").update(
+        {k: v for k, v in seq.items() if k.startswith("lse_")})
     # each kernel's launches come from the serve whose path runs it
     c = runs
     home = {"paged_decode_attention_quant": c["c2"], "decode_attention":
@@ -4070,6 +4339,7 @@ def main() -> None:
         e["launches_train_full_width"] = c["c_train_full"][e["name"]]
         e["launches_train_subject"] = c["c_train_subject"][e["name"]]
         e["launches_analysis"] = analysis_launches[e["name"]]
+        e["launches_seq_parallel"] = seq["launches"][e["name"]]
         for name, run in shock.items():
             e[f"launches_{name.replace(' ', '_')}"] = run["launches"][
                 e["name"]]

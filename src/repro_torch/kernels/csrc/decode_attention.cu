@@ -55,13 +55,13 @@ struct DenseLoader {
 
 constexpr int kState = 2 * kTile + 16;   // flags of both slots, hi
 
-template <typename T, int HB>
+template <typename T, typename O, int HB>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const uint8_t* __restrict__ valid,
               long long valid_stride, int H, int K, int D, int S,
               int split_tokens, float scale, float softcap, int stages,
-              int vec, rap_decode::Partials pt, T* __restrict__ out) {
+              int vec, rap_decode::Partials pt, O* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint8_t* vld_s = smem;                                    // [2][kTile]
   int* hi_s = reinterpret_cast<int*>(smem + 2 * kTile);     // [1]
@@ -79,7 +79,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (hi > 0) atomicMax(hi_s, hi);
   __syncthreads();
   hi = *hi_s;
-  const rap_decode::Sink<T> o = rap_decode::sink(out, pt, bk, sp);
+  const rap_decode::Sink<O> o = rap_decode::sink(out, pt, bk, sp);
   if (hi > s0) {
     const long long tok_stride = (long long)K * D;
     const long long kv0 = (long long)b * S * tok_stride + (long long)g * D;
@@ -92,19 +92,19 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HB>
+template <typename T, typename O, int HB>
 static int launch(const void* q, const void* k, const void* v,
                   const void* valid, long long valid_stride, void* out,
-                  void* part, int B, int H, int K, int D, int S,
+                  void* part, void* lse, int B, int H, int K, int D, int S,
                   int split_tokens, int nsplit, float scale, float softcap,
                   cudaStream_t s) {
   const int G = H / K;
   const int stages = rap_decode::stages_for(G, D, sizeof(T), kState);
   const size_t smem = rap_decode::smem_bytes(G, D, sizeof(T), kState, stages);
   const int vec = rap_decode::vec_rows<T>(D, k, v);
-  return rap_decode::launch_split<T>(
-      decode_kernel<T, HB>, smem, B, K, G, D, nsplit, (float*)part, (T*)out,
-      s, (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)valid,
+  return rap_decode::launch_split<O>(
+      decode_kernel<T, O, HB>, smem, B, K, G, D, nsplit, (float*)part,
+      (O*)out, (float*)lse, s, (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)valid,
       valid_stride, H, K, D, S, split_tokens, scale, softcap, stages, vec);
 }
 
@@ -112,14 +112,17 @@ static int launch(const void* q, const void* k, const void* v,
 // valid_stride (0: one row for all); out [B,1,H,D]. All contiguous, q, k,
 // v and out in one dtype. Row tokens are cut into nsplit splits of
 // split_tokens (a multiple of 64); with nsplit > 1, part holds the f32
-// partials (B*K*nsplit*G*(D+2) floats).
+// partials (B*K*nsplit*G*(D+2) floats). lse: f32 [B, H], each row and
+// head's log-sum-exp (-inf where no token is valid), or null for none.
+// out_f32: out is f32 (unrounded) whatever q's dtype.
 extern "C" int rap_decode_attention(const void* q, const void* k,
                                     const void* v, const void* valid,
                                     long long valid_stride, void* out,
-                                    void* part, int B, int H,
-                                    int K, int D, int S, int split_tokens,
-                                    int nsplit, float scale, float softcap,
-                                    int dtype, void* stream) {
+                                    void* part, void* lse, int out_f32,
+                                    int B, int H, int K, int D, int S,
+                                    int split_tokens, int nsplit,
+                                    float scale, float softcap, int dtype,
+                                    void* stream) {
   if (B == 0) return 0;
   if (split_tokens <= 0 || split_tokens % kTile ||
       (long long)nsplit * split_tokens < S)
@@ -127,11 +130,20 @@ extern "C" int rap_decode_attention(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   const int G = H / K;
   RAP_DISPATCH(dtype, T, {
+    if (out_f32)
+      return G % 4 == 0
+          ? launch<T, float, 4>(q, k, v, valid, valid_stride, out, part, lse,
+                                B, H, K, D, S, split_tokens, nsplit, scale,
+                                softcap, s)
+          : launch<T, float, 1>(q, k, v, valid, valid_stride, out, part, lse,
+                                B, H, K, D, S, split_tokens, nsplit, scale,
+                                softcap, s);
     return G % 4 == 0
-        ? launch<T, 4>(q, k, v, valid, valid_stride, out, part, B,
-                       H, K, D, S, split_tokens, nsplit, scale, softcap, s)
-        : launch<T, 1>(q, k, v, valid, valid_stride, out, part, B,
-                       H, K, D, S, split_tokens, nsplit, scale, softcap, s);
+        ? launch<T, T, 4>(q, k, v, valid, valid_stride, out, part, lse, B,
+                          H, K, D, S, split_tokens, nsplit, scale, softcap, s)
+        : launch<T, T, 1>(q, k, v, valid, valid_stride, out, part, lse, B,
+                          H, K, D, S, split_tokens, nsplit, scale, softcap,
+                          s);
   });
   return 0;
 }

@@ -25,6 +25,14 @@
 // m = RAP_NEG_INF, l = 0, acc = 0 and gets weight 0; a row with no valid
 // token still gives 0.
 //
+// A caller that combines several such results itself (a cache cut into
+// sequence blocks across ranks) passes an f32 `lse` [B, H]: each row and
+// head also gets its log-sum-exp, lse = m* + log(sum_i e^(m_i - m*) l_i)
+// (m + log(l) with one split), in the scaled, softcapped score units, and
+// -inf where no token was attended; such a caller may also take the output
+// in f32 (the sink's element type O), unrounded, as the splits' partials
+// are. The output's arithmetic is the same with or without either.
+//
 // Both kernels call rap_decode::attend with their own loader over the same
 // split boundaries, so for the same tokens they run the identical f32 op
 // sequence: the dense kernel equals the paged kernel bitwise (the port's
@@ -232,7 +240,13 @@ struct Sink {
   T* out;          // [G, D] or nullptr
   float* acc;      // [G, D]
   float* ml;       // [G, 2]
+  float* lse;      // [G] beside out, or nullptr
 };
+
+// log-sum-exp of a head whose scores have max m and sum of e^(s - m) l
+__device__ __forceinline__ float head_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : -INFINITY;
+}
 
 // A split with no attended token.
 template <typename T>
@@ -240,6 +254,8 @@ __device__ __forceinline__ void write_empty(const Sink<T>& o, int G, int D) {
   if (o.out) {
     for (int i = threadIdx.x; i < G * D; i += kThreads)
       o.out[i] = from_f32<T>(0.f);
+    if (o.lse)
+      for (int h = threadIdx.x; h < G; h += kThreads) o.lse[h] = -INFINITY;
   } else {
     for (int i = threadIdx.x; i < G * D; i += kThreads) o.acc[i] = 0.f;
     for (int h = threadIdx.x; h < G; h += kThreads) {
@@ -363,9 +379,10 @@ __device__ __forceinline__ void pv(const Ld& ld, int st,
 }
 
 // Tokens [t_begin, t_end) of one (row, kv head) for its G heads (q_b [G, D]
-// contiguous), HB heads a work item. smem: the layout of smem_bytes.
-template <typename T, int HB, class Ld>
-__device__ void attend(const T* __restrict__ q_b, const Sink<T>& o, int G,
+// contiguous), HB heads a work item, into a sink of element type O (T, or
+// f32). smem: the layout of smem_bytes.
+template <typename T, int HB, class Ld, typename O>
+__device__ void attend(const T* __restrict__ q_b, const Sink<O>& o, int G,
                        int D, int t_begin, int t_end, float scale,
                        float softcap, Ld& ld, int stages, bool vec,
                        unsigned char* kv_smem) {
@@ -455,7 +472,10 @@ __device__ void attend(const T* __restrict__ q_b, const Sink<T>& o, int G,
   }
   if (o.out) {
     for (int i = tid; i < G * D; i += kThreads)
-      o.out[i] = from_f32<T>(acc[i] / fmaxf(l_s[i / D], 1e-30f));
+      o.out[i] = from_f32<O>(acc[i] / fmaxf(l_s[i / D], 1e-30f));
+    if (o.lse)
+      for (int h = tid; h < G; h += kThreads)
+        o.lse[h] = head_lse(m_s[h], l_s[h]);
   } else {
     for (int i = tid; i < G * D; i += kThreads) o.acc[i] = acc[i];
     for (int h = tid; h < G; h += kThreads) {
@@ -466,10 +486,11 @@ __device__ void attend(const T* __restrict__ q_b, const Sink<T>& o, int G,
 }
 
 // Scratch of n_bk (row, kv head) pairs x nsplit splits: every acc [G, D]
-// first, then every (m, l) [G, 2].
+// first, then every (m, l) [G, 2]; `lse` ([n_bk, G]) or nullptr.
 struct Partials {
   float* base;
   int n_bk, nsplit, G, D;
+  float* lse;
   __host__ __device__ float* acc(int bk, int sp) const {
     return base + ((size_t)bk * nsplit + sp) * G * D;
   }
@@ -483,22 +504,24 @@ template <typename T>
 __device__ __forceinline__ Sink<T> sink(T* out, const Partials& pt, int bk,
                                         int sp) {
   const long long head0 = (long long)bk * pt.G * pt.D;
-  if (pt.nsplit == 1) return {out + head0, nullptr, nullptr};
-  return {nullptr, pt.acc(bk, sp), pt.ml(bk, sp)};
+  if (pt.nsplit == 1)
+    return {out + head0, nullptr, nullptr,
+            pt.lse ? pt.lse + (long long)bk * pt.G : nullptr};
+  return {nullptr, pt.acc(bk, sp), pt.ml(bk, sp), nullptr};
 }
 
 // The fixed-order combine: one CTA per ((row, kv head), head h), a thread
 // per d. w_i = e^(m_i - m*) for a split that attended a token, 0 for an
 // empty one (whose acc is 0); numerator and denominator summed over the
-// splits in index order.
+// splits in index order; the head's lse from the same m* and denominator.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 combine_kernel(Partials pt, T* __restrict__ out) {
   extern __shared__ float w_s[];           // [nsplit] weights, [nsplit] l
   const int bk = blockIdx.x, h = blockIdx.y, D = pt.D, n = pt.nsplit;
   float* l_s = w_s + n;
+  float m_star = RAP_NEG_INF;   // thread 0's is the head's
   if (threadIdx.x < 32) {
-    float m_star = RAP_NEG_INF;
     for (int sp = threadIdx.x; sp < n; sp += 32)
       m_star = fmaxf(m_star, pt.ml(bk, sp)[2 * h]);
     m_star = warp_max(m_star);
@@ -511,6 +534,8 @@ combine_kernel(Partials pt, T* __restrict__ out) {
   __syncthreads();
   float den = 0.f;
   for (int sp = 0; sp < n; ++sp) den += w_s[sp] * l_s[sp];
+  if (pt.lse && threadIdx.x == 0)
+    pt.lse[(long long)bk * pt.G + h] = head_lse(m_star, den);
   den = fmaxf(den, 1e-30f);
   for (int d = threadIdx.x; d < D; d += kThreads) {
     float num = 0.f;
@@ -522,10 +547,11 @@ combine_kernel(Partials pt, T* __restrict__ out) {
 
 // Launch `kern` on grid (B, K, nsplit), then, with more than one split, the
 // combine. Refuses (returns the error, cleared) what does not fit a block.
+// `lse` ([B, K·G] f32) or nullptr.
 template <typename T, typename Kern, typename... Args>
 inline int launch_split(Kern kern, size_t smem, int B, int K, int G, int D,
-                        int nsplit, float* part, T* out, cudaStream_t s,
-                        Args... args) {
+                        int nsplit, float* part, T* out, float* lse,
+                        cudaStream_t s, Args... args) {
   if (nsplit < 1 || nsplit > 4096 || K > 65535 || G > 65535)
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -536,7 +562,7 @@ inline int launch_split(Kern kern, size_t smem, int B, int K, int G, int D,
       return (int)e;
     }
   }
-  const Partials pt{part, B * K, nsplit, G, D};
+  const Partials pt{part, B * K, nsplit, G, D, lse};
   kern<<<dim3(B, K, nsplit), kThreads, smem, s>>>(args..., pt, out);
   if (nsplit > 1)
     combine_kernel<T><<<dim3(B * K, G), kThreads,

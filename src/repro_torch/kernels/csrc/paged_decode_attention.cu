@@ -130,7 +130,7 @@ static int launch(const void* q, const void* kp, const void* vp,
   const int vec = rap_decode::vec_rows<P>(D, kp, vp);
   return rap_decode::launch_split<T>(
       paged_decode_kernel<T, P, kQuant, HB>, smem, B, K, G, D, nsplit,
-      (float*)part, (T*)out, s, (const T*)q, (const P*)kp, (const P*)vp,
+      (float*)part, (T*)out, nullptr, s, (const T*)q, (const P*)kp, (const P*)vp,
       (const float*)ks, (const float*)vs, (const int*)table,
       (const int*)lengths, H, K, D, pt, max_pages, split_tokens, scale,
       softcap, stages, vec);

@@ -8,6 +8,13 @@ CTA per (row, kv head, split of the cache), the splits from
 ``ref.decode_splits`` and their f32 partials in scratch allocated here,
 combined in a fixed order (``ref.split_decode_ref`` mirrors it).
 
+``return_lse=True`` gives what a caller needs to join the results of
+several blocks of one cache (``parallel.tp.combine_partials``): the output
+in f32, unrounded (as the kernel's own splits keep their partials), and
+each row and head's log-sum-exp of its attended scores, f32 ``[B, H]``
+(-inf where no token is valid). The output's arithmetic is the same
+either way: in f32 the two forms are the same bits.
+
 ``valid`` is JAX's ``[S]`` (one mask for every row: the one-shot path,
 scalar position) or ``[B, S]`` (one mask per row: the slot cache, where
 each row decodes at its own position). The ``[B, S]`` form is the same
@@ -21,8 +28,8 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import (H100_SMS, Cost, _sdpa, concrete,
-                                    decode_splits)
+from repro_torch.kernels.ref import (H100_SMS, Cost, _sdpa, _sdpa_lse,
+                                    concrete, decode_splits)
 
 
 def split_scratch(q, B: int, K: int, S: int, split_rows: int = 0):
@@ -51,38 +58,49 @@ def split_scratch_bytes(q, B: int, K: int, S: int, split_rows: int = 0
 
 
 def io_cost(q, toks: int, K: int, kv_bytes: float, other_bytes: float,
-            scratch: int) -> Cost:
+            scratch: int, lse: bool = False) -> Cost:
     """A decode launch that attends ``toks`` (row, token) pairs of K heads
     of ``kv_bytes`` per element (K and V): q read and out written, the
     attended K/V read once, ``other_bytes`` of masks, tables or scales; 4·D
-    operations per attended token and query head."""
-    H, D = q.shape[2], q.shape[3]
+    operations per attended token and query head. ``lse``: out in f32 and
+    an f32 [B, H] beside it."""
+    B, H, D = q.shape[0], q.shape[2], q.shape[3]
+    out_dt = torch.float32 if lse else q.dtype
+    outputs = ((tuple(q.shape), out_dt),)
+    if lse:
+        outputs += (((B, H), torch.float32),)
     return Cost(flops=4.0 * toks * H * D,
-                bytes=float(2 * q.numel() * q.element_size()
-                            + 2 * toks * K * D * kv_bytes + other_bytes),
-                outputs=((tuple(q.shape), q.dtype),), scratch_bytes=scratch,
-                op_dtype=q.dtype)
+                bytes=float(q.numel() * (q.element_size() + out_dt.itemsize)
+                            + 2 * toks * K * D * kv_bytes + other_bytes
+                            + (B * H * 4 if lse else 0)),
+                outputs=outputs, scratch_bytes=scratch, op_dtype=q.dtype)
 
 
-def cost(q, k, v, valid, *, softcap: float = 0.0, split_rows: int = 0
-         ) -> Cost:
+def cost(q, k, v, valid, *, softcap: float = 0.0, split_rows: int = 0,
+         return_lse: bool = False) -> Cost:
     """The attended tokens are the mask's (every slot of a fake or meta
-    mask: a full cache); the mask is read once."""
+    mask: a full cache); the mask is read once; under ``return_lse`` out
+    in f32 and the lse's B·H·4 bytes."""
     B, S, K = q.shape[0], k.shape[1], k.shape[2]
     if concrete(valid):
         toks = int(valid.sum()) * (B if valid.ndim == 1 else 1)
     else:
         toks = B * S
     return io_cost(q, toks, K, k.element_size(), valid.numel(),
-                   split_scratch_bytes(q, B, K, S, split_rows))
+                   split_scratch_bytes(q, B, K, S, split_rows), return_lse)
 
 
-def decode_attention_ref(q, k, v, valid, *, softcap: float = 0.0):
-    """q: [B,1,H,D]; k/v: [B,S,K,D]; valid: bool [S] or [B,S] → [B,1,H,D].
-    Row b attends the tokens where its mask is set."""
+def decode_attention_ref(q, k, v, valid, *, softcap: float = 0.0,
+                         return_lse: bool = False):
+    """q: [B,1,H,D]; k/v: [B,S,K,D]; valid: bool [S] or [B,S] → [B,1,H,D]
+    (under ``return_lse``: in f32, and the lse [B, H]). Row b attends the
+    tokens where its mask is set."""
     if valid.ndim == 1:
         valid = valid[None]
-    return _sdpa(q, k, v, valid[:, None, :], softcap)
+    if not return_lse:
+        return _sdpa(q, k, v, valid[:, None, :], softcap)
+    out, lse = _sdpa_lse(q, k, v, valid[:, None, :], softcap)
+    return out, lse[:, 0]
 
 
 def _check(q, k, v, valid):
@@ -104,22 +122,26 @@ def _check(q, k, v, valid):
 
 
 def decode_attention_cuda(q, k, v, valid, *, softcap: float = 0.0,
-                          split_rows: int = 0):
+                          split_rows: int = 0, return_lse: bool = False):
     if not all(t.is_cuda for t in (q, k, v, valid)):
         raise ValueError("decode_attention_cuda takes CUDA tensors")
     B, H, K, D, S = _check(q, k, v, valid)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     valid = valid.contiguous().view(torch.uint8)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse else None)
+    lse = (torch.empty(B, H, dtype=torch.float32, device=q.device)
+           if return_lse else None)
     split, n, part = split_scratch(q, B, K, S, split_rows)
     fn = build.function("rap_decode_attention",
-                        [build.P] * 4 + [build.LL] + [build.P] * 2
-                        + [build.I] * 7
+                        [build.P] * 4 + [build.LL] + [build.P] * 3
+                        + [build.I] * 8
                         + [build.F32, build.F32, build.I, build.P])
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    valid.data_ptr(), S if valid.ndim == 2 else 0,
-                   out.data_ptr(), part.data_ptr(), B, H, K, D, S,
+                   out.data_ptr(), part.data_ptr(),
+                   lse.data_ptr() if return_lse else None,
+                   int(return_lse), B, H, K, D, S,
                    split, n, 1.0 / math.sqrt(D), float(softcap),
                    build.dtype_code(q), build.stream(q)),
                 "decode_attention")
-    return out
+    return (out, lse) if return_lse else out

@@ -207,19 +207,24 @@ def paged_decode_attention_quant(q, k_pages, v_pages, k_scales, v_scales,
 
 
 def decode_attention(q, k, v, valid, *, softcap: float = 0.0,
-                     split_rows: int = 0):
+                     split_rows: int = 0, return_lse: bool = False):
     """q: [B,1,H,D]; k/v: [B,S,K,D] contiguous cache; valid: bool [S] (one
-    mask for all rows) or [B,S] (one per row) → [B,1,H,D]. ``split_rows``
-    as in :func:`paged_decode_attention`."""
+    mask for all rows) or [B,S] (one per row) → [B,1,H,D]; under
+    ``return_lse`` that in f32 and the f32 log-sum-exp [B, H] beside it
+    (one launch either way). ``split_rows`` as in
+    :func:`paged_decode_attention`."""
     if _ANALYSIS is not None:
         return _analyze("decode_attention", _dec.cost, None, (q, k, v, valid),
-                        softcap=softcap, split_rows=split_rows)
+                        softcap=softcap, split_rows=split_rows,
+                        return_lse=return_lse)
     if q.is_cuda:
         _no_grad_input("decode_attention", (q, k, v))
         decode_attention.launches += 1
         return _dec.decode_attention_cuda(q, k, v, valid, softcap=softcap,
-                                          split_rows=split_rows)
-    return _dec.decode_attention_ref(q, k, v, valid, softcap=softcap)
+                                          split_rows=split_rows,
+                                          return_lse=return_lse)
+    return _dec.decode_attention_ref(q, k, v, valid, softcap=softcap,
+                                     return_lse=return_lse)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

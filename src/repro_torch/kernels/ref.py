@@ -244,6 +244,29 @@ def _sdpa(q, k, v, mask, softcap: float = 0.0):
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
+def _sdpa_lse(q, k, v, mask, softcap: float = 0.0):
+    """Attention as :func:`_sdpa` with the probabilities and the output
+    kept in f32 (the decode kernels' partials), and each query row and
+    head's log-sum-exp of its attended (scaled, softcapped) scores: (out
+    f32 [B, Sq, H, Dh], lse f32 [B, Sq, H]). A row with no attended token
+    gives out 0 and lse -inf, as the decode kernels do. On f32 inputs the
+    output is :func:`_sdpa`'s."""
+    B, Sq, H, Dh = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, Dh).float()
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) \
+        * (1.0 / math.sqrt(Dh))
+    logits = layers.softcap(logits, softcap)
+    lse = torch.logsumexp(logits.masked_fill(~mask[:, None, None],
+                                             float("-inf")), dim=-1)
+    probs = torch.softmax(logits.masked_fill(~mask[:, None, None], NEG_INF),
+                          dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    out = out.reshape(B, Sq, H, Dh)
+    lse = lse.permute(0, 3, 1, 2).reshape(B, Sq, H)          # [B,Sq,H]
+    return torch.where(torch.isinf(lse)[..., None], 0.0, out), lse
+
+
 def _causal_mask(Sq: int, Skv: int, window: int = 0, q_offset: int = 0,
                  device=None):
     """[1, Sq, Skv] causal (banded if window > 0) mask."""

@@ -69,7 +69,6 @@ def lower_cell(arch: str, shape_name: str, *,
     from repro_torch.configs import get_config, get_shape, shape_applicable
     from repro_torch.launch.mesh import fake_world, make_production_mesh
     from repro_torch.models import registry
-    from repro_torch.runtime.executor import SHARD_SEQ
 
     cfg = get_config(arch)
     shape = get_shape(shape_name)
@@ -77,8 +76,6 @@ def lower_cell(arch: str, shape_name: str, *,
         return {"arch": arch, "shape": shape_name, "skipped": True,
                 "reason": "full-attention arch skips long_500k"}
     policy = cell_policy(arch, shape)
-    if policy["shard_seq"]:
-        raise NotImplementedError(SHARD_SEQ)
     model = registry.build(cfg)
     t0 = time.time()
     with fake_world(512 if multi_pod else 256):
@@ -108,9 +105,9 @@ def _cell_step(model, mesh, shape, policy):
     cfg = model.cfg
     if shape.kind == "decode":
         nv = cfg.n_vision_tokens if cfg.family == "vlm" else 0
-        params, specs, cache, tokens = count.fake_decode_args(
+        params, specs, cache, cspecs, tokens = count.fake_decode_args(
             model, mesh, shape, policy, shape.seq_len + nv)
-        fn = count.decode_step_fn(model, mesh, policy, specs)
+        fn = count.decode_step_fn(model, mesh, policy, specs, cspecs)
         return fn, (params, cache, tokens)
     specs = param_pspecs(model.init(0, "meta"), mesh, fsdp=policy["fsdp"])
     params = count.fake_local_params(model, mesh, specs)

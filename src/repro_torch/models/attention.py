@@ -22,7 +22,12 @@ there.
 Under a model axis wider than one (``parallel.activation.use``) every
 path computes this rank's heads and sums the output projection over
 "model" (:func:`_tp_mode`, :func:`out_proj`): the same kernels on
-rank-local shapes.
+rank-local shapes. Under sequence parallelism (``parallel.tp.seq_split``)
+the block gathers the sequence at its entry and reduce-scatters it at its
+exit. A slot cache in the layout of ``parallel.sharding.cache_pspecs``
+(``parallel.tp.cache_cut``) holds every KV head and, where it is cut,
+one block of the sequence: a rank attends all heads over its block and
+the blocks are joined from their log-sum-exps (:func:`attend_cached`).
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ from repro_torch.models import layers
 from repro_torch.parallel import tp
 
 __all__ = ["init_attn_params", "attention", "kv_quant", "init_kv_cache",
-           "store_kv", "load_kv", "decode_attention", "page_qmax",
+           "store_kv", "load_kv", "decode_attention", "attend_cached",
+           "page_qmax",
            "page_quant", "page_dequant", "paged_decode_attention",
            "chunk_attention", "paged_chunk_attention"]
 
@@ -124,8 +130,7 @@ def _project_qkv(params, cfg, x):
     mode, kv_sel = _tp_mode(params, cfg)
     if mode is not None:
         params = _tp_weights(params, cfg, mode, kv_sel)
-        if mode == "partial":
-            x = tp.copy_to(x)
+        x = tp.enter(x) if mode == "partial" else tp.enter_whole(x)
     B, S = x.shape[:2]
     q = torch.matmul(x, params["wq"].to(x.dtype))
     k = torch.matmul(x, params["wk"].to(x.dtype))
@@ -153,13 +158,16 @@ def kv_heads(params, cfg, kv):
 def out_proj(params, cfg, out, dtype):
     """The output projection of heads ``out [B, S, H, Dh]``: ``wo``, summed
     over "model" in a partial block (``wo`` cut on its rows), gathered
-    whole in a whole one."""
+    whole in a whole one (each leaving the sequence cut as it entered,
+    under ``parallel.tp.seq_split``)."""
     mode, _ = _tp_mode(params, cfg)
     y_in = out.reshape(*out.shape[:2], -1)
     wo = (tp.gather_cut(params, _widths(cfg), ("wo",))["wo"]
           if mode == "whole" else params["wo"])
     y = torch.matmul(y_in, wo.to(dtype))
-    return tp.reduce_from(y) if mode == "partial" else y
+    if mode == "partial":
+        return tp.leave(y)
+    return tp.leave_whole(y) if mode == "whole" else y
 
 
 def attention(params, cfg, x, positions, *,
@@ -220,7 +228,7 @@ def load_kv(entry: dict, dtype):
 
 
 def decode_attention(params, cfg, x, kv: dict, pos, *, window: int = 0,
-                     split_rows: int = 0) -> torch.Tensor:
+                     split_rows: int = 0, cut=None) -> torch.Tensor:
     """One-token decode against a slot cache (one layer's entry, leaves
     ``[B, S_max, K, Dh]`` + scales), written IN PLACE. Returns out [B,1,D].
 
@@ -234,6 +242,13 @@ def decode_attention(params, cfg, x, kv: dict, pos, *, window: int = 0,
     cache a ring buffer: the token lands at ``pos % S`` and the last
     ``window`` tokens are valid. ``split_rows`` goes to the kernel
     (``ops.decode_attention``).
+
+    ``cut`` (``parallel.tp.cache_cut``; None: the serve layout) is how this
+    rank holds the cache's sequence under ``cache_pspecs``: every KV head,
+    block ``cut.j`` of ``cut.n``. The new token's K/V heads are gathered
+    over "model" and written only by the rank whose block holds its slot;
+    ``valid`` is taken at the block's global positions (a ring's age from
+    the global slot); :func:`attend_cached` attends and joins the blocks.
     """
     B = x.shape[0]
     dev = x.device
@@ -244,10 +259,32 @@ def decode_attention(params, cfg, x, kv: dict, pos, *, window: int = 0,
               else torch.full((1, 1), int(pos), device=dev))
         q = layers.apply_rope(q, rp, cfg.rope_theta)
         k = layers.apply_rope(k, rp, cfg.rope_theta)
-    S = kv["k"].shape[1]
-    slot = pos % S if window > 0 else pos
+    S = kv["k"].shape[1]                    # this rank's slots
+    n, j = (cut.n, cut.j) if cut is not None else (1, 0)
+    Sg = S * n                              # the whole cache's
+    if cut is not None and k.shape[2] != kv["k"].shape[2]:
+        # this rank's K/m heads: every rank stores every head
+        grp = tp.active().model_group
+        k = tp.all_gather_cat(k, grp, 2)
+        v = tp.all_gather_cat(v, grp, 2)
+    slot = pos % Sg if window > 0 else pos
     new = store_kv(kv, k, v)
-    if batched:
+    if n > 1:
+        # only the rank whose block holds the slot writes it; a scalar
+        # slot clamps into the whole cache first, as it does unsplit
+        g = (slot.reshape(-1) if torch.is_tensor(slot)
+             else torch.tensor([int(slot)], device=dev))
+        if not batched:
+            g = torch.clamp(g, 0, Sg - 1)
+        local = (g - j * S).expand(B)
+        keep = ((local >= 0) & (local < S))[:, None, None]
+        idx = torch.clamp(local, 0, S - 1).long()
+        rows = torch.arange(B, device=dev)
+        for key, val in new.items():
+            dst = _raw(kv[key])
+            old = dst[rows, idx]
+            dst[rows, idx] = torch.where(keep, _raw(val[:, 0]), old)
+    elif batched:
         rows = torch.arange(B, device=dev)
         keep = (slot < S)[:, None, None]                   # [B, 1, 1]
         idx = torch.clamp(slot, max=S - 1).long()
@@ -260,21 +297,63 @@ def decode_attention(params, cfg, x, kv: dict, pos, *, window: int = 0,
                else min(max(int(slot), 0), S - 1))
         for key, val in new.items():
             _raw(kv[key])[:, idx] = _raw(val[:, 0])
-    kpos = torch.arange(S, device=dev)[None, :]
+    kpos = torch.arange(j * S, (j + 1) * S, device=dev)[None, :]
     posc = (pos.reshape(-1, 1) if torch.is_tensor(pos)
             else torch.full((1, 1), int(pos), device=dev))
     if window > 0:
-        age = torch.remainder(posc - kpos, S)
+        age = torch.remainder(posc - kpos, Sg)
         valid = age < torch.clamp(posc + 1, max=window)    # [B or 1, S]
     else:
         valid = kpos <= posc                                # [B or 1, S]
     ck, cv = load_kv(kv, q.dtype)
-    out = kops.decode_attention(q, kv_heads(params, cfg, ck),
-                                kv_heads(params, cfg, cv),
-                                valid if batched else valid[0],
-                                softcap=cfg.logit_softcap,
-                                split_rows=split_rows)
+    valid = valid if batched else valid[0]
+    if cut is not None:
+        out = attend_cached(params, cfg, q, ck, cv, valid, cut,
+                            split_rows=split_rows)
+    else:
+        out = kops.decode_attention(q, kv_heads(params, cfg, ck),
+                                    kv_heads(params, cfg, cv), valid,
+                                    softcap=cfg.logit_softcap,
+                                    split_rows=split_rows)
     return out_proj(params, cfg, out, x.dtype)
+
+
+def attend_cached(params, cfg, q, ck, cv, valid, cut, *,
+                  split_rows: int = 0) -> torch.Tensor:
+    """This rank's query heads ``q [B, 1, H', Dh]`` against a cache block
+    in the ``cache_pspecs`` layout (``ck``/``cv [B, S, K, Dh]``: every KV
+    head; ``cut``: block j of n of the sequence). One block: the decode
+    kernel on the KV heads this rank's queries read. Several: the query
+    heads gathered over "model" (a partial block), the kernel over every
+    head of the block with its log-sum-exp, the blocks joined over
+    ``cut.group`` (``tp.combine_blocks``), then this rank's heads taken
+    again. Returns [B, 1, H', Dh]."""
+    mode, kv_sel = _tp_mode(params, cfg)
+    partial = mode == "partial"
+    kw = dict(softcap=cfg.logit_softcap, split_rows=split_rows)
+    if cut.n == 1:
+        if partial:
+            ck, cv = _own_kv(cfg, ck, kv_sel), _own_kv(cfg, cv, kv_sel)
+        return kops.decode_attention(q, ck, cv, valid, **kw)
+    h_own = q.shape[2]
+    if partial:
+        q = tp.all_gather_cat(q, tp.active().model_group, 2)
+    out, lse = kops.decode_attention(q, ck, cv, valid, return_lse=True, **kw)
+    out = tp.combine_blocks(out[:, 0], lse, cut).to(q.dtype)[:, None]
+    if partial:
+        r = tp.active().mrank
+        out = out[:, :, r * h_own:(r + 1) * h_own].contiguous()
+    return out
+
+
+def _own_kv(cfg, kv, kv_sel):
+    """This rank's KV heads of ``kv [..., K, Dh]`` holding every head, in a
+    partial block: its K/m heads, or the one its query heads read."""
+    if kv_sel is not None:
+        return kv[..., kv_sel, :].contiguous()
+    m, r = tp.active().nmdl, tp.active().mrank
+    w = cfg.n_kv_heads // m
+    return kv[..., r * w:(r + 1) * w, :].contiguous()
 
 
 # ------------------------------------------------------- quantized pages

@@ -40,7 +40,19 @@ looks up its vocab rows (:func:`embed_lookup`), the head gives its vocab
 columns (:func:`vocab_logits`, gathered unless the greedy path reads them
 through :func:`greedy`), and attention, FFN, RG-LRU and MoE blocks their
 heads, features, width and experts (``parallel.tp``); caches hold the
-rank's KV heads and width (:func:`local_cfg`).
+rank's KV heads and width (:func:`local_cfg`). Where the policy carries
+``cache_specs`` (``ShardedExecutor.lower_decode``, the dry run), the
+decode cache is instead in the layout of ``parallel.sharding.cache_pspecs``
+(:func:`local_cache`): every KV head and the whole width, axis 2 cut where
+the specs say (``tp.cache_cut``), each kind's step joining its blocks.
+
+Sequence parallelism: under a model axis m > 1 a stream of S >= 2048
+positions that m divides (``parallel.activation.seq_sharded``) is cut
+along S between the blocks: the embedding reduce-scatters it, each block
+runs inside ``tp.seq_split`` (gathering the sequence at its entry and
+cutting it at its exit; the pre-norms act on this rank's rows), and the
+stream is gathered back before the final norm and the head, so the
+logits, the hidden state and the caches keep their shapes.
 """
 from __future__ import annotations
 
@@ -53,6 +65,7 @@ import torch.utils.checkpoint
 from repro_torch.models import attention, ffn as ffn_mod, layers
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod, ssm as ssm_mod
+from repro_torch.parallel import activation as act
 from repro_torch.parallel import tp
 
 
@@ -161,21 +174,29 @@ def tree_slice(tree, idx: int):
 
 
 # --------------------------------------------------------------- helpers
+def _lookup(params, cfg, tokens):
+    """(rows, partial): ``params["embed"]`` rows of ``tokens`` in the model
+    dtype; with the table cut on vocab (``parallel.tp``), this rank's rows
+    only, zeros for ids outside them (``partial``)."""
+    emb = params["embed"]
+    if tp.block_mode(params, {"embed": (0, cfg.vocab_padded)},
+                     "embed") != "partial":
+        return emb[tokens].to(cfg.torch_dtype()), False
+    v = emb.shape[0]
+    ids = tokens - tp.active().mrank * v
+    inside = ((ids >= 0) & (ids < v))[..., None]
+    h = emb[torch.clamp(ids, 0, v - 1)].to(cfg.torch_dtype())
+    return torch.where(inside, h, torch.zeros((), dtype=h.dtype,
+                                              device=h.device)), True
+
+
 def embed_lookup(params, cfg, tokens):
     """``params["embed"]`` rows of ``tokens`` in the model dtype. Under a
     model axis with the table cut on vocab (``parallel.tp``), each rank
     looks up the ids in its rows (zeros elsewhere) and the rows are summed
     over "model": one nonzero term per id, so the lookup is exact."""
-    emb = params["embed"]
-    if tp.block_mode(params, {"embed": (0, cfg.vocab_padded)},
-                     "embed") != "partial":
-        return emb[tokens].to(cfg.torch_dtype())
-    v = emb.shape[0]
-    ids = tokens - tp.active().mrank * v
-    inside = ((ids >= 0) & (ids < v))[..., None]
-    h = emb[torch.clamp(ids, 0, v - 1)].to(cfg.torch_dtype())
-    return tp.reduce_from(torch.where(inside, h, torch.zeros((), dtype=h.dtype,
-                                                             device=h.device)))
+    h, partial = _lookup(params, cfg, tokens)
+    return tp.reduce_from(h) if partial else h
 
 
 def vocab_logits(cfg, h, w, *, gather: bool = True):
@@ -205,17 +226,38 @@ def greedy(cfg, logits) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def _embed(params, cfg, tokens, extra_embeds=None):
+def _embed(params, cfg, tokens, extra_embeds=None, sp: bool = False):
     """Token embeddings in the model dtype (times sqrt(d_model), rounded
     to that dtype first as in JAX, under ``embed_scale``), with
     ``extra_embeds [B, P, D]`` (a vision model's patch embeddings)
-    prepended: [B, P + S, D]."""
-    h = embed_lookup(params, cfg, tokens)
+    prepended: [B, P + S, D]. ``sp`` (sequence parallelism): this rank's
+    rows of it, the vocab-cut lookup reduce-scattered (the prefix added
+    on model rank 0 alone, so the sum holds it once)."""
+    h, partial = (_lookup(params, cfg, tokens) if sp
+                  else (embed_lookup(params, cfg, tokens), False))
     if cfg.embed_scale:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
     if extra_embeds is not None:
-        h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
-    return h
+        pre = extra_embeds.to(h.dtype)
+        if partial and tp.active().mrank != 0:
+            pre = torch.zeros_like(pre)
+        h = torch.cat([pre, h], dim=1)
+    if not sp:
+        return h
+    return tp.scatter_seq(h) if partial else tp.split_seq(h)
+
+
+def _seq_len(tokens, extra_embeds) -> int:
+    """Positions of the stream: the tokens and a vision prefix."""
+    return tokens.shape[1] + (extra_embeds.shape[1]
+                              if extra_embeds is not None else 0)
+
+
+def _norm(cfg, p, h):
+    """A block's pre-norm (``p``: its params) of the stream ``h``; inside
+    ``tp.seq_split`` the scales act on this rank's rows
+    (``tp.seq_replicated``)."""
+    return layers.apply_norm(cfg, tp.seq_replicated(p), h)
 
 
 def _unembed(params, cfg, h, *, gather: bool = True):
@@ -251,26 +293,29 @@ def _window(cfg, slot: LayerSlot) -> int:
     return cfg.attn_window if slot.mixer == "local_attn" else 0
 
 
-def _apply_mixer(kind: str, p, cfg, h, positions):
+def _apply_mixer(kind: str, p, cfg, h, positions, sp: bool = False):
     """Norm, then the mixer ``kind`` (``attn``, ``local_attn``, ``rglru``
-    or ``ssd``) over the full sequence: its output [B, S, D]."""
-    hn = layers.apply_norm(cfg, p["norm"], h)
-    if kind == "rglru":
-        return rglru_mod.rglru_mixer(p, cfg, hn)
-    if kind == "ssd":
-        return ssm_mod.ssd_mixer(p, cfg, hn)
-    window = cfg.attn_window if kind == "local_attn" else 0
-    return attention.attention(p, cfg, hn, positions, window=window)[0]
+    or ``ssd``) over the full sequence: its output [B, S, D] (this rank's
+    rows of it under ``sp``)."""
+    with tp.seq_split(sp):
+        hn = _norm(cfg, p["norm"], h)
+        if kind == "rglru":
+            return rglru_mod.rglru_mixer(p, cfg, hn)
+        if kind == "ssd":
+            return ssm_mod.ssd_mixer(p, cfg, hn)
+        window = cfg.attn_window if kind == "local_attn" else 0
+        return attention.attention(p, cfg, hn, positions, window=window)[0]
 
 
-def _apply_ffn(kind: str, p, cfg, h, groups: int = 1):
+def _apply_ffn(kind: str, p, cfg, h, groups: int = 1, sp: bool = False):
     """Norm, then the FFN ``kind`` (``dense``, or ``moe``: the scatter
     dispatch, ``groups`` independent token groups along the batch axis):
-    its output [B, S, D]."""
-    hn = layers.apply_norm(cfg, p["norm"], h)
-    if kind == "moe":
-        return moe_mod.moe_ffn(p, cfg, hn, groups=groups)
-    return ffn_mod.ffn(p, cfg, hn)
+    its output [B, S, D] (this rank's rows under ``sp``)."""
+    with tp.seq_split(sp):
+        hn = _norm(cfg, p["norm"], h)
+        if kind == "moe":
+            return moe_mod.moe_ffn(p, cfg, hn, groups=groups)
+        return ffn_mod.ffn(p, cfg, hn)
 
 
 def _checkpointed(fn, remat: bool):
@@ -282,18 +327,19 @@ def _checkpointed(fn, remat: bool):
 
 
 def _block(params, cfg, slot: LayerSlot, i: int, h, gates, mixer_out, *,
-           remat: bool = False, groups: int = 1):
+           remat: bool = False, groups: int = 1, sp: bool = False):
     """Residual updates of layout row ``i`` around its mixer output: the
     gated mixer branch (none for a pruned mixer, ``mixer_out`` None), then
     the gated FFN branch (none in mamba2 or for a pruned FFN; recomputed
-    in the backward under ``remat``; ``groups`` as in :func:`forward`)."""
+    in the backward under ``remat``; ``groups`` as in :func:`forward`;
+    ``sp``: ``h`` is this rank's rows)."""
     if mixer_out is not None:
         h = h + _bgate(gates["mixer"][i], h) * mixer_out
     if slot.ffn is None:
         return h
     pf = tree_slice(params["stacks"][slot.ffn], slot.ffn_idx)
-    out = _checkpointed(lambda x: _apply_ffn(slot.ffn, pf, cfg, x, groups),
-                        remat)(h)
+    out = _checkpointed(lambda x: _apply_ffn(slot.ffn, pf, cfg, x, groups,
+                                             sp), remat)(h)
     return h + _bgate(gates["ffn"][i], h) * out
 
 
@@ -325,21 +371,26 @@ def forward(params, cfg, tokens, *, gates=None, extra_embeds=None,
     cost of a second forward — and a second launch of its kernels.
     ``groups`` (dividing B) makes each group of B / groups consecutive
     rows an independent call of the MoE FFN (its own capacity and drop
-    ranking); a model without MoE rows ignores it."""
+    ranking); a model without MoE rows ignores it. Sequence parallelism
+    (module docstring) applies where the stream qualifies."""
     check_supported(cfg)
     layout = default_layout(cfg) if layout is None else layout
     gates = gates or _ones_gates(len(layout), tokens.device)
-    h = _embed(params, cfg, tokens, extra_embeds)
-    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    S = _seq_len(tokens, extra_embeds)
+    sp = act.seq_sharded(S)
+    h = _embed(params, cfg, tokens, extra_embeds, sp)
+    positions = torch.arange(S, device=h.device)[None, :]
     for i, slot in enumerate(layout):
         out = None
         if slot.mixer is not None:
             pm = _mixer_params(params, slot)
             out = _checkpointed(
                 lambda x, pm=pm, kind=slot.mixer: _apply_mixer(
-                    kind, pm, cfg, x, positions), remat)(h)
+                    kind, pm, cfg, x, positions, sp), remat)(h)
         h = _block(params, cfg, slot, i, h, gates, out, remat=remat,
-                   groups=groups)
+                   groups=groups, sp=sp)
+    if sp:
+        h = tp.gather_seq(h, partial=False)
     if not unembed:
         return h, None
     return _unembed(params, cfg, h), None
@@ -364,6 +415,17 @@ def local_cfg(params, cfg):
     if "rglru" in st and rglru_mod.tp_mode(st["rglru"], cfg) == "partial":
         kw["rnn_width"] = (cfg.rnn_width or cfg.d_model) // pol.nmdl
     return cfg.replace(**kw) if kw else cfg
+
+
+def local_cache(cache: dict, specs, mesh) -> dict:
+    """This rank's block of a whole decode cache (:func:`init_cache`'s
+    tree, ``encdec.init_cache``'s too) under ``specs``
+    (``parallel.sharding.cache_pspecs``); ``"pos"`` as it is."""
+    from repro_torch.parallel.sharding import shard_leaf, spec_at
+    from repro_torch.tree import flatten, unflatten
+    return unflatten(cache, {
+        k: shard_leaf(v, spec_at(specs, k), mesh, mesh.coords)
+        if torch.is_tensor(v) else v for k, v in flatten(cache).items()})
 
 
 def init_cache(cfg, batch: int, max_len: int, kv_dtype=None,
@@ -423,41 +485,54 @@ def prefill(params, cfg, tokens, max_len: int, *, gates=None,
     check_supported(cfg)
     layout = default_layout(cfg) if layout is None else layout
     gates = gates or _ones_gates(len(layout), tokens.device)
-    h = _embed(params, cfg, tokens, extra_embeds)
-    B, S = h.shape[:2]
+    B, S = tokens.shape[0], _seq_len(tokens, extra_embeds)
+    sp = act.seq_sharded(S)
+    h = _embed(params, cfg, tokens, extra_embeds, sp)
     positions = torch.arange(S, device=h.device)[None, :]
     cache = init_cache(local_cfg(params, cfg), B, max_len,
                        kv_dtype or h.dtype, h.device, layout)
     cidx = _cache_indices(layout)
     for i, slot in enumerate(layout):
         if slot.mixer is None:
-            h = _block(params, cfg, slot, i, h, gates, None)
+            h = _block(params, cfg, slot, i, h, gates, None, sp=sp)
             continue
         pm = _mixer_params(params, slot)
-        hn = layers.apply_norm(cfg, pm["norm"], h)
         ci = cidx[i]
-        if slot.mixer == "rglru":
-            out, hs, conv = rglru_mod.rglru_sequence(pm, cfg, hn)
-            cache["rglru"]["h"][ci] = hs
-            cache["rglru"]["conv"][ci] = conv
-        elif slot.mixer == "ssd":
-            out, state, conv = ssm_mod.ssd_sequence(pm, cfg, hn)
-            cache["ssd"]["state"][ci] = state
-            cache["ssd"]["conv"][ci] = conv
-        else:
-            out, kv = attention.attention(pm, cfg, hn, positions,
-                                          window=_window(cfg, slot))
-            entry = cache[slot.mixer]
-            if slot.mixer == "local_attn":
-                _store_window(entry, ci, kv["k"], kv["v"])
-            else:
-                for key, val in attention.store_kv(entry, kv["k"],
-                                                   kv["v"]).items():
-                    entry[key][ci, :, :S] = val
-        h = _block(params, cfg, slot, i, h, gates, out)
+        with tp.seq_split(sp):
+            h = _prefill_mixer(params, cfg, slot, pm, ci, h, positions,
+                               cache, gates, i, S, sp)
+    if sp:
+        h = tp.gather_seq(h, partial=False)
     cache["pos"] = S
     logits = _unembed(params, cfg, h[:, -1:, :])[:, 0]
     return logits, cache
+
+
+def _prefill_mixer(params, cfg, slot, pm, ci, h, positions, cache, gates,
+                   i: int, S: int, sp: bool):
+    """Layout row ``i`` of :func:`prefill`: its mixer over the prompt,
+    the state it leaves in ``cache`` (layer ``ci`` of its kind), then the
+    row's residual updates."""
+    hn = _norm(cfg, pm["norm"], h)
+    if slot.mixer == "rglru":
+        out, hs, conv = rglru_mod.rglru_sequence(pm, cfg, hn)
+        cache["rglru"]["h"][ci] = hs
+        cache["rglru"]["conv"][ci] = conv
+    elif slot.mixer == "ssd":
+        out, state, conv = ssm_mod.ssd_sequence(pm, cfg, hn)
+        cache["ssd"]["state"][ci] = state
+        cache["ssd"]["conv"][ci] = conv
+    else:
+        out, kv = attention.attention(pm, cfg, hn, positions,
+                                      window=_window(cfg, slot))
+        entry = cache[slot.mixer]
+        if slot.mixer == "local_attn":
+            _store_window(entry, ci, kv["k"], kv["v"])
+        else:
+            for key, val in attention.store_kv(entry, kv["k"],
+                                               kv["v"]).items():
+                entry[key][ci, :, :S] = val
+    return _block(params, cfg, slot, i, h, gates, out, sp=sp)
 
 
 # ------------------------------------------------------------ chunked prefill
@@ -531,7 +606,9 @@ def decode_step(params, cfg, cache: dict, tokens, *, gates=None,
     count the decode kernel's split-KV cut is chosen for. Returns (logits
     [B, 1, Vp], cache) with ``cache["pos"]`` advanced by one; under a model
     axis, ``gather=False`` leaves the logits cut on vocab
-    (:func:`vocab_logits`)."""
+    (:func:`vocab_logits`). Under a policy with ``cache_specs`` the cache is
+    this rank's block in the ``cache_pspecs`` layout (:func:`local_cache`)
+    and each kind steps on it (``tp.cache_cut``)."""
     check_supported(cfg)
     layout = default_layout(cfg) if layout is None else layout
     gates = gates or _ones_gates(len(layout), tokens.device)
@@ -545,21 +622,38 @@ def decode_step(params, cfg, cache: dict, tokens, *, gates=None,
         pm = _mixer_params(params, slot)
         hn = layers.apply_norm(cfg, pm["norm"], h)
         ci = cidx[i]
-        if slot.mixer == "rglru":
-            st = cache["rglru"]
-            out, st["h"][ci], st["conv"][ci] = rglru_mod.rglru_decode_step(
-                pm, cfg, hn, st["h"][ci], st["conv"][ci])
-        elif slot.mixer == "ssd":
-            st = cache["ssd"]
-            out, st["state"][ci], st["conv"][ci] = ssm_mod.ssd_decode_step(
-                pm, cfg, hn, st["state"][ci], st["conv"][ci])
+        if slot.mixer in ("rglru", "ssd"):
+            out = _recurrent_step(pm, cfg, hn, cache[slot.mixer], ci,
+                                  slot.mixer)
         else:
             out = attention.decode_attention(
                 pm, cfg, hn, _pool_layer(cache[slot.mixer], ci), pos,
-                window=_window(cfg, slot), split_rows=split_rows)
+                window=_window(cfg, slot), split_rows=split_rows,
+                cut=tp.cache_cut(slot.mixer, "k"))
         h = _block(params, cfg, slot, i, h, gates, out)
     cache["pos"] = pos + 1
     return _unembed(params, cfg, h, gather=gather), cache
+
+
+_STATE = {"rglru": ("h", rglru_mod.rglru_decode_step),
+          "ssd": ("state", ssm_mod.ssd_decode_step)}
+
+
+def _recurrent_step(pm, cfg, hn, st: dict, ci: int, kind: str):
+    """One token of a recurrent layer ``ci`` of ``kind``, its state
+    ``st`` updated in place; its output. A conv buffer that the cache
+    specs cut along its taps is gathered for the step and cut again."""
+    key, step = _STATE[kind]
+    conv_cut = tp.cache_cut(kind, "conv")
+    conv = st["conv"][ci]
+    if conv_cut is not None:
+        conv = conv_cut.whole(conv, 1)
+    out, st[key][ci], conv = step(pm, cfg, hn, st[key][ci], conv,
+                                  cut=tp.cache_cut(kind, key))
+    if conv_cut is not None:
+        conv = conv[:, conv_cut.rows(conv.shape[1])]
+    st["conv"][ci] = conv
+    return out
 
 
 def decode_horizon(params, cfg, cache: dict, tokens, horizon: int, *,

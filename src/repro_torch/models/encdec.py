@@ -19,6 +19,13 @@ the causal flash kernel at prefill and the dense decode kernel at decode,
 and the decode-time cross-attention (one query against every frame)
 through the dense decode kernel with an all-true mask. The FFN is the
 plain tanh-gelu one (no kernel on either side).
+
+Sequence parallelism (``models/decoder.py``'s rule and edges) cuts the
+encoder's stream and the decoder's at S >= 2048 positions between the
+blocks (each cut from the whole embedded stream); the cross K/V are
+projected from the whole encoder output. Under ``cache_specs`` the decode
+step reads its self and cross caches in the ``cache_pspecs`` layout
+(``attention.attend_cached``).
 """
 from __future__ import annotations
 
@@ -29,9 +36,12 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention, ffn as ffn_mod, layers
-from repro_torch.models.decoder import (_bgate, _checkpointed, _ones_gates,
-                                        _pool_layer, embed_lookup,
-                                        local_cfg, tree_slice, vocab_logits)
+from repro_torch.models.decoder import (_bgate, _checkpointed, _norm,
+                                        _ones_gates, _pool_layer,
+                                        embed_lookup, local_cfg, tree_slice,
+                                        vocab_logits)
+from repro_torch.parallel import activation as act
+from repro_torch.parallel import tp
 
 
 def _sinusoid(positions, d_model: int):
@@ -85,45 +95,55 @@ def encode(params, cfg, frames, *, remat: bool = False):
     """frames: [B, T_enc, D] (stub frontend output) → [B, T_enc, D]."""
     dt = cfg.torch_dtype()
     h = frames.to(dt) + params["enc_pos"][None].to(dt)
+    sp = act.seq_sharded(h.shape[1])
+    if sp:
+        h = tp.split_seq(h)
 
     def layer(h, pa, pf):
-        hn = layers.apply_norm(cfg, pa["norm"], h)
-        q, k, v = attention._project_qkv(pa, cfg, hn)
-        h = h + attention.out_proj(pa, cfg, _bidir_attend(
-            cfg, q, attention.kv_heads(pa, cfg, k),
-            attention.kv_heads(pa, cfg, v)), h.dtype)
-        hn = layers.apply_norm(cfg, pf["norm"], h)
-        return h + ffn_mod.ffn(pf, cfg, hn)
+        with tp.seq_split(sp):
+            hn = _norm(cfg, pa["norm"], h)
+            q, k, v = attention._project_qkv(pa, cfg, hn)
+            h = h + attention.out_proj(pa, cfg, _bidir_attend(
+                cfg, q, attention.kv_heads(pa, cfg, k),
+                attention.kv_heads(pa, cfg, v)), h.dtype)
+            hn = _norm(cfg, pf["norm"], h)
+            return h + ffn_mod.ffn(pf, cfg, hn)
 
     st = params["stacks"]
     for i in range(cfg.n_encoder_layers):
         h = _checkpointed(layer, remat)(h, tree_slice(st["enc_attn"], i),
                                         tree_slice(st["enc_ffn"], i))
+    if sp:
+        h = tp.gather_seq(h, partial=False)
     return layers.apply_norm(cfg, params["enc_final_norm"], h)
 
 
 def _cross_kv(pc, cfg, enc_h):
     """One decoder layer's cross K/V from the encoder output: [B, T_enc,
-    K, Dh] each."""
+    K, Dh] each (outside the layer's ``tp.seq_split``: the encoder output
+    is whole)."""
     _, k, v = attention._project_qkv(pc, cfg, enc_h)
     return k, v
 
 
-def _decoder_layer(cfg, h, positions, pa, pc, pf, gm, gf, xk, xv):
+def _decoder_layer(cfg, h, positions, pa, pc, pf, gm, gf, xk, xv,
+                   sp: bool = False):
     """One decoder layer over a full sequence against the cross K/V
     ``xk``/``xv``: gated self-attention (causal flash), gated
     cross-attention (the same mixer gate), gated FFN. Returns (h, the
-    self-attention's {"k","v"})."""
-    hn = layers.apply_norm(cfg, pa["norm"], h)
-    out, kv = attention.attention(pa, cfg, hn, positions)
-    h = h + _bgate(gm, h) * out
-    hn = layers.apply_norm(cfg, pc["norm"], h)
-    q, _, _ = attention._project_qkv(pc, cfg, hn)
-    xout = _bidir_attend(cfg, q, attention.kv_heads(pc, cfg, xk.to(h.dtype)),
-                         attention.kv_heads(pc, cfg, xv.to(h.dtype)))
-    h = h + _bgate(gm, h) * attention.out_proj(pc, cfg, xout, h.dtype)
-    hn = layers.apply_norm(cfg, pf["norm"], h)
-    return h + _bgate(gf, h) * ffn_mod.ffn(pf, cfg, hn), kv
+    self-attention's {"k","v"}); ``sp``: ``h`` is this rank's rows."""
+    with tp.seq_split(sp):
+        hn = _norm(cfg, pa["norm"], h)
+        out, kv = attention.attention(pa, cfg, hn, positions)
+        h = h + _bgate(gm, h) * out
+        hn = _norm(cfg, pc["norm"], h)
+        q, _, _ = attention._project_qkv(pc, cfg, hn)
+        xout = _bidir_attend(cfg, q,
+                             attention.kv_heads(pc, cfg, xk.to(h.dtype)),
+                             attention.kv_heads(pc, cfg, xv.to(h.dtype)))
+        h = h + _bgate(gm, h) * attention.out_proj(pc, cfg, xout, h.dtype)
+        hn = _norm(cfg, pf["norm"], h)
+        return h + _bgate(gf, h) * ffn_mod.ffn(pf, cfg, hn), kv
 
 
 def _layer_params(params, i: int):
@@ -135,16 +155,22 @@ def _layer_params(params, i: int):
 def _decoder_pass(params, cfg, h, positions, enc_h, gates, *,
                   remat: bool = False):
     """Teacher-forced decoder over a full sequence (train / scoring); each
-    layer projects its cross K/V from ``enc_h`` inside the (remat) layer."""
+    layer projects its cross K/V from ``enc_h`` inside the (remat) layer.
+    Under sequence parallelism the stream is cut between the layers and
+    gathered back at the end."""
+    sp = act.seq_sharded(h.shape[1])
+    if sp:
+        h = tp.split_seq(h)
+
     def layer(h, pa, pc, pf, gm, gf):
         xk, xv = _cross_kv(pc, cfg, enc_h)
         return _decoder_layer(cfg, h, positions, pa, pc, pf, gm, gf,
-                              xk, xv)[0]
+                              xk, xv, sp)[0]
 
     for i in range(cfg.n_layers):
         h = _checkpointed(layer, remat)(h, *_layer_params(params, i),
                                         gates["mixer"][i], gates["ffn"][i])
-    return h
+    return tp.gather_seq(h, partial=False) if sp else h
 
 
 def _embed_tokens(params, cfg, tokens, offset):
@@ -205,6 +231,9 @@ def prefill(params, cfg, tokens, frames, max_len: int, *, gates=None,
     cache = init_cache(local_cfg(params, cfg), B, max_len, kv_dtype,
                        tokens.device)
     h, positions = _embed_tokens(params, cfg, tokens, 0)
+    sp = act.seq_sharded(S)
+    if sp:
+        h = tp.split_seq(h)
     cross, entry = cache["cross"], cache["attn"]
     for i in range(cfg.n_layers):
         pa, pc, pf = _layer_params(params, i)
@@ -212,9 +241,11 @@ def prefill(params, cfg, tokens, frames, max_len: int, *, gates=None,
         cross["k"][i], cross["v"][i] = xk, xv
         h, kv = _decoder_layer(cfg, h, positions, pa, pc, pf,
                                gates["mixer"][i], gates["ffn"][i],
-                               cross["k"][i], cross["v"][i])
+                               cross["k"][i], cross["v"][i], sp)
         for key, val in attention.store_kv(entry, kv["k"], kv["v"]).items():
             entry[key][i, :, :S] = val
+    if sp:
+        h = tp.gather_seq(h, partial=False)
     cache["pos"] = S
     return unembed(params, cfg, h[:, -1:, :])[:, 0], cache
 
@@ -224,26 +255,36 @@ def decode_step(params, cfg, cache: dict, tokens, *,
     """One step at the scalar ``cache["pos"]`` (updated in place). The
     self-attention writes its token and runs the dense decode kernel; the
     cross-attention is one query against every frame (the dense decode
-    kernel, all frames valid). Returns (logits [B, 1, Vp], cache)."""
+    kernel, all frames valid). Returns (logits [B, 1, Vp], cache). Under
+    ``cache_specs`` both caches are in the ``cache_pspecs`` layout
+    (``tp.cache_cut``)."""
     gates = gates or _ones_gates(cfg.n_layers, tokens.device)
     pos = cache["pos"]
     h, _ = _embed_tokens(params, cfg, tokens, pos)
     cross = cache["cross"]
     every = torch.ones(cross["k"].shape[2], dtype=torch.bool,
                        device=h.device)
+    self_cut, cross_cut = tp.cache_cut("attn", "k"), tp.cache_cut("cross",
+                                                                  "k")
     for i in range(cfg.n_layers):
         pa, pc, pf = _layer_params(params, i)
         gm, gf = gates["mixer"][i], gates["ffn"][i]
         hn = layers.apply_norm(cfg, pa["norm"], h)
         out = attention.decode_attention(pa, cfg, hn,
-                                         _pool_layer(cache["attn"], i), pos)
+                                         _pool_layer(cache["attn"], i), pos,
+                                         cut=self_cut)
         h = h + _bgate(gm, h) * out
         hn = layers.apply_norm(cfg, pc["norm"], h)
         q, _, _ = attention._project_qkv(pc, cfg, hn)
-        xout = kops.decode_attention(
-            q, attention.kv_heads(pc, cfg, cross["k"][i].to(h.dtype)),
-            attention.kv_heads(pc, cfg, cross["v"][i].to(h.dtype)), every,
-            softcap=cfg.logit_softcap)
+        xk, xv = cross["k"][i].to(h.dtype), cross["v"][i].to(h.dtype)
+        if cross_cut is not None:
+            xout = attention.attend_cached(pc, cfg, q, xk, xv, every,
+                                           cross_cut)
+        else:
+            xout = kops.decode_attention(
+                q, attention.kv_heads(pc, cfg, xk),
+                attention.kv_heads(pc, cfg, xv), every,
+                softcap=cfg.logit_softcap)
         h = h + _bgate(gm, h) * attention.out_proj(pc, cfg, xout, h.dtype)
         hn = layers.apply_norm(cfg, pf["norm"], h)
         h = h + _bgate(gf, h) * ffn_mod.ffn(pf, cfg, hn)

@@ -42,7 +42,9 @@ def ffn(params, cfg, x):
     F rows, the block is partial: this rank's F/m features (its ``wi``
     block holds ``[gate_r | up_r]``, ``parallel/sharding.py``'s GLU cut),
     the ``wo`` product summed over "model". Where F does not divide m,
-    every rank gathers the cut leaves and computes the whole block."""
+    every rank gathers the cut leaves and computes the whole block. Under
+    ``parallel.tp.seq_split`` the block gathers the sequence at its entry
+    and cuts it again at its exit (``tp.enter`` / ``tp.leave``)."""
     widths = {"wi": (-1, 2 * cfg.d_ff if is_glu(cfg) else cfg.d_ff),
               "wo": (-2, cfg.d_ff)}
     mode = tp.block_mode(params, widths, "wo")
@@ -51,8 +53,12 @@ def ffn(params, cfg, x):
         params = tp.gather_cut(params, widths)
     wi, wo = params["wi"], params["wo"]
     if partial:
-        x = tp.copy_to(x)
+        x = tp.enter(x)
+    elif mode == "whole":
+        x = tp.enter_whole(x)
     h = torch.matmul(x, wi.to(x.dtype))
     h = glu_activate(h, cfg.activation) if is_glu(cfg) else layers.gelu(h)
     y = torch.matmul(h, wo.to(x.dtype))
-    return tp.reduce_from(y) if partial else y
+    if partial:
+        return tp.leave(y)
+    return tp.leave_whole(y) if mode == "whole" else y

@@ -202,7 +202,8 @@ def moe_ffn_ep(params, cfg, x, pol, groups: int = 1):
     E_loc = cfg.n_experts // m
     router = params["router"]
     if tp.active() is not None:
-        x, router = tp.copy_to(x), tp.copy_to(router)
+        x, router = tp.enter(x), tp.copy_to(router)
+        B, S, D = x.shape       # the whole sequence under tp.seq_split
     xt = x.reshape(-1, D)
     weights, idx = _route({"router": router}, cfg, xt)
     T = xt.shape[0] // G
@@ -211,7 +212,7 @@ def moe_ffn_ep(params, cfg, x, pol, groups: int = 1):
                                      idx[g * T:(g + 1) * T], params["wi"],
                                      params["wo"], r * E_loc, E_loc)
                      for g in range(G)])
-    return tp.reduce_from(out, pol.model_group).reshape(B, S, D)
+    return tp.leave(out.reshape(B, S, D), pol.model_group)
 
 
 def moe_ffn(params, cfg, x, *, impl: str = "scatter", groups: int = 1):
@@ -224,4 +225,5 @@ def moe_ffn(params, cfg, x, *, impl: str = "scatter", groups: int = 1):
         return moe_ffn_dense(params, cfg, x)
     if tp.block_mode(params, {"wi": (-3, cfg.n_experts)}, "wi") == "partial":
         return moe_ffn_ep(params, cfg, x, tp.active(), groups)
-    return moe_ffn_scatter(params, cfg, x, groups)
+    return tp.leave_whole(moe_ffn_scatter(params, cfg, tp.enter_whole(x),
+                                          groups))

@@ -14,6 +14,12 @@ the CPU). JAX wraps the projections in ``parallel.activation.width``, a
 sharding hint that is the identity on one device; under a model axis the
 port computes the width leaves on this rank's columns (:func:`_tp`).
 The decode state (``init_rglru_cache``) is f32 whatever the model dtype.
+
+A decode state in the layout of ``parallel.sharding.cache_pspecs``
+(``cut``, :func:`rglru_decode_step`) is whole on every rank, or, under
+``shard_seq``, has its width cut over the data axes: each data rank
+updates its channels of the gates and the state, and the output
+projection's rows of those channels are summed over the data group.
 """
 from __future__ import annotations
 
@@ -112,15 +118,16 @@ def _tp(params, cfg, x):
     (:func:`_out`); a whole one gathers the cut leaves."""
     mode = tp_mode(params, cfg)
     if mode == "partial":
-        return params, tp.copy_to(x), True
+        return params, tp.enter(x), True
     if mode == "whole":
         params = tp.gather_cut(params, _widths(cfg))
+        x = tp.enter_whole(x)
     return params, x, False
 
 
 def _out(params, y, dtype, partial: bool):
     y = torch.matmul(y, params["wo"].to(dtype))
-    return tp.reduce_from(y) if partial else y
+    return tp.leave(y) if partial else tp.leave_whole(y)
 
 
 def rglru_sequence(params, cfg, x):
@@ -157,11 +164,15 @@ def init_rglru_cache(cfg, batch: int, n_layers: int, device=None) -> dict:
             "conv": torch.zeros(n_layers, batch, _CONV_W - 1, W, **f32)}
 
 
-def rglru_decode_step(params, cfg, x, h_prev, conv_buf):
+def rglru_decode_step(params, cfg, x, h_prev, conv_buf, *, cut=None):
     """One token. x: [B,1,D]; h_prev: [B,W]; conv_buf: [B,3,W].
 
     Returns (y [B,1,D], h, conv_buf) — new tensors; the caller stores
-    them. Under a partial model axis W is this rank's width."""
+    them. Under a partial model axis W is this rank's width. ``cut``
+    (``parallel.tp.cache_cut``; None: that serve layout) is how this rank
+    holds the state in the ``cache_pspecs`` layout: :func:`_decode_cut`."""
+    if cut is not None:
+        return _decode_cut(params, cfg, x, h_prev, conv_buf, cut)
     params, x, partial = _tp(params, cfg, x)
     u = torch.matmul(x, params["wx"].to(x.dtype))
     g = torch.matmul(x, params["w_gate"].to(x.dtype))
@@ -172,3 +183,56 @@ def rglru_decode_step(params, cfg, x, h_prev, conv_buf):
     h = a * h_prev + b
     y = (h.to(x.dtype) * layers.gelu(g[:, 0]))[:, None, :]
     return _out(params, y, x.dtype, partial), h, full[:, 1:]
+
+
+def _cols(params, sl: slice, blocks: slice) -> dict:
+    """The leaves of channels ``sl`` (gate blocks ``blocks``; ``wo``'s
+    rows)."""
+    p = {k: params[k][..., sl] for k in ("wx", "w_gate", "conv_w", "conv_b",
+                                         "ba", "bi", "lam")}
+    p.update(wa=params["wa"][blocks], wi=params["wi"][blocks],
+             wo=params["wo"][sl])
+    return p
+
+
+def _decode_cut(params, cfg, x, h_prev, conv_buf, cut):
+    """:func:`rglru_decode_step` on a state in the ``cache_pspecs`` layout:
+    ``conv_buf [B, 3, W]`` whole and ``h_prev`` this rank's block ``cut``
+    of the width (whole where ``cut.n`` is 1). A partial block (weights
+    cut over "model") steps its W/m columns of both and all-gathers the
+    new ones over "model". Otherwise, with the width cut over a group, this
+    rank updates its channels: the gates over the whole gate blocks that
+    hold them (the conv buffer needs every channel's input), its channels'
+    state, and its rows of ``wo``, summed over ``cut.group``."""
+    mode = tp_mode(params, cfg)
+    W = cfg.rnn_width or cfg.d_model
+    if mode == "partial":
+        pol = tp.active()
+        own = slice(pol.mrank * (W // pol.nmdl),
+                    (pol.mrank + 1) * (W // pol.nmdl))
+        h_all = cut.whole(h_prev, -1)
+        y, h, conv = rglru_decode_step(params, cfg, x, h_all[..., own],
+                                       conv_buf[..., own])
+        h = tp.all_gather_cat(h, pol.model_group, -1)
+        conv = tp.all_gather_cat(conv, pol.model_group, -1)
+        return y, h[..., cut.rows(W)], conv
+    if cut.n == 1:
+        return rglru_decode_step(params, cfg, x, h_prev, conv_buf)
+    if mode == "whole":
+        params = tp.gather_cut(params, _widths(cfg))
+    own = cut.rows(W)
+    bw = W // _n_blocks(cfg)
+    blocks = slice(own.start // bw, -(-own.stop // bw))
+    span = slice(blocks.start * bw, blocks.stop * bw)   # ⊇ own
+    p = _cols(params, span, blocks)
+    u = torch.matmul(x, params["wx"].to(x.dtype))
+    full = torch.cat([conv_buf.to(u.dtype), u], dim=1)       # [B,4,W]
+    u_t = torch.einsum("bkw,kw->bw", full[..., span],
+                       p["conv_w"].to(u.dtype)) + p["conv_b"].to(u.dtype)
+    a, b = _gates(p, u_t)                                     # [B,|span|]
+    mine = slice(own.start - span.start, own.stop - span.start)
+    h = a[:, mine] * h_prev + b[:, mine]
+    g = torch.matmul(x, params["w_gate"][..., own].to(x.dtype))
+    y = (h.to(x.dtype) * layers.gelu(g[:, 0]))[:, None, :]
+    y = torch.matmul(y, params["wo"][own].to(x.dtype))
+    return tp.reduce_from(y, cut.group), h, full[:, 1:]

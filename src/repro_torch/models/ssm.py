@@ -15,6 +15,13 @@ The scan takes f32 ``xh·dt``, ``log_a``, ``B`` and ``C`` and returns f32
 kernel call instead of scanning twice. The decode state (``init_ssd_cache``)
 is f32 whatever the model dtype: the SSM state and the last K-1 pre-conv
 inputs.
+
+The mixer's weights are replicated on every rank (``parallel.sharding``),
+so under sequence parallelism it gathers the sequence and computes whole
+(``parallel.tp.enter_whole``). A decode state whose heads are cut over a
+group (``cache_pspecs`` under ``shard_seq``: the data axes) steps this
+rank's heads, and the out projection's rows of them are summed over the
+group (:func:`ssd_decode_step`'s ``cut``).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
+from repro_torch.parallel import tp
 
 
 def init_ssd_params(gen, cfg, n: int, device) -> dict:
@@ -85,6 +93,7 @@ def ssd_sequence(params, cfg, x):
     padding is)."""
     DI, N, H, P = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     K = params["conv_w"].shape[0]
+    x = tp.enter_whole(x)
     z, xBC, dt = _split_proj(params, cfg, x)
     conv_buf = F.pad(xBC, (0, 0, K - 1, 0))[:, -(K - 1):].float()
     xBCc = layers.silu(_causal_conv(xBC, params["conv_w"].to(x.dtype),
@@ -98,7 +107,7 @@ def ssd_sequence(params, cfg, x):
                         Cm.float().contiguous(), cfg.ssm_chunk)
     y = y + params["D"][None, None, :, None] * xh.float()
     y = y.reshape(*x.shape[:2], DI).to(x.dtype)
-    return _out(params, cfg, y, z, x), state, conv_buf
+    return tp.leave_whole(_out(params, cfg, y, z, x)), state, conv_buf
 
 
 def ssd_mixer(params, cfg, x):
@@ -119,11 +128,17 @@ def init_ssd_cache(cfg, batch: int, n_layers: int, device=None) -> dict:
     }
 
 
-def ssd_decode_step(params, cfg, x, state, conv_buf):
+def ssd_decode_step(params, cfg, x, state, conv_buf, *, cut=None):
     """One token. x: [B,1,D]; state: [B,H,P,N]; conv_buf: [B,K-1,C].
 
     Returns (y [B,1,D], state, conv_buf) — new tensors; the caller stores
-    them."""
+    them. ``cut`` (``parallel.tp.cache_cut``): ``state`` holds this rank's
+    block of the heads; the projections, the conv buffer and the norm's
+    statistics stay whole (the sum of squares of each block all-gathered
+    and added in order), this rank's heads step, and its rows of the out
+    projection are summed over ``cut.group``."""
+    if cut is not None and cut.n > 1:
+        return _decode_heads(params, cfg, x, state, conv_buf, cut)
     DI, N, H, P = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     z, xBC, dt = _split_proj(params, cfg, x)                        # [B,1,*]
     full = torch.cat([conv_buf, xBC.to(conv_buf.dtype)], dim=1)     # [B,K,C]
@@ -141,3 +156,34 @@ def ssd_decode_step(params, cfg, x, state, conv_buf):
     y = y + params["D"][None, :, None] * xh
     y = y.reshape(-1, 1, DI).to(x.dtype)
     return _out(params, cfg, y, z, x), state, full[:, 1:]
+
+
+def _decode_heads(params, cfg, x, state, conv_buf, cut):
+    """:func:`ssd_decode_step` with the state's heads cut: block
+    ``cut.j`` of ``cut.n``."""
+    DI, N, H, P = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    hs = cut.rows(H)
+    ch = slice(hs.start * P, hs.stop * P)           # their d_inner channels
+    z, xBC, dt = _split_proj(params, cfg, x)                        # [B,1,*]
+    full = torch.cat([conv_buf, xBC.to(conv_buf.dtype)], dim=1)     # [B,K,C]
+    w = params["conv_w"].to(x.dtype)
+    conv_out = torch.einsum("bkc,kc->bc", full.to(x.dtype), w) \
+        + params["conv_b"].to(x.dtype)
+    xc, Bm, Cm = torch.split(layers.silu(conv_out), [DI, N, N], dim=-1)
+    dt = F.softplus(dt[:, 0, hs].float() + params["dt_bias"][hs])   # [B,h]
+    a = torch.exp(dt * -torch.exp(params["A_log"][hs]))
+    xh = xc[:, ch].reshape(-1, hs.stop - hs.start, P).float()
+    dBx = torch.einsum("bn,bhp,bh->bhpn", Bm.float(), xh, dt)
+    state = state * a[:, :, None, None] + dBx
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), state)
+    y = y + params["D"][hs][None, :, None] * xh
+    y = y.reshape(-1, 1, ch.stop - ch.start).to(x.dtype)
+    # the gated RMSNorm over all of d_inner: the blocks' sums of squares
+    yz = (y * layers.silu(z[..., ch])).float()
+    ss = tp.all_gather_cat(yz.square().sum(-1, keepdim=True)[None],
+                           cut.group)
+    var = ss.sum(0) / DI
+    yn = (yz * torch.rsqrt(var + cfg.norm_eps)
+          * (1.0 + params["norm_scale"][ch].float())).to(x.dtype)
+    out = torch.matmul(yn, params["out_proj"][ch].to(x.dtype))
+    return tp.reduce_from(out, cut.group), state, full[:, 1:]

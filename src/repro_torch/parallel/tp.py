@@ -23,8 +23,30 @@ gradient of a replicated output m times.
 :func:`argmax` is the greedy token over vocab-sharded logits: each rank's
 max and (global) argmax, gathered; ties go to the lowest global index, as
 ``torch.argmax`` gives them on the whole row.
+
+Sequence parallelism (Megatron's, JAX's ``hidden`` rule at S >= 2048:
+``parallel.activation.seq_sharded``). Inside :func:`seq_split` the
+residual stream between blocks is this rank's ``S/m`` rows. A partial
+block enters through :func:`gather_seq` (all-gather along S; backward
+reduce-scatter) in place of :func:`copy_to`, and leaves through
+:func:`scatter_seq` (reduce-scatter; backward all-gather) in place of
+:func:`reduce_from` — the same wire as the all-reduce they replace. A
+whole block gathers the sequence (backward: its slice, since every rank
+computes the whole gradient) and leaves through :func:`split_seq` (its
+rows; backward all-gather). :func:`enter`, :func:`leave`,
+:func:`enter_whole` and :func:`leave_whole` pick the pair; outside
+:func:`seq_split` they are the plain TP edges.
+
+A decode cache cut into sequence blocks (``parallel.sharding.cache_pspecs``
+under ``parallel.activation.use(..., cache_specs=)``, :func:`cache_cut`):
+each rank attends its block and :func:`combine_partials` joins the
+blocks' results from their log-sum-exps, in a fixed order, after an
+all-gather (:func:`combine_blocks`), so every rank gets the same bits.
 """
 from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,7 +56,10 @@ from repro_torch.parallel import activation as act
 
 __all__ = ["active", "block_mode", "gather_cut", "copy_to", "reduce_from",
            "gather", "argmax", "all_gather_cat", "gather_tree",
-           "gather_fsdp"]
+           "gather_fsdp", "seq_split", "gather_seq", "scatter_seq",
+           "split_seq", "enter", "leave", "enter_whole", "leave_whole",
+           "seq_replicated", "Block", "cache_cut", "combine_partials",
+           "combine_blocks"]
 
 
 def active():
@@ -235,3 +260,193 @@ def gather_fsdp(tree, specs, mesh):
                 leaf = all_gather_cat(leaf, group, d)
         out[key] = leaf
     return unflatten(tree, out)
+
+
+# ------------------------------------------------------ sequence parallelism
+_SEQ = False            # inside seq_split(True): the stream is cut along S
+
+
+@contextlib.contextmanager
+def seq_split(on: bool):
+    """The residual stream is this rank's S/m rows (``on``) for the block's
+    duration. Blocks enter it inside their own (rematerialised) function,
+    with ``on`` taken at the forward, so a recompute takes the same path."""
+    global _SEQ
+    prev, _SEQ = _SEQ, bool(on)
+    try:
+        yield
+    finally:
+        _SEQ = prev
+
+
+def _reduce_scatter(y: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    parts = [p.contiguous() for p in y.chunk(n, dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, partial):
+        ctx.group, ctx.partial = group, partial
+        return all_gather_cat(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        if ctx.partial:
+            return _reduce_scatter(g, ctx.group, 1), None, None
+        return _slice(g, 1, n, dist.get_rank(ctx.group)), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        ctx.group = group
+        return _reduce_scatter(y, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g, ctx.group, 1), None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        ctx.group = group
+        return _slice(y, 1, dist.get_world_size(group),
+                      dist.get_rank(group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g, ctx.group, 1), None
+
+
+def gather_seq(x: torch.Tensor, *, partial: bool = True) -> torch.Tensor:
+    """``x [B, S/m, ...]`` of every model rank, concatenated along S in rank
+    order. Backward: the gradient summed over the group, this rank's rows
+    (``partial``: the consumer computes a partial result), or only this
+    rank's rows (a whole consumer: every rank holds the whole gradient)."""
+    group = _group()
+    return (_GatherSeq.apply(x, group, partial) if _graph(x)
+            else all_gather_cat(x, group, 1))
+
+
+def scatter_seq(y: torch.Tensor) -> torch.Tensor:
+    """This rank's S/m rows of the sum over the model group of ``y [B, S,
+    ...]`` (reduce-scatter); backward all-gather."""
+    group = _group()
+    return (_ScatterSeq.apply(y, group) if _graph(y)
+            else _reduce_scatter(y, group, 1))
+
+
+def split_seq(y: torch.Tensor) -> torch.Tensor:
+    """This rank's S/m rows of ``y [B, S, ...]``, which every rank holds
+    whole; backward all-gather."""
+    group = _group()
+    if _graph(y):
+        return _SplitSeq.apply(y, group)
+    return _slice(y, 1, dist.get_world_size(group), dist.get_rank(group))
+
+
+def enter(x: torch.Tensor) -> torch.Tensor:
+    """Entry of a partial block: :func:`gather_seq` inside
+    :func:`seq_split`, else :func:`copy_to`."""
+    return gather_seq(x) if _SEQ else copy_to(x)
+
+
+def leave(y: torch.Tensor, group=None) -> torch.Tensor:
+    """Exit of a partial block: :func:`scatter_seq` inside
+    :func:`seq_split`, else :func:`reduce_from` (over ``group``)."""
+    return scatter_seq(y) if _SEQ else reduce_from(y, group)
+
+
+def enter_whole(x: torch.Tensor) -> torch.Tensor:
+    """Entry of a block every rank computes whole."""
+    return gather_seq(x, partial=False) if _SEQ else x
+
+
+def leave_whole(y: torch.Tensor) -> torch.Tensor:
+    """Exit of a block every rank computes whole."""
+    return split_seq(y) if _SEQ else y
+
+
+def seq_replicated(tree):
+    """A replicated leaf (a norm's scale) applied to this rank's rows:
+    inside :func:`seq_split` marked with :func:`copy_to`, so its gradient
+    sums every rank's rows; else as it is."""
+    if not _SEQ:
+        return tree
+    if isinstance(tree, dict):
+        return {k: seq_replicated(v) for k, v in tree.items()}
+    return copy_to(tree)
+
+
+# ------------------------------------------------- sequence-cut decode caches
+class Block(NamedTuple):
+    """Block ``j`` of ``n`` of a cache axis, cut over ``group`` (None and
+    n = 1: the axis is whole on this rank)."""
+    group: Optional[object]
+    n: int
+    j: int
+
+    def rows(self, width: int) -> slice:
+        """This block's slice of a whole axis of ``width``."""
+        w = width // self.n
+        return slice(self.j * w, (self.j + 1) * w)
+
+    def whole(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` (this rank's block along ``dim``) gathered whole."""
+        return x if self.n == 1 else all_gather_cat(x, self.group, dim)
+
+
+def cache_cut(kind: str, leaf: str) -> Optional[Block]:
+    """How this rank holds axis 2 of ``cache[kind][leaf]`` (the sequence
+    of a KV leaf, the width or heads of a recurrent state): None where the
+    installed policy has no ``cache_specs`` (the serve layout,
+    ``decoder.local_cfg``: KV heads and RG-LRU width cut over "model"),
+    else its :class:`Block` under those specs (the layout of
+    ``sharding.cache_pspecs``: every KV head and the whole width on each
+    rank, axis 2 cut where the specs say)."""
+    from repro_torch.parallel.sharding import axis_size, spec_at
+    pol = act.policy()
+    if pol is None or pol.cache_specs is None:
+        return None
+    spec = spec_at(pol.cache_specs, f"{kind}/{leaf}")
+    axis = spec[2] if len(spec) > 2 else None
+    n = axis_size(pol.mesh, axis)
+    if n == 1:
+        return Block(None, 1, 0)
+    return Block(pol.mesh.group(axis), n, pol.mesh.coord(axis))
+
+
+def combine_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Attention over n blocks of one cache joined from each block's result
+    ``outs [n, B, H, D]`` (f32) and log-sum-exp ``lses [n, B, H]``: with
+    m* = max_i lse_i, out = sum_i e^(lse_i - m*) out_i / sum_i
+    e^(lse_i - m*), the blocks summed in index order. A block with no
+    attended token (lse -inf) has weight 0; a row no block attends gives
+    0."""
+    m = lses.amax(dim=0)                                       # [B, H]
+    finite = torch.isfinite(m)
+    num = torch.zeros_like(outs[0])
+    den = torch.zeros_like(m)
+    for i in range(outs.shape[0]):
+        w = torch.where(torch.isfinite(lses[i]) & finite,
+                        torch.exp(lses[i] - torch.where(finite, m, 0.0)),
+                        0.0)
+        num = num + w[..., None] * outs[i]
+        den = den + w
+    return num / den.clamp_min(1e-30)[..., None]
+
+
+def combine_blocks(out: torch.Tensor, lse: torch.Tensor,
+                   block: Block) -> torch.Tensor:
+    """:func:`combine_partials` over every rank of ``block.group``: this
+    rank's ``out [B, H, D]`` and ``lse [B, H]`` all-gathered (rank order),
+    then joined; every rank gets the same bits."""
+    outs = all_gather_cat(out.float()[None], block.group)
+    lses = all_gather_cat(lse.float()[None], block.group)
+    return combine_partials(outs, lses)

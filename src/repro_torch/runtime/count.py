@@ -305,42 +305,45 @@ def fake_local_batch(specs, mesh):
 
 
 def fake_decode_args(model, mesh, shape, policy, cache_len: int):
-    """(params, their specs, cache, tokens) of one sharded decode step on
-    this rank: its parameter blocks, a cache of its rows and heads (the
-    ``ShardedSlotGroup`` layout: ``decoder.local_cfg``) holding a full
-    ``cache_len`` (position ``cache_len - 1``), its tokens; int8 where
-    ``policy["kv_int8"]``."""
-    from repro_torch.models import decoder
-    from repro_torch.parallel import activation as act
-    from repro_torch.parallel.sharding import param_pspecs
+    """(params, their specs, cache, its specs, tokens) of one sharded
+    decode step on this rank: its parameter blocks, its block of a cache of
+    the shape's global batch holding a full ``cache_len`` (position
+    ``cache_len - 1``), int8 where ``policy["kv_int8"]``, cut by
+    ``parallel.sharding.cache_pspecs`` as JAX lowers it (rows over the data
+    axes, a KV leaf's sequence over "model" where the rule says so, axis 2
+    over the data axes under ``policy["shard_seq"]``), and its tokens."""
+    from repro_torch.parallel.sharding import (cache_pspecs, local_shape,
+                                               param_pspecs, spec_at)
+    from repro_torch.tree import flatten, unflatten
     specs = param_pspecs(model.init(0, "meta"), mesh, fsdp=policy["fsdp"])
     params = fake_local_params(model, mesh, specs)
     tokens = fake_local_batch(model.input_specs(shape), mesh)["tokens"]
-    with act.use(mesh, fsdp=policy["fsdp"]):
-        lcfg = decoder.local_cfg(params, model.cfg)
     kv_dtype = torch.int8 if policy["kv_int8"] else None
-    cache = _init_cache(model, lcfg, tokens.shape[0], cache_len, kv_dtype)
+    whole = model.init_cache(shape.global_batch, cache_len, kv_dtype,
+                             "meta")
+    cspecs = cache_pspecs(whole, mesh, batch=shape.global_batch,
+                          shard_seq=policy["shard_seq"])
+    cache = unflatten(whole, {
+        k: torch.empty(local_shape(tuple(v.shape), spec_at(cspecs, k), mesh),
+                       dtype=v.dtype) if torch.is_tensor(v) else v
+        for k, v in flatten(whole).items()})
     cache["pos"] = cache_len - 1
-    return params, specs, cache, tokens
+    return params, specs, cache, cspecs, tokens
 
 
-def _init_cache(model, lcfg, batch: int, cache_len: int, kv_dtype):
-    from repro_torch.models import decoder, encdec
-    mod = encdec if model.cfg.is_encoder_decoder else decoder
-    return mod.init_cache(lcfg, batch, cache_len, kv_dtype, "cpu")
-
-
-def decode_step_fn(model, mesh, policy, specs):
+def decode_step_fn(model, mesh, policy, specs, cache_specs):
     """The sharded decode step a rank runs: ZeRO-3 leaves gathered over
     "data" for the call (as ``ShardedExecutor.compute_params``), then
-    ``steps.make_decode_step`` under the mesh policy."""
+    ``steps.make_decode_step`` under the mesh policy, its cache in the
+    layout of ``cache_specs``."""
     from repro_torch.parallel import activation as act
     from repro_torch.runtime import steps as steps_lib
     step = steps_lib.make_decode_step(model)
 
     def fn(params, cache, tokens):
         params = gathered(params, specs, mesh, policy)
-        with act.use(mesh, fsdp=policy["fsdp"]):
+        with act.use(mesh, fsdp=policy["fsdp"],
+                     shard_seq=policy["shard_seq"], cache_specs=cache_specs):
             return step(params, cache, tokens)
     return fn
 

@@ -1140,8 +1140,9 @@ class PagedExecutor(ModelExecutor):
 # ----------------------------------------------------------------- sharded
 _ROADMAP_STRUCTURAL = (
     "structural sharded buckets (per-bucket layouts placed on the mesh) "
-    "are ROADMAP item 16b, and JAX refuses them too — use LocalExecutor "
-    "for structural serving")
+    "are refused, as JAX's ShardedExecutor refuses them (ROADMAP: the "
+    "refusals that are JAX's own) — use LocalExecutor for structural "
+    "serving")
 
 
 def _digest(*parts) -> int:
@@ -1273,9 +1274,6 @@ class ShardedSlotGroup(SlotGroup):
         return toks, None
 
 
-SHARD_SEQ = "shard_seq: sequence parallelism is ROADMAP item 16b"
-
-
 class ShardedExecutor(LocalExecutor):
     """Mesh-resident slot-group execution (DESIGN.md §7 "Sharded
     serving"), explicit SPMD over a :class:`repro_torch.launch.mesh.Mesh`.
@@ -1301,9 +1299,13 @@ class ShardedExecutor(LocalExecutor):
 
     Masked mode only — one gated group per cache length serves every
     keep-mask; structural sharded buckets are refused, as in JAX, and so
-    are ``shard_seq`` (sequence parallelism, ROADMAP item 16b) and a
-    bucketed horizon. ``kv_int8=True`` is read by :meth:`lower_decode`
-    alone, as in JAX; the slot caches' precision is ``kv_dtype``."""
+    is a bucketed horizon. ``kv_int8=True`` and ``shard_seq=True`` are read
+    by :meth:`lower_decode` alone, as in JAX (``shard_seq``: a batch the
+    data axes do not divide cuts the decode state's axis 2 over them
+    instead); the slot caches' precision is ``kv_dtype``, and serving is
+    the same either way. A model stream of S >= 2048 positions runs
+    sequence-parallel wherever the model axis divides it
+    (``parallel.activation.seq_sharded``)."""
 
     def __init__(self, model, mesh, *, params=None, fsdp: bool = False,
                  shard_seq: bool = False, kv_int8: bool = False,
@@ -1312,10 +1314,8 @@ class ShardedExecutor(LocalExecutor):
             raise NotImplementedError(
                 f"sharded serving is masked-mode only (got {mode!r}); "
                 + _ROADMAP_STRUCTURAL)
-        if shard_seq:
-            raise NotImplementedError(SHARD_SEQ)
         self.mesh = mesh
-        self.policy = {"fsdp": bool(fsdp), "shard_seq": False,
+        self.policy = {"fsdp": bool(fsdp), "shard_seq": bool(shard_seq),
                        "kv_int8": bool(kv_int8)}
         self.model = model
         self._specs = None
@@ -1348,7 +1348,8 @@ class ShardedExecutor(LocalExecutor):
     def context(self):
         """The mesh policy the model code runs under."""
         from repro_torch.parallel import activation as act
-        return act.use(self.mesh, fsdp=self.policy["fsdp"])
+        return act.use(self.mesh, fsdp=self.policy["fsdp"],
+                       shard_seq=self.policy["shard_seq"])
 
     def compute_params(self):
         """The parameters a call computes with: the placed blocks, with
@@ -1368,16 +1369,18 @@ class ShardedExecutor(LocalExecutor):
         nothing, so the step runs once on fake tensors of this rank's
         blocks under ``runtime.count.count_step`` (``memory``, ``cost``,
         ``collectives``, ``kernels``); the cache is int8 under
-        ``kv_int8``. Needs no ``params``."""
+        ``kv_int8`` and cut as JAX lowers it, by
+        ``parallel.sharding.cache_pspecs`` (``shard_seq`` from the policy).
+        Needs no ``params``."""
         from torch._subclasses.fake_tensor import FakeTensorMode
 
         from repro_torch.runtime import count
         with FakeTensorMode():
-            params, specs, cache, tokens = count.fake_decode_args(
+            params, specs, cache, cspecs, tokens = count.fake_decode_args(
                 self.model, self.mesh, shape, self.policy, shape.seq_len)
             counted = count.count_step(
                 count.decode_step_fn(self.model, self.mesh, self.policy,
-                                     specs), params, cache, tokens)
+                                     specs, cspecs), params, cache, tokens)
         return {"shape": shape.name, "n_devices": int(self.mesh.size),
                 "mesh": dict(self.mesh.shape), "policy": dict(self.policy),
                 **counted}

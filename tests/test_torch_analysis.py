@@ -19,9 +19,12 @@ the RAP sweep, the roofline) against the JAX package's, with no card.
   layer;
 * a full-width cell on the 16 x 16 fake world has the per-rank argument
   bytes JAX's rules give (computed as ``test_torch_sharding.py`` does);
-* ``lower_decode(kv_int8=True)`` counts an int8 cache; the sweep's memory
-  term falls with ``keep``; a ``long_500k`` cell records an error naming
-  item 16b;
+* ``lower_decode(kv_int8=True)`` counts an int8 cache; ``lower_decode``'s
+  cache is cut by JAX's ``cache_pspecs`` (the sequence over "model";
+  under ``shard_seq`` the ring, width and SSD heads over the data axes);
+  the qwen1.5-32b and qwen3-14b ``decode_32k`` cells fit a card; the
+  sweep's memory term falls with ``keep``; a ``long_500k`` cell gives a
+  record;
 * ``fake_world`` leaves no process group and refuses to nest;
   ``ops.analysis`` raises on a real tensor and leaves ``launch_counts()``;
 * each kernel's ``cost()`` gives PERF.md's bound column at the timed
@@ -401,6 +404,66 @@ def test_lower_decode_counts_an_int8_cache():
         recs[False]["cost"]["bytes_accessed"]
 
 
+@pytest.mark.parametrize("arch,B,mesh_shape,seq", [
+    ("llama2-7b", 4, (2, 4), False),            # sequence over "model"
+    ("qwen1.5-32b", 4, (1, 4), False),
+    ("recurrentgemma-9b", 1, (4, 2), True),     # ring and width over data
+    ("mamba2-370m", 1, (4, 1), True)])          # SSD heads over data
+def test_lower_decode_cuts_the_cache_by_cache_pspecs(arch, B, mesh_shape,
+                                                     seq):
+    """``lower_decode``'s cache: each leaf this rank's block under JAX's
+    ``cache_pspecs`` (of JAX's cache), so its argument bytes are the
+    parameter blocks, those blocks and the tokens."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.parallel.sharding import local_shape
+    from repro_torch.runtime.executor import ShardedExecutor
+    S = 512
+    cfg = get_smoke_config(arch)
+    model = registry.build(cfg)
+    shape = ShapeConfig("t", S, B, "decode")
+    axes = ("data", "model")
+    with fake_world(math.prod(mesh_shape)):
+        mesh = Mesh(mesh_shape, axes)
+        policy = {"fsdp": False, "kv_int8": False, "shard_seq": seq}
+        with FakeTensorMode():
+            params, _, cache, _, tokens = count.fake_decode_args(
+                model, mesh, shape, policy, S)
+            shapes = {k: (tuple(v.shape), v.numel() * v.element_size())
+                      for k, v in flatten({"p": params, "c": cache,
+                                           "t": tokens}).items()
+                      if torch.is_tensor(v)}
+        rec = ShardedExecutor(model, mesh, shard_seq=seq).lower_decode(shape)
+    assert not dist.is_initialized()
+    jm = jreg.build(jcfg.get_smoke_config(arch))
+    jc = jax.eval_shape(lambda: jm.init_cache(B, S))
+    jspecs = _flat_specs(jsh.cache_pspecs(
+        jc, _Mesh(dict(zip(axes, mesh_shape))), batch=B, shard_seq=seq))
+    cut = 0
+    for k, leaf in _flat_specs(jc).items():
+        if k == "pos":
+            continue
+        want = local_shape(tuple(leaf.shape), tuple(jspecs[k]), mesh)
+        assert shapes["c/" + k][0] == want, k
+        cut += want != tuple(leaf.shape)
+    assert cut > 0
+    assert rec["memory"]["argument_bytes"] == sum(n for _, n in
+                                                  shapes.values())
+    assert rec["policy"]["shard_seq"] == seq
+
+
+@pytest.mark.parametrize("arch,limit", [("qwen1.5-32b", 80e9),
+                                        ("qwen3-14b", 10e9)])
+def test_decode_32k_fits_a_card(arch, limit):
+    """The production decode cells on the 16 x 16 fake world, their KV
+    sequence cut over "model" as JAX lowers them: each rank's peak under
+    an 80 GB card (qwen3-14b under 10 GB)."""
+    rec = dryrun.lower_cell(arch, "decode_32k")
+    assert rec["memory"]["real_bytes"] < limit
+    assert rec["kernels"]["decode_attention"]["calls"] == \
+        get_config(arch).n_layers
+
+
 def test_sweep_memory_term_falls_with_keep(tmp_path, capsys):
     from repro_torch.launch import rap_sweep
     rows = rap_sweep.sweep("gemma-2b", ShapeConfig("t", 1024, 16, "decode"),
@@ -415,10 +478,13 @@ def test_sweep_memory_term_falls_with_keep(tmp_path, capsys):
 
 
 def test_long_context_cell_names_sequence_parallelism(tmp_path):
+    """A ``long_500k`` cell (batch 1: ``shard_seq``) gives a record: the
+    SSD state's heads cut over the data axes."""
     r = dryrun.run_cell("mamba2-370m", "long_500k", False, str(tmp_path))
-    assert "NotImplementedError" in r["error"] and "16b" in r["error"]
+    assert "error" not in r and r["policy"]["shard_seq"]
     assert json.loads((tmp_path / "mamba2-370m_long_500k_pod1.json")
-                      .read_text())["error"] == r["error"]
+                      .read_text())["memory"] == r["memory"]
+    assert r["memory"]["real_bytes"] < 80e9
     skip = dryrun.run_cell("gemma-2b", "long_500k", False, str(tmp_path))
     assert skip["skipped"]
 

@@ -10,8 +10,9 @@ t = 0, budget shocks counted in ticks, so no trace depends on timing):
 
 * (1, 1), in this process: parameters placed without a copy, a trace bitwise the
   ``LocalExecutor``'s, ``mesh_devices`` 1, JAX's refusals (structural
-  mode, no ``params=``, a bucketed horizon) and ``shard_seq``'s;
-  ``kv_int8=True`` accepted (``lower_decode`` alone reads it);
+  mode, no ``params=``, a bucketed horizon); ``kv_int8=True`` and
+  ``shard_seq=True`` accepted (``lower_decode`` alone reads them: the
+  ``shard_seq`` trace is the same, bit for bit);
 * (2, 1), data parallel: RL-policy traces at H ∈ {1, 4, 8} bitwise the
   local one (masks and tokens; the local path's own H-invariance is
   ``test_torch_slot.py``'s); int8
@@ -84,14 +85,16 @@ class _Serve:
                                max_active=slots, kv_dtype=kv_dtype, **kw)
 
     def run(self, mesh, *, policy="rl", horizon=2, kv_dtype=None, chunk=0,
-            shock=None, n=8, max_new=6, log=None, pool=2.5, fsdp=False):
+            shock=None, n=8, max_new=6, log=None, pool=2.5, fsdp=False,
+            shard_seq=False):
         """A masked-mode trace: (results {rid: (status, tokens, mask)},
         preempted count, the executor's stats)."""
         from repro_torch.core.policy import DensePolicy, RLPolicy
         from repro_torch.runtime import (EngineConfig, EngineRequest,
                                          RAPEngine, TickStaircase)
         ex = self.executor(mesh, kv_dtype=kv_dtype,
-                           **({"fsdp": True} if fsdp else {}))
+                           **({"fsdp": True} if fsdp else {}),
+                           **({"shard_seq": True} if shard_seq else {}))
         if log is not None:
             _log_moves(ex, log)
         budget = self.budget(n=pool)
@@ -161,6 +164,7 @@ def _body_11(rank, world, w):
     out["local"], _, _ = s.run(None)
     out["sharded"], _, stats = s.run(mesh)
     out["mesh_devices"] = stats["mesh_devices"]
+    out["shard_seq"], _, _ = s.run(mesh, shard_seq=True)
     # the one-call surfaces: one request, a horizon of 4, both executors
     full = masks.full_mask(L)
     prompt = s.calib["tokens"].numpy()[:1, :16].astype(np.int32)
@@ -230,8 +234,8 @@ def test_one_by_one_refusals(world_11):
     assert r["structural"][0] == "NotImplementedError"
     assert "ROADMAP" in r["structural"][1]
     assert r["params"][0] == "RuntimeError" and "params" in r["params"][1]
-    assert r["shard_seq"][0] == "NotImplementedError"
-    assert "16b" in r["shard_seq"][1]
+    assert r["shard_seq"] is None       # accepted: lower_decode reads it
+    assert world_11["shard_seq"] == world_11["sharded"]   # serving alike
     assert r["kv_int8"] is None         # accepted: lower_decode reads it
     assert r["bucketed"][0] == "NotImplementedError"
     assert "full width" in r["bucketed"][1]
