@@ -696,6 +696,8 @@ def paged_quant_cases(torch, ops, pdec, attention, timed):
 FLASH_TIMED = {"prefill": (8, 256, 32, 32, 128, 0),
                "scoring": (16, 64, 32, 32, 128, 0),
                "recurrentgemma": (8, 264, 16, 1, 256, 2048)}
+# and without the causal mask: whisper-medium's encoder over its 1500 frames
+FLASH_TIMED_NONCAUSAL = {"whisper_encoder": (4, 1500, 16, 16, 64, 0)}
 
 
 def flash_calls(torch, fa, g, B, S, H, K, D, window, dt,
@@ -736,11 +738,19 @@ def flash_timing(torch, fa, g, B, S, H, K, D, window, dt,
 
 def flash_cases(torch, ops, fa):
     """Flash attention at the serves' widths: f32 runs the kernel's FMA
-    body, bf16 and fp16 its tensor-core body (64 x 64 tiles; the small
-    tile-edge cases are in ``tests/test_torch_cuda.py``). Timed at the
-    three ``FLASH_TIMED`` shapes; the prefill shape is the entry's
-    headline, the other two ride as extra keys."""
+    body, bf16 and fp16 its Hopper body (TMA, wgmma; the small tile-edge
+    cases are in ``tests/test_torch_cuda.py``), each call held to its body
+    by the wrapper's per-body launch count. Timed at the three
+    ``FLASH_TIMED`` shapes and whisper's encoder
+    (``FLASH_TIMED_NONCAUSAL``); the prefill shape is the entry's headline,
+    the others ride as extra keys."""
     g = torch.Generator(device="cuda").manual_seed(3)
+    want = {"wgmma": 0, "fma": 0}
+    before = dict(fa.BODY_LAUNCHES)
+
+    def body_of(dt):
+        want["fma" if dt == torch.float32 else "wgmma"] += 1
+
     cases = [(1, 256, 32, 32, 128, 0, 0.0, torch.float32),
              (2, 100, 32, 32, 128, 0, 0.0, torch.float32),     # ragged Sq
              (1, 256, 32, 32, 128, 0, 0.0, torch.bfloat16),
@@ -781,6 +791,7 @@ def flash_cases(torch, ops, fa):
                   f"H=K=16 D=64 {dt}",
                   ops.flash_attention(q, k, v, causal=False),
                   fa.attention_ref(q, k, v, causal=False), dt)
+            body_of(dt)
     for B, S, H, K, D, w, cap, dt in cases:
         q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
         k = torch.randn(B, S, K, D, generator=g, device="cuda").to(dt)
@@ -789,11 +800,17 @@ def flash_cases(torch, ops, fa):
               f"cap={cap} {dt}",
               ops.flash_attention(q, k, v, window=w, softcap=cap),
               fa.attention_ref(q, k, v, window=w, softcap=cap), dt)
+        body_of(dt)
+    got = {b: fa.BODY_LAUNCHES[b] - before[b] for b in before}
+    print(f"  flash launches by body: {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"flash calls ran other bodies than their "
+                             f"dtypes' ({got}, want {want})")
     timed = {name: flash_timing(torch, fa, g, *shape, torch.bfloat16)
              for name, shape in FLASH_TIMED.items()}
-    timed["whisper_encoder"] = flash_timing(torch, fa, g, 4, 1500, 16, 16,
-                                            64, 0, torch.bfloat16,
-                                            causal=False)
+    timed.update({name: flash_timing(torch, fa, g, *shape, torch.bfloat16,
+                                     causal=False)
+                  for name, shape in FLASH_TIMED_NONCAUSAL.items()})
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:97",
@@ -1606,7 +1623,9 @@ def serve_phase(torch, ops, card: str, argv,
     print(f"  serve argv: {' '.join(argv)}"
           + ("" if depth is None else f" (depth cut to {depth} of "
                                       f"{full.n_layers} layers)"))
+    from repro_torch.kernels import flash_attention as fa
     ops.reset_launches()
+    bodies0 = dict(fa.BODY_LAUNCHES)
     torch.cuda.reset_peak_memory_stats()
     get_config = configs.get_config
     configs.get_config = lambda name: want if name == arch else get_config(
@@ -1623,6 +1642,11 @@ def serve_phase(torch, ops, card: str, argv,
     if cfg != want:
         raise AssertionError(f"not {arch} at full width and depth "
                              f"{want.n_layers}: {cfg}")
+    bodies = {b: fa.BODY_LAUNCHES[b] - bodies0[b] for b in bodies0}
+    half = cfg.dtype in ("bfloat16", "float16")
+    if bodies[("wgmma" if half else "fma")] != counts["flash_attention"]:
+        raise AssertionError(f"flash launches {counts['flash_attention']} "
+                             f"not all on the {cfg.dtype} body: {bodies}")
     L = cfg.n_layers
     done = [r for r in rep.results if r.status == "done"]
     pruned = [r for r in done if r.mask.sum() < 2 * L]
@@ -1642,7 +1666,7 @@ def serve_phase(torch, ops, card: str, argv,
           f"{kv_dtype}, peak "
           f"{pool['peak_reserved_bytes'] / 1e9:.3f} of "
           f"{pool['capacity_bytes'] / 1e9:.3f} GB")
-    print(f"  launches during serve: {counts}")
+    print(f"  launches during serve: {counts}; flash by body {bodies}")
     if (len(done) != len(rep.results) or not pruned
             or pool["overcommit_events"] != 0
             or pool["peak_reserved_bytes"] > pool["capacity_bytes"]):

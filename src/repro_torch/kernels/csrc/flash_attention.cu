@@ -1,62 +1,96 @@
-// Causal flash attention for prefill: q [B,Sq,H,D], k/v [B,Skv,K,D].
+// Flash attention for prefill, scoring and encoders: q [B,Sq,H,D], k/v
+// [B,Skv,K,D], causal (top-left aligned: kpos <= qpos) or not.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention. Query head h reads
 // kv head h / G (G = H / K) by index; KV is never replicated. Optional band
-// (`window` > 0: key kpos is kept when qpos - window < kpos <= qpos) and
-// tanh softcap, both on the f32 scores; scale 1/sqrt(D); masked keys get
-// p = 0 exactly; output acc / max(l, 1e-30) in q's dtype, so a row with no
-// unmasked key gives 0.
+// (`window` > 0: key kpos is kept when kpos > qpos - window) and tanh
+// softcap, both on the f32 scores; the scale comes from the caller
+// (1/sqrt(D) of the unpadded D); masked keys get p = 0 exactly; output
+// acc / max(l, 1e-30) in q's dtype, so a row with no kept key gives 0. No
+// atomics and no split over keys: two launches give the same bits.
 //
-// Bound on the H100: at the serving shapes (prefill B=8, S=256, H=32,
-// D=128; GSI scoring B=16, S=64) the causal work is 4*D flops per kept
-// (query, key) pair and head, 4.31 GFLOP at the prefill shape (4.4 us at
-// 989 TFLOP/s bf16), against 67.1 MB of q, k, v and out (20 us at 3.35
-// TB/s): the bytes bound it.
+// Bound on the H100 (4*D operations per kept (query, key) pair and head;
+// q, k, v and out each moved once): llama2-7b's prefill (B=8, S=256,
+// H=K=32, D=128, causal) 0.0200 ms and GSI scoring (B=16, S=64) 0.0100 ms,
+// recurrentgemma-9b's local attention (B=8, S=264, H=16, K=1, D=256)
+// 0.0110 ms, all by bytes; whisper-medium's encoder (B=4, 1500 x 1500,
+// H=K=16, D=64, non-causal) 0.0373 ms by operations.
 //
 // Two bodies, chosen by dtype in rap_flash_attention:
 //
-// bf16 / fp16: FlashAttention-2 on the warp-level tensor cores. One CTA of
-// 4 warps per (64-row q tile, head, batch), each warp owning 16 query
-// rows. 64-row tiles rather than 128 on 8 warps: the prefill shape still
-// gives 1024 CTAs and the scoring shape 512 over 132 SMs, and at DT = 128
-// a 4-warp CTA's registers and 80 KB of shared memory let two CTAs share
-// an SM (8 warps of 128 rows would hold one). Templated over the padded
-// head width DT in {64, 128, 256}: columns D..DT-1 are zero in shared
-// memory, add nothing to q.k and are never stored. The Q tile is loaded
-// once; K and V tiles of 64 keys go through a two-stage ring in shared
-// memory filled with 16-byte cp.async.cg (rows past Skv zero-filled with
-// src-size 0), K and V as separate groups: tile j+1's K loads while tile j
-// computes S, its V while tile j computes P.V, and tile j's V may still be
-// landing while its S is computed. Where D % 8 != 0 (or a pointer is not
-// 16-byte aligned) the same ring is filled by a plain element loader.
-// Shared rows are XOR-swizzled in 16-byte chunks (chunk ^ (row & 7)) so
-// every ldmatrix is free of bank conflicts. S = Q.K^T runs on mma.sync
-// m16n8k16 with f32 accumulation (Q A-fragments held in registers for
-// DT <= 128, re-read by ldmatrix for each KV tile at DT = 256, where the
-// f32 O accumulator alone takes 128 registers a thread). Scale, softcap
-// and masks apply to the f32 scores, the masks only on tiles that
-// straddle the diagonal, the band's edge or the ragged KV edge. The
-// online softmax keeps m and l in f32 (l sums the f32 p; a row lives in
-// one quad, so its max is two shuffles). P is rounded to T in registers
-// and fed to O += P.V as the A operand (the accumulator layout of
-// m16n8k16 is its A layout), with V read by ldmatrix.trans. Rounding P to
-// bf16 before P.V is what the plain version and the JAX reference do; the
-// FMA kernel that ran bf16 before this body kept f32 probabilities and
-// rounded only the output. KV tiles run from the band's left edge to the
-// causal diagonal (tiles above it are never loaded), and the longest
-// causal q tiles are handed out first so the last wave is short. Each
-// warp writes its normalised rows into its own Q rows of shared memory,
-// then out in 16-byte row chunks.
+// bf16 / fp16: FlashAttention-3's shape on Hopper's own instructions (the
+// helpers in hopper.cuh). One CTA per (q tile, head, batch): one or two
+// consumer warpgroups of 64 query rows each and a producer warp, one
+// thread of which issues every load. It loads the CTA's Q tile once and
+// K and V tiles into a two-stage ring, by TMA from tensor maps built on
+// the host for each call (4-D, innermost first: D, heads, S, B; boxes of
+// 64 columns by 64 or BK rows with the 128-byte swizzle: one box at
+// D <= 64, two at 128, four at 256; rows past Sq and Skv and columns past
+// D arrive as zeros and are masked or never stored). K and V of a stage
+// have a full mbarrier each (TMA transaction bytes) and an empty one (one
+// arrival per consumer warp after the wgmma that read the stage has been
+// waited on). A consumer warpgroup computes S = Q.K^T with wgmma
+// m64nBKk16, both operands K-major from swizzled shared memory through
+// descriptors; the online softmax runs on the f32 accumulators (a row's
+// scores sit in one quad; one FFMA and one ex2 a score; masks only on
+// tiles that straddle the ragged edge, the causal diagonal or the band's
+// edge); P is rounded to T in registers and is wgmma's register A operand
+// for O += P.V, V read MN-major (transposed) from the same swizzled tiles.
+// The sections are straight-line so that ptxas can follow every wgmma
+// group: tile j's Q.K^T is issued with tile j - 1's P.V, and tile j's
+// softmax runs while that P.V computes; two warpgroups take turns at
+// issuing (named barriers, FlashAttention-3's ping-pong), so one's
+// softmax overlaps the other's products. Every warpgroup runs every KV
+// tile of its CTA, the masks zeroing what its rows do not keep (a
+// per-warpgroup skip put the wgmma under conditions, and ptxas then
+// serialised them). KV tiles run from the band's left edge to the causal
+// diagonal (tiles above it are never loaded), and the longest causal q
+// tiles are handed out first so the last wave is short. Each warpgroup
+// writes its normalised rows into its own Q tile (swizzled as TMA reads
+// it) and stores them by TMA.
+//
+// Registers: ptxas gives a block of 288 threads at most 168 registers a
+// thread (what 65536 / 384 allows, as for three warpgroups). setmaxnreg
+// cannot raise that here: with a producer warpgroup (384 threads, 24 /
+// 240 registers, the warpgroup index made warp-uniform) ptxas 12.9 still
+// compiled the consumers within 168 (at D = 256 it spilled 528 bytes and
+// serialised wgmma for want of registers), and beside a producer warp the
+// consumers' increase would wait on registers that the 168-register pool
+// of a 288-thread block does not hold. So the tiles are sized to fit
+// instead (the static plan, kernels/flash_attention.py::plan,
+// checked here): 128 query rows (two consumer warpgroups) where Sq > 64
+// and D <= 128, else 64 rows (one); KV tiles of 128 keys at D <= 64 (O,
+// S and P take 32 + 64 + 32 registers) and of 64 above (64 + 32 + 16 at
+// D = 128; at D = 256 O alone is 128, and one warpgroup of 160 threads
+// gets 212). Shared memory (Q, two stages of K and V, barriers): 74.8 KB
+// (D <= 64, one warpgroup) to 164.9 KB (D = 256); two CTAs share an SM
+// with one warpgroup at D <= 128, one does otherwise. The body takes
+// D % 8 == 0 and 16-byte aligned tensors (TMA's rule); the wrapper pads D
+// and copies a misaligned or strided view, so every bf16/fp16 call runs
+// here. The tensor maps come from the CUDA driver's cuTensorMapEncodeTiled,
+// reached through the runtime's driver entry point (so the library links
+// against the runtime alone); one encode takes 91-95 ns, four a call.
+//
+// Measured (tools/time_flash_kernel.py, A B B A against PR 16's mma.sync
+// body in one call; NVIDIA H100 80GB HBM3, 700.00 W; device-only ms, sdpa
+// and the share of the bound beside): prefill 0.0437-0.0448 (PR 16
+// 0.0540-0.0557; sdpa 0.0361-0.0365; 45-46%), scoring 0.0221-0.0223
+// (0.0242-0.0244; 0.0241-0.0244; 45%), recurrentgemma 0.0414-0.0467
+// (0.0742-0.0745; 0.0420-0.0426; 24-27%), whisper's encoder 0.1129-0.1144
+// (0.2682-0.2783; 0.1109-0.1145; 33%). The prefill stays behind sdpa: one
+// 288-thread CTA an SM (the register cap), so each CTA's first loads and
+// its epilogue are exposed over four waves, and both warpgroups run the
+// diagonal tiles in full; 64-row tiles (two CTAs an SM) timed no better.
+// -Xptxas -v: 138 registers at D = 128, 154 at D <= 64, 212 at D = 256;
+// no spills, no serialised wgmma.
 //
 // f32: the first port's body, kept as it was: 32x32 shared-memory tiles on
 // f32 FMA, one query row per four threads. The f32 models' card-vs-CPU
 // reference and the 1e-4 tolerance rest on full-f32 products; TF32 keeps
 // about three digits, and no serve runs f32.
-//
-// A later change would add TMA loads, wgmma on 64-row warpgroups and warp
-// specialisation (a producer warp keeping the ring full).
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <stdint.h>
 #include <type_traits>
@@ -191,124 +225,83 @@ static int launch(const void* q, const void* k, const void* v, void* out,
 
 
 // ------------------------------------------------------ bf16 / fp16 body
-namespace tc {
+namespace wg {
 
-constexpr int kBQ = 64;        // q rows per CTA: 4 warps x 16
-constexpr int kBK = 64;        // keys per KV tile
-constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kBQ == kBK, "load_tile fills the 64-row tiles of Q, K and V");
 
-// element offset of (row, col) in a [rows][DT] tile whose 16-byte chunks
-// are XOR-swizzled by the row's low three bits
-template <int DT>
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * DT + (((col >> 3) ^ (row & 7)) << 3) + (col & 7);
-}
+// One instantiation's tiles: kWG consumer warpgroups of 64 query rows, KV
+// tiles of BK keys in a ring of kStages, DT the head width padded to a
+// whole number of 64-column boxes. Mirrored by
+// kernels/flash_attention.py::plan.
+template <int DT, int kWG>
+struct Tiles {
+  static constexpr int BQ = 64 * kWG;
+  static constexpr int BK = DT == 64 ? 128 : 64;
+  static constexpr int kStages = 2;
+  static constexpr int kBoxes = DT / 64;
+  // consumer warpgroups and one producer warp
+  static constexpr int kThreads = 128 * kWG + 32;
+  // two CTAs an SM where shared memory allows (D <= 128, one warpgroup)
+  static constexpr int kMinBlocks = (kWG == 1 && DT <= 128) ? 2 : 1;
+  // registers a thread: ptxas holds a block of 288 to 168 (as it would a
+  // block of three warpgroups), which the tiles fit: O, S and P take 64 +
+  // 32 + 16 at D = 128 and 32 + 64 + 32 at D = 64. At D = 256 (one
+  // warpgroup, 160 threads) O alone is 128 and the kernel takes 202.
+  static constexpr int kQBytes = BQ * DT * 2;
+  static constexpr int kKVBytes = BK * DT * 2;  // one stage of K or of V
+  static constexpr int kBars = 1 + 4 * kStages;
+  // 1024 bytes to align the tiles for the 128-byte swizzle
+  static constexpr int kSmem =
+      1024 + kQBytes + 2 * kStages * kKVBytes + 8 * kBars;
+};
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
+// named barriers: 1 + w for warpgroup w's epilogue, kSchedBar + w for the
+// turn of warpgroup w at the tensor cores (0 is __syncthreads)
+constexpr int kSchedBar = 3;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), f32 accumulators
-template <typename T>
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two f32 rounded to T, the first in the low half
 template <typename T>
-__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<unsigned*>(&v);
+    return *reinterpret_cast<uint32_t*>(&v);
   } else {
     __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<unsigned*>(&v);
+    return *reinterpret_cast<uint32_t*>(&v);
   }
 }
 
-// rows [row0, row0 + 64) of a [*, stride] tensor (row n valid when n <
-// nrows, column d when d < D) into a swizzled [64][DT] tile, zero-filled
-template <typename T, int DT>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int nrows, long long stride, int D,
-                                          bool vec, int tid) {
-  if (vec) {  // D % 8 == 0 and 16-byte aligned rows: cp.async per chunk
-    constexpr int CH = DT / 8;
-#pragma unroll
-    for (int i = tid; i < kBK * CH; i += kThreads) {
-      const int r = i / CH, c = i % CH;
-      const bool ok = row0 + r < nrows && c * 8 < D;
-      const T* g = ok ? src + (long long)(row0 + r) * stride + c * 8 : src;
-      cp_async16(dst + r * DT + ((c ^ (r & 7)) << 3), g, ok);
-    }
-  } else {
-    for (int i = tid; i < kBK * DT; i += kThreads) {
-      const int r = i / DT, d = i % DT;
-      T x = from_f32<T>(0.f);
-      if (row0 + r < nrows && d < D) x = src[(long long)(row0 + r) * stride + d];
-      dst[swz<DT>(r, d)] = x;
-    }
-  }
-}
-
-template <typename T, int DT>
-__global__ void __launch_bounds__(kThreads)
-flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ out, int B, int Sq,
-                int Skv, int H, int K, int D, float scale, float softcap,
-                int causal, int window, int nq, int vec) {
-  constexpr bool kHoldQ = DT <= 128;
-  constexpr int NT = kBK / 8;    // n-tiles of S per warp
-  constexpr int DTILES = DT / 8; // n-tiles of O per warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);  // [kBQ][DT]
-  T* Ks = Qs + kBQ * DT;               // [2][kBK][DT]
-  T* Vs = Ks + 2 * kBK * DT;           // [2][kBK][DT]
+template <typename T, int DT, int kWG>
+__global__ void __launch_bounds__(Tiles<DT, kWG>::kThreads,
+                                  Tiles<DT, kWG>::kMinBlocks)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_o, int B, int Sq,
+                   int Skv, int H, int K, float scale, float softcap,
+                   int causal, int window, int nq) {
+  using C = Tiles<DT, kWG>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::kStages, NB = C::kBoxes;
+  constexpr int NT = BK / 8;      // n8 blocks of S a thread holds
+  constexpr int DTILES = DT / 8;  // n8 blocks of O
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  T* Qs = reinterpret_cast<T*>(smem);               // [kWG][NB][64][64]
+  T* Ks = reinterpret_cast<T*>(smem + C::kQBytes);  // [NS][NB][BK][64]
+  T* Vs = Ks + NS * BK * DT;                        // [NS][NB][BK][64]
+  uint64_t* full_q =
+      reinterpret_cast<uint64_t*>(smem + C::kQBytes + 2 * NS * C::kKVBytes);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + NS;
+  uint64_t* empty_k = full_v + NS;
+  uint64_t* empty_v = empty_k + NS;
 
   // the longest causal q tiles first: q tile is the slowest grid index,
   // counted down
@@ -316,261 +309,365 @@ flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = bid % H;
   bid /= H;
   const int b = bid % B;
-  const int q0 = (nq - 1 - bid / B) * kBQ;
+  const int q0 = (nq - 1 - bid / B) * BQ;
   const int kvh = h / (H / K);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long qstride = (long long)H * D, kvstride = (long long)K * D;
-  const T* qb = q + (long long)b * Sq * qstride + (long long)h * D;
-  const T* kb = k + (long long)b * Skv * kvstride + (long long)kvh * D;
-  const T* vb = v + (long long)b * Skv * kvstride + (long long)kvh * D;
 
-  // kv tiles that can hold an unmasked key for some row of this q tile
-  const int k_end = causal ? min(Skv, q0 + kBQ) : Skv;
+  // kv tiles that can hold a kept key for some row of this q tile
+  const int k_end = causal ? min(Skv, q0 + BQ) : Skv;
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  k_begin = (k_begin / kBK) * kBK;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  // two cp.async groups a tile, K then V, so Q K^T starts while V lands
-  load_tile<T, DT>(Qs, qb, q0, Sq, qstride, D, vec, tid);
-  if (n_tiles > 0) load_tile<T, DT>(Ks, kb, k_begin, Skv, kvstride, D, vec, tid);
-  cp_async_commit();
-  if (n_tiles > 0) load_tile<T, DT>(Vs, vb, k_begin, Skv, kvstride, D, vec, tid);
-  cp_async_commit();
-
-  float o[DTILES][4];
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    hopper::mbar_init(full_q, 1);
 #pragma unroll
-  for (int i = 0; i < DTILES; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m0 = RAP_NEG_INF, m1 = RAP_NEG_INF;  // rows g and g + 8, log2 units
-  float l0 = 0.f, l1 = 0.f;                  // this thread's share of l
-  unsigned qf[kHoldQ ? DT / 16 : 1][4];
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(full_k + s, 1);
+      hopper::mbar_init(full_v + s, 1);
+      hopper::mbar_init(empty_k + s, 4 * kWG);
+      hopper::mbar_init(empty_v + s, 4 * kWG);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int qw0 = q0 + warp * 16;            // this warp's first row
-  const int r0 = qw0 + g, r1 = r0 + 8;
-  // ldmatrix row/column of this lane: A (Q) and V^T share one pattern
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
-  const float sl = scale * kLog2e;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = k_begin + it * kBK;
-    const int st = it & 1;
-    const bool next = it + 1 < n_tiles;
-    cp_async_wait<1>();  // K of this tile (and Q); its V may be in flight
-    __syncthreads();
-    const T* Kt = Ks + st * kBK * DT;
-    const T* Vt = Vs + st * kBK * DT;
-    // the next tile's K into the other stage, whose last reader (the
-    // previous tile's Q K^T) every warp has passed
-    if (next)
-      load_tile<T, DT>(Ks + (st ^ 1) * kBK * DT, kb, k0 + kBK, Skv, kvstride,
-                       D, vec, tid);
-    cp_async_commit();
-    if constexpr (kHoldQ) {
-      if (it == 0) {
+  // warp-uniform as far as the compiler can see (a shuffle from lane 0),
+  // so no branch on it makes a wgmma path divergent
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == kWG) {
+    // ------------------------------------------ producer (one warp)
+    if (tid == kWG * 128 && n_tiles > 0) {
+      hopper::tma_prefetch(&tm_q);
+      hopper::tma_prefetch(&tm_k);
+      hopper::tma_prefetch(&tm_v);
+      hopper::mbar_expect_tx(full_q, C::kQBytes);
+      for (int w = 0; w < kWG; ++w)
 #pragma unroll
-        for (int kk = 0; kk < DT / 16; ++kk)
-          ldsm_x4(qf[kk], Qs + swz<DT>(warp * 16 + a_row, kk * 16 + a_col));
+        for (int x = 0; x < NB; ++x)
+          hopper::tma_load_4d(Qs + (w * NB + x) * 64 * 64, &tm_q, full_q,
+                              x * 64, h, q0 + 64 * w, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % NS;
+        const uint32_t ph = (it / NS) & 1;
+        const int k0 = k_begin + it * BK;
+        hopper::mbar_wait(empty_k + s, ph ^ 1);
+        hopper::mbar_expect_tx(full_k + s, C::kKVBytes);
+#pragma unroll
+        for (int x = 0; x < NB; ++x)
+          hopper::tma_load_4d(Ks + (s * NB + x) * BK * 64, &tm_k, full_k + s,
+                              x * 64, kvh, k0, b);
+        hopper::mbar_wait(empty_v + s, ph ^ 1);
+        hopper::mbar_expect_tx(full_v + s, C::kKVBytes);
+#pragma unroll
+        for (int x = 0; x < NB; ++x)
+          hopper::tma_load_4d(Vs + (s * NB + x) * BK * 64, &tm_v, full_v + s,
+                              x * 64, kvh, k0, b);
       }
     }
+  } else {
+    // ------------------------------------------------------- consumers
+    const int wtid = tid & 127, warp = wtid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qg0 = q0 + 64 * wg;     // this warpgroup's first row
+    const int qw0 = qg0 + 16 * warp;  // this warp's first row
+    const int r0 = qw0 + g, r1 = r0 + 8;
+    // scores enter the exponent as s * f - m * f: raw (f = scale * log2 e)
+    // or, with a softcap, already in log2 units (f = 1)
+    const float f = softcap > 0.f ? 1.f : scale * kLog2e;
+    T* Qw = Qs + wg * NB * 64 * 64;
+    const uint32_t q_addr = hopper::smem_u32(Qw);
 
-    // S = Q K^T: 16 rows x 64 keys per warp
-    float s[NT][4];
+    float o[DT / 2];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DT / 16; ++kk) {
-      unsigned qa[4];
-      if constexpr (kHoldQ) {
-        qa[0] = qf[kk][0]; qa[1] = qf[kk][1]; qa[2] = qf[kk][2]; qa[3] = qf[kk][3];
-      } else {
-        ldsm_x4(qa, Qs + swz<DT>(warp * 16 + a_row, kk * 16 + a_col));
-      }
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        unsigned kf[4];
-        ldsm_x4(kf, Kt + swz<DT>(np * 16 + b_row, kk * 16 + b_col));
-        mma<T>(s[2 * np], qa, kf[0], kf[1]);
-        mma<T>(s[2 * np + 1], qa, kf[2], kf[3]);
-      }
-    }
+    for (int i = 0; i < DT / 2; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // rows r0 and r1, in s's units
+    float l0 = 0.f, l1 = 0.f;              // this thread's share of l
+    uint32_t pa[BK / 16][4];  // P of the last tile: its P.V's A operand
 
-    // scale and softcap in f32, then to log2 units
-    if (softcap > 0.f) {
+    // S = Q K^T of the tile in stage st, both operands K-major
+    auto issue_qk = [&](float (&sc)[BK / 2], int st) {
+      const uint32_t k_addr = hopper::smem_u32(Ks + st * NB * BK * 64);
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+      for (int kk = 0; kk < DT / 16; ++kk) {
+        const uint64_t da = hopper::desc_sw128(
+            q_addr + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024);
+        const uint64_t db = hopper::desc_sw128(
+            k_addr + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024);
+        hopper::Wgmma<BK, T>::ss(sc, da, db, kk > 0);
+      }
+      hopper::wgmma_commit();
+    };
+    // O += P V of the tile in stage st, V MN-major: a k16 step is 16 rows
+    auto issue_pv = [&](int st) {
+      const uint32_t v_addr = hopper::smem_u32(Vs + st * NB * BK * 64);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = softcap * tanhf(s[j][e] * scale / softcap) * kLog2e;
-    } else {
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db =
+            hopper::desc_sw128(v_addr + kk * 16 * 128, BK * 128, 1024);
+        hopper::Wgmma<DT, T>::rs(o, pa[kk], db, 1);
+      }
+      hopper::wgmma_commit();
+    };
+    // scores of the tile at k0 to p (in sc), with the rows' new maxima and
+    // sums of p; m, l, O and P are left to fold()
+    auto softmax = [&](float (&sc)[BK / 2], int k0, float& mx0, float& mx1,
+                       float& ps0, float& ps1) {
+      if (softcap > 0.f) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+        for (int i = 0; i < BK / 2; ++i)
+          sc[i] = softcap * tanhf(sc[i] * scale / softcap) * kLog2e;
+      }
+      // masks only where the tile straddles the ragged edge, the causal
+      // diagonal or the band's edge for one of this warp's rows
+      const bool need_mask = k0 + BK > Skv ||
+                             (causal && k0 + BK - 1 > qw0) ||
+                             (window > 0 && k0 <= qw0 + 15 - window);
+      if (need_mask) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= sl;
-    }
-    // masks only where the tile straddles the ragged edge, the causal
-    // diagonal or the band's edge for one of this warp's rows
-    unsigned keep = 0xffffffffu;  // bit 4 * j + e
-    const bool need_mask = k0 + kBK > Skv || (causal && k0 + kBK - 1 > qw0) ||
-                           (window > 0 && k0 <= qw0 + 15 - window);
-    if (need_mask) {
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kj = k0 + 8 * j + 2 * t + (e & 1);
-          const int qi = e < 2 ? r0 : r1;
-          bool ok = kj < Skv;
-          if (causal) ok = ok && kj <= qi;
-          if (window > 0) ok = ok && kj > qi - window;
-          if (!ok) {
-            s[j][e] = RAP_NEG_INF;
-            keep &= ~(1u << (4 * j + e));
+          for (int e = 0; e < 4; ++e) {
+            const int kj = k0 + 8 * j + 2 * t + (e & 1);
+            const int qi = e < 2 ? r0 : r1;
+            bool ok = kj < Skv;
+            if (causal) ok = ok && kj <= qi;
+            if (window > 0) ok = ok && kj > qi - window;
+            if (!ok) sc[4 * j + e] = -INFINITY;
           }
-        }
-    }
-
-    // online softmax; a row's 64 scores sit in one quad
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = (keep >> (4 * j + e)) & 1u
-                            ? exp2f(s[j][e] - (e < 2 ? m0 : m1)) : 0.f;
-        s[j][e] = p;
-        if (e < 2) ps0 += p; else ps1 += p;
       }
-    l0 = alpha0 * l0 + ps0;
-    l1 = alpha1 * l1 + ps1;
+      // a row's scores sit in one quad
+      mx0 = m0;
+      mx1 = m1;
 #pragma unroll
-    for (int i = 0; i < DTILES; ++i) {
-      o[i][0] *= alpha0; o[i][1] *= alpha0;
-      o[i][2] *= alpha1; o[i][3] *= alpha1;
-    }
+      for (int j = 0; j < NT; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      // a row with no kept key yet keeps max -inf: its p are exp2(-inf)
+      const float c0 = mx0 == -INFINITY ? 0.f : mx0 * f;
+      const float c1 = mx1 == -INFINITY ? 0.f : mx1 * f;
+      ps0 = 0.f;
+      ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        sc[4 * j] = ex2(fmaf(sc[4 * j], f, -c0));
+        sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], f, -c0));
+        sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], f, -c1));
+        sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], f, -c1));
+        ps0 += sc[4 * j] + sc[4 * j + 1];
+        ps1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+    };
+    // m and l to the new maxima, O rescaled by exp2(m_old - m_new) (1
+    // while a row has no kept key), and P rounded to T: the accumulator
+    // layout of two n8 blocks is the A fragment of one k16 step
+    auto fold = [&](const float (&sc)[BK / 2], float mx0, float mx1,
+                    float ps0, float ps1) {
+      const float alpha0 = mx0 == -INFINITY ? 1.f : ex2((m0 - mx0) * f);
+      const float alpha1 = mx1 == -INFINITY ? 1.f : ex2((m1 - mx1) * f);
+      m0 = mx0;
+      m1 = mx1;
+      l0 = alpha0 * l0 + ps0;
+      l1 = alpha1 * l1 + ps1;
+#pragma unroll
+      for (int i = 0; i < DTILES; ++i) {
+        o[4 * i] *= alpha0; o[4 * i + 1] *= alpha0;
+        o[4 * i + 2] *= alpha1; o[4 * i + 3] *= alpha1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack2<T>(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack2<T>(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack2<T>(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack2<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(bar);
+    };
 
-    cp_async_wait<1>();  // V of this tile; the next tile's K may be in flight
-    __syncthreads();
-    // the next tile's V into the other stage, past the previous tile's P V
-    if (next)
-      load_tile<T, DT>(Vs + (st ^ 1) * kBK * DT, vb, k0 + kBK, Skv, kvstride,
-                       D, vec, tid);
-    cp_async_commit();
-
-    // O += P V: P rounded to T in registers is the A operand
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      unsigned pa[4];
-      pa[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < DTILES / 2; ++dp) {
-        unsigned vf[4];
-        ldsm_x4_t(vf, Vt + swz<DT>(kk * 16 + a_row, dp * 16 + a_col));
-        mma<T>(o[2 * dp], pa, vf[0], vf[1]);
-        mma<T>(o[2 * dp + 1], pa, vf[2], vf[3]);
+    // Straight-line sections, so that ptxas can follow every wgmma group:
+    // tile 0's Q.K^T; then tile j's Q.K^T with tile j - 1's P.V, tile j's
+    // softmax running while that P.V (and the other warpgroup's products)
+    // keep the tensor cores busy; then the last P.V. With two warpgroups
+    // they take turns at issuing (warpgroup 0 first); every warpgroup
+    // runs every tile, the masks zeroing what its rows do not keep.
+    if (n_tiles > 0) {
+      float mx0, mx1, ps0, ps1;
+      hopper::mbar_wait(full_q, 0);
+      if (kWG == 2 && wg == 1) hopper::named_arrive(kSchedBar, 256);
+      {
+        float sc[BK / 2];
+        hopper::mbar_wait(full_k, 0);
+        if (kWG == 2) hopper::named_sync(kSchedBar + wg, 256);
+        hopper::wgmma_fence();
+        issue_qk(sc, 0);
+        if (kWG == 2) hopper::named_arrive(kSchedBar + (wg ^ 1), 256);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        release(empty_k);
+        softmax(sc, k_begin, mx0, mx1, ps0, ps1);
+        fold(sc, mx0, mx1, ps0, ps1);
+      }
+      for (int it = 1; it < n_tiles; ++it) {
+        const int st = it % NS, sp = (it - 1) % NS;
+        float sc[BK / 2];
+        hopper::mbar_wait(full_k + st, (it / NS) & 1);
+        hopper::mbar_wait(full_v + sp, ((it - 1) / NS) & 1);
+        if (kWG == 2) hopper::named_sync(kSchedBar + wg, 256);
+        hopper::fence_regs(o);
+        hopper::fence_regs(pa);
+        hopper::wgmma_fence();
+        issue_qk(sc, st);
+        issue_pv(sp);
+        if (kWG == 2) hopper::named_arrive(kSchedBar + (wg ^ 1), 256);
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(sc);
+        release(empty_k + st);
+        softmax(sc, k_begin + it * BK, mx0, mx1, ps0, ps1);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        release(empty_v + sp);
+        fold(sc, mx0, mx1, ps0, ps1);
+      }
+      {
+        const int sp = (n_tiles - 1) % NS;
+        hopper::mbar_wait(full_v + sp, ((n_tiles - 1) / NS) & 1);
+        if (kWG == 2) hopper::named_sync(kSchedBar + wg, 256);
+        hopper::fence_regs(o);
+        hopper::fence_regs(pa);
+        hopper::wgmma_fence();
+        issue_pv(sp);
+        if (kWG == 2 && wg == 0) hopper::named_arrive(kSchedBar + 1, 256);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        release(empty_v + sp);
       }
     }
-  }
-  cp_async_wait<0>();
 
-  if (n_tiles == 0) __syncthreads();  // every thread's Q copy has landed
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
-  // the output through this warp's own Q rows (no other warp reads them),
-  // then out to global memory in 16-byte row chunks
-  const int w0 = warp * 16;
+    if (qg0 < Sq) {  // a warpgroup wholly past Sq stores nothing
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
+      const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
+      // the normalised rows into this warpgroup's Q tile, whose last
+      // reader has been waited on, swizzled as TMA reads it; then out
+      const int rr = 16 * warp + g;  // rows rr and rr + 8 of the tile
+      unsigned char* ob = reinterpret_cast<unsigned char*>(Qw);
 #pragma unroll
-  for (int i = 0; i < DTILES; ++i) {
-    const int d = i * 8 + 2 * t;
-    *reinterpret_cast<unsigned*>(Qs + swz<DT>(w0 + g, d)) =
-        pack2<T>(o[i][0] * inv0, o[i][1] * inv0);
-    *reinterpret_cast<unsigned*>(Qs + swz<DT>(w0 + g + 8, d)) =
-        pack2<T>(o[i][2] * inv1, o[i][3] * inv1);
-  }
-  __syncwarp();
-  constexpr int CH = DT / 8;
-  for (int c = lane; c < 16 * CH; c += 32) {
-    const int rr = c / CH, ch = c % CH, qi = qw0 + rr;
-    if (qi >= Sq || ch * 8 >= D) continue;
-    T* dst = out + (((long long)b * Sq + qi) * H + h) * D + ch * 8;
-    const T* src = Qs + (w0 + rr) * DT + ((ch ^ (rr & 7)) << 3);
-    if (vec) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int e = 0; e < 8 && ch * 8 + e < D; ++e) dst[e] = src[e];
+      for (int i = 0; i < DTILES; ++i) {
+        const int x = i / 8, c = i % 8;  // box, 16-byte chunk
+        unsigned char* row0 =
+            ob + x * 64 * 128 + rr * 128 + ((c ^ (rr & 7)) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(row0) =
+            pack2<T>(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(row0 + 8 * 128) =
+            pack2<T>(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + wg, 128);
+      if (wtid == 0) {
+#pragma unroll
+        for (int x = 0; x < NB; ++x)
+          hopper::tma_store_4d(&tm_o, Qw + x * 64 * 64, x * 64, h, qg0, b);
+        hopper::tma_store_wait();
+      }
     }
   }
 }
 
-template <typename T, int DT>
+template <typename T, int DT, int kWG>
 static int launch(const void* q, const void* k, const void* v, void* out,
                   int B, int Sq, int Skv, int H, int K, int D, float scale,
                   float softcap, int causal, int window, cudaStream_t s) {
-  const size_t smem = (size_t)(kBQ + 4 * kBK) * DT * sizeof(T);
-  auto kern = flash_tc_kernel<T, DT>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int nq = (Sq + kBQ - 1) / kBQ;
+  using C = Tiles<DT, kWG>;
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap tq, tk, tv, to;
+  int e = hopper::encode_4d(&tq, q, bf16, D, H, Sq, B, 64);
+  if (e == 0) e = hopper::encode_4d(&tk, k, bf16, D, K, Skv, B, C::BK);
+  if (e == 0) e = hopper::encode_4d(&tv, v, bf16, D, K, Skv, B, C::BK);
+  if (e == 0) e = hopper::encode_4d(&to, out, bf16, D, H, Sq, B, 64);
+  if (e != 0) return e;
+  auto kern = flash_wgmma_kernel<T, DT, kWG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int nq = (Sq + C::BQ - 1) / C::BQ;
   const long long n_blocks = (long long)nq * B * H;
   if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // 16-byte row chunks need D % 8 == 0 and 16-byte aligned tensors
-  const int vec = D % 8 == 0 &&
-                  ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v) |
-                    reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  kern<<<(unsigned)n_blocks, kThreads, smem, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, B, Sq, Skv, H, K, D,
-      scale, softcap, causal, window, nq, vec);
+  kern<<<(unsigned)n_blocks, C::kThreads, C::kSmem, s>>>(
+      tq, tk, tv, to, B, Sq, Skv, H, K, scale, softcap, causal, window, nq);
   return (int)cudaGetLastError();
 }
 
-}  // namespace tc
+// the instantiation of the wrapper's plan: q_tile 64 or 128 rows, kv_tile
+// the one its width and q tile fix (anything else is refused)
+template <typename T>
+static int launch_planned(const void* q, const void* k, const void* v,
+                          void* out, int B, int Sq, int Skv, int H, int K,
+                          int D, float scale, float softcap, int causal,
+                          int window, int q_tile, int kv_tile,
+                          cudaStream_t s) {
+  const int dt = D <= 64 ? 64 : D <= 128 ? 128 : 256;
+#define RAP_FLASH_PLAN(DT, W)                                               \
+  if (dt == DT && q_tile == 64 * W)                                         \
+    return kv_tile == Tiles<DT, W>::BK                                      \
+               ? launch<T, DT, W>(q, k, v, out, B, Sq, Skv, H, K, D, scale, \
+                                  softcap, causal, window, s)               \
+               : (int)cudaErrorInvalidValue;
+  RAP_FLASH_PLAN(64, 1)
+  RAP_FLASH_PLAN(64, 2)
+  RAP_FLASH_PLAN(128, 1)
+  RAP_FLASH_PLAN(128, 2)
+  RAP_FLASH_PLAN(256, 1)
+#undef RAP_FLASH_PLAN
+  return (int)cudaErrorInvalidValue;
+}
 
-// All tensors contiguous, one dtype; D <= 256. f32 runs the FMA body,
-// bf16 and fp16 the tensor-core body.
+}  // namespace wg
+
+// One dtype; D <= 256. f32 runs the FMA body (contiguous tensors; q_tile
+// and kv_tile 32), bf16 and fp16 the wgmma body (contiguous, D % 8 == 0,
+// 16-byte aligned; q_tile and kv_tile as kernels/flash_attention.py::plan
+// gives them). Anything else is refused, never sent to another body.
 extern "C" int rap_flash_attention(const void* q, const void* k, const void* v,
                                    void* out, int B, int Sq, int Skv, int H,
                                    int K, int D, float scale, float softcap,
                                    int causal, int window, int dtype,
-                                   void* stream) {
+                                   int q_tile, int kv_tile, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (D > 256) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define RAP_FLASH_BY_WIDTH(NS, T)                                           \
-  return D <= 64    ? NS launch<T, 64>(q, k, v, out, B, Sq, Skv, H, K, D,  \
-                                       scale, softcap, causal, window, s)  \
-         : D <= 128 ? NS launch<T, 128>(q, k, v, out, B, Sq, Skv, H, K, D, \
-                                        scale, softcap, causal, window, s) \
-                    : NS launch<T, 256>(q, k, v, out, B, Sq, Skv, H, K, D, \
-                                        scale, softcap, causal, window, s)
-  switch (dtype) {
-    case 0: RAP_FLASH_BY_WIDTH(, float);
-    case 1: RAP_FLASH_BY_WIDTH(tc::, __nv_bfloat16);
-    case 2: RAP_FLASH_BY_WIDTH(tc::, __half);
-    default: return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (q_tile != kBQ || kv_tile != kBK) return (int)cudaErrorInvalidValue;
+    return D <= 64    ? launch<float, 64>(q, k, v, out, B, Sq, Skv, H, K, D,
+                                          scale, softcap, causal, window, s)
+           : D <= 128 ? launch<float, 128>(q, k, v, out, B, Sq, Skv, H, K, D,
+                                           scale, softcap, causal, window, s)
+                      : launch<float, 256>(q, k, v, out, B, Sq, Skv, H, K, D,
+                                           scale, softcap, causal, window, s);
   }
-#undef RAP_FLASH_BY_WIDTH
+  if (dtype != 1 && dtype != 2) return (int)cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) |
+                         reinterpret_cast<uintptr_t>(out);
+  if (D % 8 != 0 || (ptrs & 15) != 0) return (int)cudaErrorInvalidValue;
+  if (Skv == 0)  // no key: every row is 0
+    return (int)cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * 2, s);
+  return dtype == 1
+             ? wg::launch_planned<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H,
+                                                 K, D, scale, softcap, causal,
+                                                 window, q_tile, kv_tile, s)
+             : wg::launch_planned<__half>(q, k, v, out, B, Sq, Skv, H, K, D,
+                                          scale, softcap, causal, window,
+                                          q_tile, kv_tile, s);
 }

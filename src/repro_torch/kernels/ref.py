@@ -228,15 +228,16 @@ def ssd_split_ref(xh, log_a, Bm, Cm, chunk: int = 256, tile: int = 64):
     return y, state
 
 
-def _sdpa(q, k, v, mask, softcap: float = 0.0):
+def _sdpa(q, k, v, mask, softcap: float = 0.0, scale=None):
     """q [B,Sq,H,Dh], k/v [B,Skv,K,Dh], mask bool broadcastable to
-    [B,Sq,Skv]. Query head h reads kv head h // (H // K)."""
+    [B,Sq,Skv]. Query head h reads kv head h // (H // K). The scores are
+    scaled by ``scale``, 1/sqrt(Dh) by default."""
     B, Sq, H, Dh = q.shape
     K = k.shape[2]
     G = H // K
     qg = q.reshape(B, Sq, K, G, Dh).float()
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) \
-        * (1.0 / math.sqrt(Dh))
+        * (1.0 / math.sqrt(Dh) if scale is None else scale)
     logits = layers.softcap(logits, softcap)
     logits = logits.masked_fill(~mask[:, None, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1)

@@ -64,7 +64,16 @@ FLASH_CASES = [
     (1, 100, 4, 2, 32, 300, 0.0),   # a band wider than S
     (1, 64, 8, 2, 128, 0, 0.0),     # GQA G=4 at D=128
     (1, 70, 4, 2, 40, 0, 0.0),      # D=40, zero-padded to 64
-    (1, 70, 4, 2, 36, 0, 0.0),      # D % 8 != 0: the element loader
+    (1, 70, 4, 2, 36, 0, 0.0),      # D % 8 != 0: padded to 40 by the wrapper
+    # the Hopper body's tiles: 128 query rows (two warpgroups) past Sq = 64,
+    # KV tiles of 128 keys (64 at D = 256)
+    (1, 129, 4, 2, 64, 0, 0.0),     # a q tile of one row past 128
+    (2, 200, 4, 4, 32, 0, 0.0),     # Sq not a multiple of 128
+    (1, 129, 4, 1, 256, 0, 0.0),    # D = 256, G = 4
+    (1, 100, 16, 1, 64, 0, 0.0),    # G = 16
+    (1, 129, 4, 2, 16, 0, 0.0),     # D = 16 in a 64-column box
+    (1, 200, 4, 2, 64, 40, 0.0),    # a band narrower than a KV tile
+    (1, 129, 4, 2, 64, 0, 30.0),    # softcap on the 128-row tile
 ]
 
 
@@ -142,7 +151,7 @@ def _dense_of(q, kp, vp, table, lengths):
     return q, kd, vd, valid
 
 
-# bf16 and fp16 run the kernel's tensor-core body, f32 its FMA body
+# bf16 and fp16 run the kernel's Hopper (TMA + wgmma) body, f32 its FMA body
 FLASH_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2),
                 (torch.float16, 2e-2)]
 
@@ -166,6 +175,8 @@ GRIFFIN_FLASH_CASES = [
     (1, 100, 16, 1, 256, 32, 0.0),  # banded: S > window
     (1, 65, 16, 1, 256, 0, 0.0),    # a q tile straddling the diagonal
     (2, 130, 16, 1, 256, 16, 0.0),  # a band narrower than a tile
+    (1, 129, 16, 1, 256, 0, 0.0),   # one row past two 64-row warpgroups
+    (1, 264, 16, 1, 256, 0, 30.0),  # the serve's length, softcapped
 ]
 
 
@@ -1194,6 +1205,10 @@ NONCAUSAL_CASES = [
     (2, 7, 1500, 16, 16, 64),
     (2, 100, 130, 4, 2, 32),
     (1, 65, 1500, 4, 4, 64),
+    (4, 32, 1500, 16, 16, 64),      # a prompt's cross-attention: one
+                                    # 64-row warpgroup
+    (1, 129, 1500, 16, 4, 128),     # G = 4, 128-row tiles at D = 128
+    (2, 64, 1500, 8, 8, 40),        # D = 40 (TMA zero-fills 40..63)
 ]
 
 
@@ -1210,6 +1225,85 @@ def test_flash_attention_kernel_non_causal(cuda, B, Sq, Skv, H, K, D, dtype,
     got = fa.flash_attention_cuda(q, k, v, causal=False)
     want = fa.attention_ref(q, k, v, causal=False)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+HALF_DTYPES = [torch.bfloat16, torch.float16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+@pytest.mark.parametrize("Sq,Skv,D,window", [(200, 64, 64, 16),
+                                             (100, 40, 128, 8)])
+def test_flash_attention_kernel_empty_band(cuda, Sq, Skv, D, window, dtype):
+    """Causal with Skv < Sq and a band: rows from Skv - 1 + window on keep
+    no key and give exactly 0 (the kernel's acc / max(l, 1e-30); the plain
+    version's softmax over a fully masked row is uniform, so it is held to
+    the rows that keep a key)."""
+    rng = np.random.default_rng(Sq + D)
+    q = torch.from_numpy(rng.standard_normal((2, Sq, 4, D)).astype(
+        np.float32)).to(cuda, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((2, Skv, 2, D)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(2))
+    got = fa.flash_attention_cuda(q, k, v, window=window)
+    want = fa.attention_ref(q, k, v, window=window)
+    empty = Skv - 1 + window
+    torch.testing.assert_close(got[:, :empty].float(),
+                               want[:, :empty].float(), atol=2e-2, rtol=2e-2)
+    assert torch.count_nonzero(got[:, empty:]) == 0
+    assert torch.count_nonzero(got[:, :empty].float().abs().sum(-1)) \
+        == 2 * empty * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+def test_flash_attention_kernel_views(cuda, dtype):
+    """A view one element off a 16-byte boundary and a strided view are
+    copied by the wrapper (``plan(...).copy``) and run the Hopper body."""
+    B, S, H, K, D = 2, 129, 4, 2, 64
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _qkv(11, B, S, H, K, D))
+    off = torch.empty(q.numel() + 1, dtype=dtype, device=cuda)[1:]
+    q_mis = off.view(q.shape)
+    q_mis.copy_(q)
+    assert q_mis.data_ptr() % 16 and fa.plan(S, D, dtype, True, False).copy
+    k_str = torch.empty(B, K, S, D, dtype=dtype,
+                        device=cuda).transpose(1, 2)
+    k_str.copy_(k)
+    assert not k_str.is_contiguous()
+    before = fa.BODY_LAUNCHES["wgmma"]
+    got = fa.flash_attention_cuda(q_mis, k_str, v)
+    assert fa.BODY_LAUNCHES["wgmma"] == before + 1
+    torch.testing.assert_close(got.float(),
+                               fa.attention_ref(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, fa.flash_attention_cuda(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,window", [
+    (8, 256, 256, 32, 32, 128, True, 0),     # llama2-7b's prefill
+    (4, 1500, 1500, 16, 16, 64, False, 0),   # whisper's encoder
+    (2, 264, 264, 16, 1, 256, True, 2048),   # recurrentgemma-9b
+    (4, 64, 64, 32, 32, 128, True, 0),       # GSI scoring
+])
+def test_flash_attention_kernel_same_bits(cuda, B, Sq, Skv, H, K, D,
+                                          causal, window, dtype):
+    """Two launches on the same inputs give the same bits (no atomics, no
+    split over keys), and every bf16/fp16 call runs the Hopper body."""
+    rng = np.random.default_rng(Sq * H + D)
+    q = torch.from_numpy(rng.standard_normal((B, Sq, H, D)).astype(
+        np.float32)).to(cuda, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((B, Skv, K, D)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(2))
+    before = dict(fa.BODY_LAUNCHES)
+    a = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    b = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert fa.BODY_LAUNCHES == {"wgmma": before["wgmma"] + 2,
+                                "fma": before["fma"]}
+    assert torch.equal(a, b)
+    want = fa.attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(a.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda
