@@ -528,15 +528,27 @@ DECODE_TIMED = {"llama": (8, 32, 32, 128, 512),
                 "recurrentgemma": (8, 16, 1, 256, 264)}
 
 
-def decode_calls(torch, dec, pdec, attention, B, H, K, D, S) -> dict:
-    """The three decode bodies on the same tokens: bf16 pages of 16 tokens
+def decode_calls(torch, dec, pdec, attention, B, H, K, D, S, body=None,
+                 split_rows=0) -> dict:
+    """The three decode kernels on the same tokens: bf16 pages of 16 tokens
     (``paged_inputs`` seed 12: ragged lengths, row 0 full), int8 pages of
     them with bf16 q, and a contiguous bf16 cache of the table's width with
-    per-row prefix masks. Per body: the kernel and plain calls, its
+    per-row prefix masks. Per kernel: the kernel and plain calls, its
     kernel module's ``cost()`` on these inputs (the bytes the function must
     move, its operations) and a shape label; ``sdpa``: the
     ``scaled_dot_product_attention`` call (boolean mask) for the dense
-    body."""
+    kernel. ``body`` forces the kernels' body (``"wgmma"`` or ``"fma"``,
+    through the wrappers' private launch entries; None: the public
+    wrappers, on the plan's body) and ``split_rows`` their split-KV cut's
+    rows (0: the launch's)."""
+    kw = {"split_rows": split_rows} if split_rows else {}
+    dense, paged, quant = (dec.decode_attention_cuda,
+                           pdec.paged_decode_attention_cuda,
+                           pdec.paged_decode_attention_quant_cuda)
+    if body is not None:
+        kw["body"] = body
+        dense, paged, quant = (dec._decode_cuda, pdec._paged_cuda,
+                               pdec._paged_quant_cuda)
     pt, dt = 16, torch.bfloat16
     q, kp, vp, table, lengths = paged_inputs(torch, B, H, K, D, pt, S,
                                              torch.float32, 12)
@@ -554,19 +566,17 @@ def decode_calls(torch, dec, pdec, attention, B, H, K, D, S) -> dict:
     shape = (f"B={B} H={H} K={K} D={D} ragged len<={S} ({toks} tokens), "
              f"q {dt}")
     return {
-        "paged": (lambda: pdec.paged_decode_attention_cuda(
-                      q, kp, vp, table, lengths),
+        "paged": (lambda: paged(q, kp, vp, table, lengths, **kw),
                   lambda: pdec.paged_decode_attention_ref(
                       q, kp, vp, table, lengths),
                   pdec.cost(q, kp, vp, table, lengths),
                   f"{shape}, bf16 pages of {pt}"),
-        "quant": (lambda: pdec.paged_decode_attention_quant_cuda(
-                      q, kq, vq, ks, vs, table, lengths),
+        "quant": (lambda: quant(q, kq, vq, ks, vs, table, lengths, **kw),
                   lambda: pdec.paged_decode_attention_quant_ref(
                       q, kq, vq, ks, vs, table, lengths),
                   pdec.cost_quant(q, kq, vq, ks, vs, table, lengths),
                   f"{shape}, int8 pages of {pt}"),
-        "dense": (lambda: dec.decode_attention_cuda(q, kd, vd, rows),
+        "dense": (lambda: dense(q, kd, vd, rows, **kw),
                   lambda: dec.decode_attention_ref(q, kd, vd, rows),
                   dec.cost(q, kd, vd, rows),
                   f"{shape}, cache of {n}, per-row prefix masks"),
@@ -574,13 +584,15 @@ def decode_calls(torch, dec, pdec, attention, B, H, K, D, S) -> dict:
                              **gqa)}
 
 
-def decode_timing(torch, dec, pdec, attention, B, H, K, D, S) -> dict:
-    """``decode_calls`` timed: per body the event time (``ms``), the
+def decode_timing(torch, dec, pdec, attention, B, H, K, D, S, body=None,
+                  split_rows=0) -> dict:
+    """``decode_calls`` timed: per kernel the event time (``ms``), the
     device-only time (``busy_ms``, host launch hidden), the plain version's
-    time and the bound; sdpa as the dense body's ``library_ms`` (and
-    ``library_busy_ms``). Each body is first held against its plain
+    time and the bound; sdpa as the dense kernel's ``library_ms`` (and
+    ``library_busy_ms``). Each kernel is first held against its plain
     version on the inputs it is timed on."""
-    calls = decode_calls(torch, dec, pdec, attention, B, H, K, D, S)
+    calls = decode_calls(torch, dec, pdec, attention, B, H, K, D, S, body,
+                         split_rows)
     out = {}
     for body in ("paged", "quant", "dense"):
         kernel, plain, cost, shape = calls[body]
@@ -817,6 +829,69 @@ def flash_cases(torch, ops, fa):
             **timed.pop("prefill"), **timed}
 
 
+def plan_body(torch, dec, dt, G, D, page_dtype=None, pt=0) -> str:
+    """The body ``decode_attention.plan`` names for q in ``dt`` (the body
+    does not depend on the rows, the kv heads or the cache's length)."""
+    return dec.plan(dt, page_dtype, G, D, pt, False, 1, 1, 64).body
+
+
+# (B, H, K, D, max_len) of the bf16 kernels on both bodies: llama2-7b (G =
+# 1), glm4-9b (G = 16), gemma-2b (G = 8 at D = 256) and recurrentgemma-9b
+# (G = 16 at D = 256), pages of 16
+TC_SHAPES = {"llama2-7b": (8, 32, 32, 128, 512),
+             "glm4-9b": (8, 32, 2, 128, 512),
+             "gemma-2b": (8, 8, 1, 256, 512),
+             "recurrentgemma-9b": (8, 16, 1, 256, 264)}
+
+
+def tc_cases(torch, dec, pdec, attention, want: dict) -> None:
+    """The three bf16 decode kernels on each body at ``TC_SHAPES``: each
+    against its plain version, the dense kernel bitwise the paged one on
+    the same tokens (one body, the same split points), and two launches of
+    each for the same bits; ``want`` counts the launches per body."""
+    for arch, (B, H, K, D, S) in TC_SHAPES.items():
+        q, kp, vp, table, lens = paged_inputs(torch, B, H, K, D, 16, S,
+                                              torch.float32, 51)
+        kq, ks = attention.page_quant(kp, torch.int8)
+        vq, vs = attention.page_quant(vp, torch.int8)
+        q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+        n = table.shape[1] * 16
+        kd = kp[table.long()].reshape(B, n, K, D)
+        vd = vp[table.long()].reshape(B, n, K, D)
+        valid = torch.arange(n, device="cuda")[None, :] < lens[:, None]
+        for body in ("wgmma", "fma"):
+            runs = {   # each body forced by the private launch entries
+                "dense": (lambda: dec._decode_cuda(q, kd, vd, valid,
+                                                   body=body),
+                          lambda: dec.decode_attention_ref(q, kd, vd, valid)),
+                "paged": (lambda: pdec._paged_cuda(q, kp, vp, table, lens,
+                                                   body=body),
+                          lambda: pdec.paged_decode_attention_ref(
+                              q, kp, vp, table, lens)),
+                "int8 paged": (lambda: pdec._paged_quant_cuda(
+                                   q, kq, vq, ks, vs, table, lens, body=body),
+                               lambda: pdec.paged_decode_attention_quant_ref(
+                                   q, kq, vq, ks, vs, table, lens))}
+            outs = {}
+            for name, (kernel, plain) in runs.items():
+                outs[name] = kernel()
+                check(f"{arch} {name} decode on the {body} body B={B} H={H} "
+                      f"K={K} D={D} len<={S} bf16", outs[name], plain(),
+                      torch.bfloat16)
+                if not torch.equal(outs[name], kernel()):
+                    raise AssertionError(f"two launches of the {name} "
+                                         f"decode kernel on the {body} body "
+                                         f"gave different bits")
+            if not torch.equal(outs["dense"], outs["paged"]):
+                raise AssertionError(f"{arch}: the dense decode kernel is "
+                                     f"not bitwise the paged one on the "
+                                     f"{body} body")
+            want[body] += 6
+            print(f"    {arch} on the {body} body: dense equals paged "
+                  f"bitwise, two launches the same bits (the plan's body "
+                  f"here: {plan_body(torch, dec, torch.bfloat16, H // K, D)})")
+
+
 def decode_cases(torch, ops, dec, pdec, attention, timed):
     """The dense decode kernel: per-row ``[B, S]`` prefix masks from the
     paged timing case's ragged lengths and a shared ``[S]`` mask at
@@ -827,6 +902,8 @@ def decode_cases(torch, ops, dec, pdec, attention, timed):
     the same bits. Timed by ``decode_timing`` beside the plain version and
     ``scaled_dot_product_attention`` with a boolean mask."""
     errs = {}
+    before = dict(dec.BODY_LAUNCHES)
+    want = {b: 0 for b in before}
     g = torch.Generator(device="cpu").manual_seed(21)
     B, H, K, D, pt, S = 8, 32, 32, 128, 16, 512
     _, _, _, _, lengths = paged_inputs(torch, B, H, K, D, pt, S,
@@ -877,6 +954,7 @@ def decode_cases(torch, ops, dec, pdec, attention, timed):
                 f"{kind} {tuple(valid.shape)} {dt}",
                 ops.decode_attention(*args, softcap=cap),
                 dec.decode_attention_ref(*args, softcap=cap), dt)
+            want[plan_body(torch, dec, dt, h // k, d)] += 1
     # the paged kernel's twin: the same tokens laid out in its pages (on
     # 132 SMs the llama2-7b shapes, recurrentgemma's and the softcap case
     # run in 2, 3, 4, 5 and 8 splits, the 64-token cache in one)
@@ -914,7 +992,14 @@ def decode_cases(torch, ops, dec, pdec, attention, timed):
             if not torch.equal(run(), run()):
                 raise AssertionError(f"two launches of the {body} decode "
                                      f"kernel gave different bits")
+        want["fma"] += 8        # f32 q: two compared, three kernels twice
         print(f"    two launches of each decode body: the same bits")
+    tc_cases(torch, dec, pdec, attention, want)
+    got = {b: dec.BODY_LAUNCHES[b] - before[b] for b in before}
+    print(f"  decode launches by body: {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"decode calls ran other bodies than the "
+                             f"plan's ({got}, want {want})")
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:72",
@@ -1609,6 +1694,27 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+DECODE_KERNELS = ("decode_attention", "paged_decode_attention",
+                  "paged_decode_attention_quant")
+# full-width serves whose decode groups (G = 16, and gemma-2b's 8) must run
+# the decode kernels' tensor-core body
+TC_DECODE_ARCHS = ("recurrentgemma-9b", "glm4-9b", "gemma-2b")
+
+
+def decode_body_of(torch, dec, cfg, engine) -> str:
+    """The body ``decode_attention.plan`` names for a serve's decode calls:
+    q in the model dtype against its page pool (dtype and page size) on the
+    paged executor, or against a dense slot cache in the model dtype (an
+    int8 / fp8 slot cache is widened before the kernel)."""
+    paged = getattr(engine.executor, "paged", False)
+    pool = engine.pool
+    return dec.plan(getattr(torch, cfg.dtype),
+                    pool.k_pages.dtype if paged else None,
+                    cfg.n_heads // cfg.n_kv_heads, cfg.dh,
+                    pool.tokens_per_page if paged else 0, False, 1,
+                    cfg.n_kv_heads, 64).body
+
+
 def serve_phase(torch, ops, card: str, argv,
                 depth: Optional[int] = None) -> dict:
     """Serve ``--arch`` at its full width and depth (``depth``: its layers
@@ -1623,9 +1729,11 @@ def serve_phase(torch, ops, card: str, argv,
     print(f"  serve argv: {' '.join(argv)}"
           + ("" if depth is None else f" (depth cut to {depth} of "
                                       f"{full.n_layers} layers)"))
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     ops.reset_launches()
     bodies0 = dict(fa.BODY_LAUNCHES)
+    dbodies0 = dict(dec.BODY_LAUNCHES)
     torch.cuda.reset_peak_memory_stats()
     get_config = configs.get_config
     configs.get_config = lambda name: want if name == arch else get_config(
@@ -1647,6 +1755,14 @@ def serve_phase(torch, ops, card: str, argv,
     if bodies[("wgmma" if half else "fma")] != counts["flash_attention"]:
         raise AssertionError(f"flash launches {counts['flash_attention']} "
                              f"not all on the {cfg.dtype} body: {bodies}")
+    dbodies = {b: dec.BODY_LAUNCHES[b] - dbodies0[b] for b in dbodies0}
+    n_decode = sum(counts[k] for k in DECODE_KERNELS)
+    dwant = decode_body_of(torch, dec, cfg, engine) if n_decode else None
+    if ((n_decode and (dbodies[dwant] != n_decode
+                       or sum(dbodies.values()) != n_decode))
+            or (arch in TC_DECODE_ARCHS and dwant != "wgmma")):
+        raise AssertionError(f"decode launches {n_decode} not all on the "
+                             f"body the plan names ({dwant}): {dbodies}")
     L = cfg.n_layers
     done = [r for r in rep.results if r.status == "done"]
     pruned = [r for r in done if r.mask.sum() < 2 * L]
@@ -1666,7 +1782,8 @@ def serve_phase(torch, ops, card: str, argv,
           f"{kv_dtype}, peak "
           f"{pool['peak_reserved_bytes'] / 1e9:.3f} of "
           f"{pool['capacity_bytes'] / 1e9:.3f} GB")
-    print(f"  launches during serve: {counts}; flash by body {bodies}")
+    print(f"  launches during serve: {counts}; flash by body {bodies}; "
+          f"decode by body {dbodies} (the plan's: {dwant})")
     if (len(done) != len(rep.results) or not pruned
             or pool["overcommit_events"] != 0
             or pool["peak_reserved_bytes"] > pool["capacity_bytes"]):
@@ -1686,6 +1803,7 @@ def serve_phase(torch, ops, card: str, argv,
                "decide_ms": decides,
                "decide_s_total": sum(r.decide_s for r in done),
                "launch_s": rep.launch_s, "launches": counts,
+               "decode_bodies": dbodies,
                "decode_iters": rep.decode_iters,
                "mode": engine.cfg.mode,
                "bucket_layers": [len(r.bucket) for r in done],
@@ -4105,21 +4223,24 @@ def seq_parallel_phase(torch, ops, dec, card: str) -> dict:
         cache["pos"] = S - 1
 
     busy = device_busy_ms(torch, unsplit, PROFILED_STEPS)
+    copies = dec.COPIES["kv"]
     busy_split = device_busy_ms(
         torch, lambda: split_step(torch, ops, step, params, cache, tokens),
         PROFILED_STEPS)
+    copies = dec.COPIES["kv"] - copies
     print(f"  device busy a step [{card}]: unsplit {busy:.4f} ms, "
           f"{SEQ_BLOCKS} blocks on one card {busy_split:.4f} ms (each block "
-          f"copied contiguous for its launch, which the cross-rank path, "
-          f"holding its block contiguous, does not; torch.profiler, "
-          f"{PROFILED_STEPS} steps)")
+          f"read in place, a strided view of the cache: {copies} K/V copies "
+          f"by the decode wrapper; torch.profiler, {PROFILED_STEPS} steps)")
+    if copies:
+        raise AssertionError("the split step copied its cache blocks")
     del params, cache, routes, got
     gc.collect()
     torch.cuda.empty_cache()
     production_cells(card, SEQ_CELLS, must_fit=True)
     print(f"  sequence-parallel phase: {time.perf_counter() - t_phase:.1f} s")
     return {**out, "busy_ms_unsplit": busy, "busy_ms_split": busy_split,
-            "launches": launches}
+            "kv_copies_split": copies, "launches": launches}
 
 
 def serves(torch, ops, card: str) -> dict:
@@ -4232,7 +4353,8 @@ def main() -> None:
     print(f"card: {card}")
     t_start = t0 = time.perf_counter()
     lib = build.build()
-    print(f"build: {len(build.SOURCES)} kernel sources with nvcc in "
+    print(f"build: {len(build.SOURCES)} kernel sources, "
+          f"{len(build.OBJECTS)} nvcc processes at once, in "
           f"{time.perf_counter() - t0:.1f} s -> {lib}")
 
     print("kernels vs plain versions:")

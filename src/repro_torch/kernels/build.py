@@ -4,8 +4,8 @@ Every ``csrc/<name>.cu`` exports plain C launch functions. They are compiled
 by ``nvcc`` for Hopper (``sm_90a``) into one shared library,
 ``<repo>/build/kernels/librap_kernels-<hash>.so``, loaded once with
 ``ctypes``. The hash covers the sources and the flags, so an unchanged tree
-is compiled once. :func:`build` starts one ``nvcc -c`` per source at once,
-then links the objects.
+is compiled once. :func:`build` starts one ``nvcc -c`` per object of
+``OBJECTS`` at once, then links them.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no ``nvcc``.
@@ -26,6 +26,15 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("swiglu", "paged_decode_attention", "flash_attention",
            "decode_attention", "ssd", "rglru")
+# (source, object, extra flags) of each ``nvcc -c``: the two decode
+# sources' tensor-core instantiations are compiled apart, one object for
+# each head-width tile (``-DRAP_TC_DT``), beside the object holding their
+# entry points and FMA bodies, so that no one object sets the build's time
+DECODE_TC_WIDTHS = (64, 128, 256)
+OBJECTS = tuple((n, n, ()) for n in SOURCES) + tuple(
+    (n, f"{n}_tc{dt}", (f"-DRAP_TC_DT={dt}",))
+    for n in ("decode_attention", "paged_decode_attention")
+    for dt in DECODE_TC_WIDTHS)
 # src/repro_torch/kernels/build.py -> <repo>/build/kernels
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -45,7 +54,8 @@ def nvcc() -> str:
 
 
 def lib_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
+                       + repr(OBJECTS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode() + p.read_bytes())
     return BUILD_DIR / f"librap_kernels-{h.hexdigest()[:16]}.so"
@@ -72,11 +82,12 @@ def build() -> Path:
         return subprocess.Popen([nvcc(), *args], stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
 
-    objs = [str(tmp / f"{n}.o") for n in SOURCES]
-    procs = [run([*NVCC_FLAGS, "-c", "-o", o, str(CSRC / f"{n}.cu")])
-             for n, o in zip(SOURCES, objs)]
-    for n, p in zip(SOURCES, procs):
-        _wait(p, f"{n}.cu")
+    objs = [str(tmp / f"{o}.o") for _, o, _ in OBJECTS]
+    procs = [run([*NVCC_FLAGS, *flags, "-c", "-o", obj,
+                  str(CSRC / f"{n}.cu")])
+             for (n, _, flags), obj in zip(OBJECTS, objs)]
+    for (n, _, flags), p in zip(OBJECTS, procs):
+        _wait(p, " ".join([f"{n}.cu", *flags]))
     _wait(run([*ARCH, "-shared", "-o", str(tmp / out.name), *objs]), "link")
     os.replace(tmp / out.name, out)
     shutil.rmtree(tmp, ignore_errors=True)

@@ -7,14 +7,18 @@
 // time, so each row's tokens are cut into splits of `split_tokens` (a whole
 // number of 64-token tiles, the same places in both kernels) and one CTA
 // runs per (row b, kv head g, split). It serves the G query heads sharing
-// kv head g from each K/V fetch, walks its split in 64-token tiles staged in
-// shared memory by 16-byte cp.async (a two-stage ring: the next tile lands
-// while this one is used; an element loader where a row is not 16-byte
-// chunks), and keeps the online-softmax state (m, l, acc) in f32. Scores
-// and P.V read the tiles from shared memory: a token's dot product is
-// spread over a few lanes in 8-element chunks (vector loads) and an xor
-// tree, and each thread accumulates P.V for up to 4 heads of one or two
-// columns, so a K or V element read from shared memory serves 4 heads.
+// kv head g from each K/V fetch, walks its split in 64-token tiles and
+// keeps the online-softmax state (m, l, acc) in f32. Two bodies walk it:
+// the tensor-core body (namespace tc below: TMA ring, wgmma) for bf16 /
+// fp16 q, and the FMA body here, for f32 q and whatever the wrapper's plan
+// (kernels/decode_attention.py::plan) sends it. The FMA body stages each
+// tile in shared memory by 16-byte cp.async (one stage, loaded while the
+// last tile's buffers are free: a second stage timed no faster; an
+// element loader where a row is not 16-byte chunks). Scores and P.V read
+// the tiles from shared memory: a token's dot product is spread over a few
+// lanes in 8-element chunks (vector loads) and an xor tree, and each
+// thread accumulates P.V for up to 4 heads of one or two columns, so a K
+// or V element read from shared memory serves 4 heads.
 //
 // With one split the CTA writes the output itself. Otherwise it writes its
 // partial (m, l, acc) in f32 to scratch and `combine_kernel` gives
@@ -33,13 +37,13 @@
 // in f32 (the sink's element type O), unrounded, as the splits' partials
 // are. The output's arithmetic is the same with or without either.
 //
-// Both kernels call rap_decode::attend with their own loader over the same
-// split boundaries, so for the same tokens they run the identical f32 op
-// sequence: the dense kernel equals the paged kernel bitwise (the port's
-// twin of the JAX contract "paged kernel == dense decode kernel at
-// page_tokens == block_k"), and the quantized loader, which widens each
-// code as float(code) * scale, equals the model-dtype loader on
-// dequantized pages. A loader provides
+// Both kernels call the same body with their own loader over the same
+// split boundaries, so for the same tokens they run the identical op
+// sequence: the dense kernel equals the paged kernel bitwise on either body
+// (the port's twin of the JAX contract "paged kernel == dense decode
+// kernel at page_tokens == block_k"), and on the FMA body the quantized
+// loader, which widens each code as float(code) * scale, equals the
+// model-dtype loader on dequantized pages. An FMA loader provides
 //
 //   using E;                          // element type of K/V in memory
 //   static constexpr bool kScaled;    // multiply each element by a scale
@@ -58,9 +62,12 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include <cuda_fp8.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 __device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
@@ -173,39 +180,28 @@ __host__ __device__ constexpr size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
 }
 
-// Shared memory of one CTA: the loader's state (state_bytes, both slots),
-// `stages` K/V tile buffers of E, then the f32 words of the loop.
+// Shared memory of one CTA of the FMA body: the loader's state
+// (state_bytes, both slots), one K/V tile buffer of E, then the f32 words of
+// the loop.
 __host__ __device__ constexpr size_t kv_stage_bytes(int D, int esize) {
   return (size_t)2 * kTile * D * esize;
 }
 __host__ __device__ constexpr size_t loop_bytes(int G, int D) {
   return align16((size_t)(2 * G * D + G * kTile + 3 * G) * sizeof(float));
 }
-inline size_t smem_bytes(int G, int D, int esize, int state_bytes,
-                         int stages) {
-  return align16(state_bytes) + stages * kv_stage_bytes(D, esize) +
-         loop_bytes(G, D);
+inline size_t smem_bytes(int G, int D, int esize, int state_bytes) {
+  return align16(state_bytes) + kv_stage_bytes(D, esize) + loop_bytes(G, D);
 }
 
-// Two stages where they fit the opt-in limit of a block, else one (f32 at
-// D = 256); the caller's launch refuses what one stage cannot hold.
-inline int stages_for(int G, int D, int esize, int state_bytes) {
-  static int optin = 0;
-  if (optin == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-  }
-  return smem_bytes(G, D, esize, state_bytes, 2) <= (size_t)optin ? 2 : 1;
-}
-
-// 16-byte chunks when a K/V row is whole chunks and the bases are aligned
+// 16-byte chunks when a K/V row is whole chunks and every row starts on a
+// 16-byte boundary (the bases and the element strides between rows)
 template <typename E>
-inline bool vec_rows(int D, const void* a, const void* b) {
+inline bool vec_rows(int D, const void* a, const void* b,
+                     long long row_strides) {
   return (D * sizeof(E)) % 16 == 0 &&
          ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
-          15) == 0;
+          15) == 0 &&
+         (row_strides * (long long)sizeof(E)) % 16 == 0;
 }
 
 // Tile [t0, t0 + nt) of K and V into ks / vs ([kTile, D] each), from the
@@ -384,15 +380,12 @@ __device__ __forceinline__ void pv(const Ld& ld, int st,
 template <typename T, int HB, class Ld, typename O>
 __device__ void attend(const T* __restrict__ q_b, const Sink<O>& o, int G,
                        int D, int t_begin, int t_end, float scale,
-                       float softcap, Ld& ld, int stages, bool vec,
+                       float softcap, Ld& ld, bool vec,
                        unsigned char* kv_smem) {
   using E = typename Ld::E;
-  const size_t stage = kv_stage_bytes(D, sizeof(E));
-  // K of slot st's tile at kbuf(st), its V kTile * D elements on
-  auto kbuf = [&](int st) {
-    return reinterpret_cast<E*>(kv_smem + (stages == 2 ? st : 0) * stage);
-  };
-  float* s_s = reinterpret_cast<float*>(kv_smem + stages * stage);
+  E* const ks = reinterpret_cast<E*>(kv_smem);   // [kTile*D] K, then V
+  E* const vs = ks + kTile * D;
+  float* s_s = reinterpret_cast<float*>(kv_smem + kv_stage_bytes(D, sizeof(E)));
                                        // [G*kTile] scores, then p
   float* q_s = s_s + G * kTile;        // [G*D]
   float* acc = q_s + G * D;            // [G*D]
@@ -412,8 +405,8 @@ __device__ void attend(const T* __restrict__ q_b, const Sink<O>& o, int G,
   const int n_tiles = (t_end - t_begin + kTile - 1) / kTile;
   ld.state(0, t_begin, min(kTile, t_end - t_begin), tid);
   __syncthreads();
-  copy_tile(ld, 0, t_begin, min(kTile, t_end - t_begin), kbuf(0),
-            kbuf(0) + kTile * D, D, vec, tid);
+  copy_tile(ld, 0, t_begin, min(kTile, t_end - t_begin), ks, vs, D, vec,
+            tid);
   cp_async_commit();
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it & 1, t0 = t_begin + it * kTile;
@@ -423,13 +416,6 @@ __device__ void attend(const T* __restrict__ q_b, const Sink<O>& o, int G,
     if (nt1) ld.state(st ^ 1, t1, nt1, tid);  // slot last used by tile it-1
     cp_async_wait_all();
     __syncthreads();  // tile it landed; the next tile's state is written
-    if (nt1 && stages == 2) {  // the next tile loads while this one is used
-      copy_tile(ld, st ^ 1, t1, nt1, kbuf(st ^ 1), kbuf(st ^ 1) + kTile * D,
-                D, vec, tid);
-      cp_async_commit();
-    }
-    const E* ks = kbuf(st);
-    const E* vs = ks + kTile * D;
     if (D % 8 == 0)   // 8-element chunks (vector loads) on 4 lanes a token
       scores<8, HB>(ld, st, ks, q_s, s_s, ngrp, D, nt, scale, softcap);
     else              // one element a lane, a warp a token
@@ -464,9 +450,8 @@ __device__ void attend(const T* __restrict__ q_b, const Sink<O>& o, int G,
     else
       pv<1, HB>(ld, st, vs, s_s, a_s, acc, ngrp, D, nt);
     __syncthreads();  // tile it consumed: its buffers and state slot are free
-    if (nt1 && stages == 1) {
-      copy_tile(ld, st ^ 1, t1, nt1, kbuf(0), kbuf(0) + kTile * D, D, vec,
-                tid);
+    if (nt1) {        // one stage: the next tile loads into the same buffers
+      copy_tile(ld, st ^ 1, t1, nt1, ks, vs, D, vec, tid);
       cp_async_commit();
     }
   }
@@ -545,13 +530,13 @@ combine_kernel(Partials pt, T* __restrict__ out) {
   }
 }
 
-// Launch `kern` on grid (B, K, nsplit), then, with more than one split, the
-// combine. Refuses (returns the error, cleared) what does not fit a block.
-// `lse` ([B, K·G] f32) or nullptr.
+// Launch `kern` on grid (B, K, nsplit) with `threads` a block, then, with
+// more than one split, the combine. Refuses (returns the error, cleared)
+// what does not fit a block. `lse` ([B, K·G] f32) or nullptr.
 template <typename T, typename Kern, typename... Args>
-inline int launch_split(Kern kern, size_t smem, int B, int K, int G, int D,
-                        int nsplit, float* part, T* out, float* lse,
-                        cudaStream_t s, Args... args) {
+inline int launch_split(Kern kern, int threads, size_t smem, int B, int K,
+                        int G, int D, int nsplit, float* part, T* out,
+                        float* lse, cudaStream_t s, Args... args) {
   if (nsplit < 1 || nsplit > 4096 || K > 65535 || G > 65535)
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -563,11 +548,408 @@ inline int launch_split(Kern kern, size_t smem, int B, int K, int G, int D,
     }
   }
   const Partials pt{part, B * K, nsplit, G, D, lse};
-  kern<<<dim3(B, K, nsplit), kThreads, smem, s>>>(args..., pt, out);
+  kern<<<dim3(B, K, nsplit), threads, smem, s>>>(args..., pt, out);
   if (nsplit > 1)
     combine_kernel<T><<<dim3(B * K, G), kThreads,
                         2 * nsplit * sizeof(float), s>>>(pt, out);
   return (int)cudaGetLastError();
 }
+
+// ------------------------------------------------ the tensor-core body
+//
+// bf16 / fp16 q (and pages, or int8 / e4m3 codes widened in shared memory)
+// on Hopper's own instructions: one consumer warpgroup and one producer
+// warp a CTA. The producer walks the split's 64-token tiles and loads K
+// and V of each by TMA into a ring of `stages` stages (a full and an empty
+// mbarrier each): boxes of 16 tokens from a tensor map over the dense cache
+// with its own strides, or one box per page run (R = gcd(page_tokens, 64)
+// tokens) at the page's coordinate from the table, never past the split's
+// last attended token. The consumers swap the product's operands so that
+// the 64-token tile is wgmma's M: S^T [64 x N] = K_tile . Q^T (m64nNk16,
+// N = G rounded up to a multiple of 8, Q loaded once), the online softmax
+// on S^T in f32 registers (a head's max over the tile crosses the four
+// warps through shared memory), then O^T [D x N] += V^T . P^T with V read
+// MN-major (a transposed A, one m64 product per 64 columns of D) and P^T
+// written to shared memory in T as two parts, P rounded to T and the
+// remainder P - T(P) rounded to T, each its own product: P keeps about 16
+// bits (the FMA body keeps it in f32; one T rounding put the f32 output of
+// return_lse 2e-4 from the plain version at recurrentgemma-9b's G = 16, D
+// = 256, over its 1e-4). acc stays in registers (D / 64 x N / 2
+// floats a thread); two named barriers a tile. The output's split
+// boundaries, sinks and combine are the FMA body's, so dense and paged
+// agree bitwise on the same tokens here too. Codes: the consumers widen a
+// tile's codes into T tiles (exact: int8 and e4m3 values are bf16 / fp16
+// values), multiply each score by its token's K scale after Q.K^T and each
+// probability by its V scale before it is rounded to T.
+namespace tc {
+
+constexpr int kConsumers = 128;
+constexpr int kThreads = kConsumers + 32;   // and a producer warp
+constexpr int kMaxBoxes = 8;                // token boxes a tile (>= 8 rows)
+constexpr int kBar = 1;                     // the consumers' named barrier
+
+// The CTA's shared memory, from a 1024-byte boundary (the 128-byte swizzle's
+// atom), mirrored by kernels/decode_attention.py::plan: `stages` K and V
+// tiles (T: [D_T / 64 boxes][64 rows][64]; codes: [64][D] plainly), the
+// widened T tiles of K and V (codes), Q [D_T / 64][N][64], P [N][64] in T
+// and its remainder [N][64] in T, the warps' per-head maxima or sums [4][N]
+// f32, each stage's valid flags [64] and scales [2][kMaxBoxes] f32, the
+// full and empty barriers.
+struct Layout {
+  size_t tile, conv, q, p, red, valid, scales, bars, total;
+};
+__host__ __device__ inline Layout layout(int DT, int N, int stages,
+                                         bool codes, int D) {
+  Layout L;
+  L.tile = codes ? (size_t)64 * D : (size_t)64 * DT * 2;
+  L.conv = (size_t)stages * 2 * L.tile;
+  L.q = L.conv + (codes ? (size_t)2 * 64 * DT * 2 : 0);
+  L.p = L.q + (size_t)N * DT * 2;
+  L.red = L.p + (size_t)2 * N * 128;
+  L.valid = L.red + (size_t)4 * N * 4;
+  L.scales = L.valid + (size_t)stages * 64;
+  L.bars = L.scales + (size_t)stages * 2 * kMaxBoxes * 4;
+  L.total = L.bars + (size_t)stages * 16 + 1024;   // + alignment slack
+  return L;
+}
+
+// two f32 rounded to T, the first in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// byte offset of 16-byte chunk c (columns 8c..8c+7) of row r in a swizzled
+// tile of `rows`-row boxes of 64 columns
+__device__ __forceinline__ uint32_t sw_off(int r, int c, int rows) {
+  return (uint32_t)((c >> 3) * rows * 128 + r * 128 +
+                    (((c & 7) ^ (r & 7)) << 4));
+}
+
+// A tile of codes [64][D] widened into a swizzled T tile [D_T/64][64][64];
+// rows from `rows` on and columns past D are written as zero.
+template <typename C, typename T, int DT>
+__device__ __forceinline__ void widen(const unsigned char* codes, T* tile,
+                                      int D, int rows, int wtid) {
+  unsigned char* out = reinterpret_cast<unsigned char*>(tile);
+  for (int i = wtid; i < 64 * DT / 8; i += kConsumers) {
+    const int r = i / (DT / 8), c = i - r * (DT / 8);
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows && 8 * c < D) {
+      const uint2 b = *reinterpret_cast<const uint2*>(codes + r * D + 8 * c);
+      w.x = pack2<T>(code_f32<C>(b.x), code_f32<C>(b.x >> 8));
+      w.y = pack2<T>(code_f32<C>(b.x >> 16), code_f32<C>(b.x >> 24));
+      w.z = pack2<T>(code_f32<C>(b.y), code_f32<C>(b.y >> 8));
+      w.w = pack2<T>(code_f32<C>(b.y >> 16), code_f32<C>(b.y >> 24));
+    }
+    *reinterpret_cast<uint4*>(out + sw_off(r, c, 64)) = w;
+  }
+}
+
+// rows [from, 64) of a swizzled T tile as zero
+template <int DT>
+__device__ __forceinline__ void zero_rows(unsigned char* tile, int from,
+                                          int wtid) {
+  const int per_box = (64 - from) * 8;   // 16-byte chunks
+  for (int i = wtid; i < (DT / 64) * per_box; i += kConsumers) {
+    const int x = i / per_box, k = i - x * per_box;
+    *reinterpret_cast<uint4*>(tile + x * 8192 + (from + k / 8) * 128 +
+                              (k % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Tokens [t_begin, t_end) of one (row, kv head) for its G heads (q_b [G, D]
+// contiguous, 16-byte aligned, D % 8 == 0), into a sink of element type O.
+// Called by all kThreads threads; `smem` is 1024-byte aligned, laid out as
+// layout(DT, N, stages, Src::kCodes, D). A source provides
+//
+//   static constexpr bool kCodes;  using C;   // one-byte codes, their type
+//   void produce(tm_k, tm_v, full, k_dst, v_dst, valid[64], scales[2][8],
+//                t0, nt, lane) const;  // by all 32 producer lanes: the
+//                // tile's TMA boxes and state, 32 arrivals (lane 0's
+//                // with the boxes' bytes)
+//   bool valid(const uint8_t* valid, int j, int nt) const;
+//   int rows;                          // tokens a box (the scales' index)
+template <typename T, int DT, int N, class Src, typename O>
+__device__ __forceinline__ void attend(
+    const CUtensorMap* tm_k, const CUtensorMap* tm_v, const T* __restrict__ q_b,
+    const Sink<O>& o, int G, int D, int t_begin, int t_end, float scale,
+    float softcap, int stages, const Src& src, unsigned char* smem) {
+  constexpr int NB = DT / 64;    // 64-column boxes of a row
+  constexpr int NC = N / 8;      // n8 blocks of the accumulators
+  const Layout L = layout(DT, N, stages, Src::kCodes, D);
+  T* Qs = reinterpret_cast<T*>(smem + L.q);
+  T* Ps = reinterpret_cast<T*>(smem + L.p);
+  float* red = reinterpret_cast<float*>(smem + L.red);         // [4][N]
+  uint8_t* vld = smem + L.valid;                               // [stages][64]
+  float* scl = reinterpret_cast<float*>(smem + L.scales);      // [stages][16]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + stages;
+  const int tid = threadIdx.x;
+  const int n_tiles = (t_end - t_begin + kTile - 1) / kTile;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(full + s, 32);        // every producer lane
+      hopper::mbar_init(empty + s, 4);        // every consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  // warp-uniform as far as the compiler can see, so no branch on it makes
+  // a wgmma path divergent
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int lane = tid & 31;
+  if (warp == 4) {
+    // ---------------------------------------------- producer (one warp)
+    if (lane == 0) {
+      hopper::tma_prefetch(tm_k);
+      hopper::tma_prefetch(tm_v);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % stages;
+      const int t0 = t_begin + it * kTile;
+      hopper::mbar_wait(empty + s, ((it / stages) & 1) ^ 1);
+      unsigned char* kd = smem + (size_t)s * 2 * L.tile;
+      src.produce(tm_k, tm_v, full + s, kd, kd + L.tile, vld + s * 64,
+                  scl + s * 2 * kMaxBoxes, t0, min(kTile, t_end - t0), lane);
+    }
+    return;
+  }
+  // ------------------------------------------------------------ consumers
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * warp + gq, r1 = r0 + 8;   // this thread's tokens
+  // Q [NB][N][64], rows past G and columns past D zero
+  for (int i = tid; i < N * DT / 8; i += kConsumers) {
+    const int h = i / (DT / 8), c = i - h * (DT / 8);
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (h < G && 8 * c < D)
+      w = *reinterpret_cast<const uint4*>(q_b + (long long)h * D + 8 * c);
+    *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(Qs) +
+                              sw_off(h, c, N)) = w;
+  }
+  hopper::fence_proxy_async();
+  hopper::named_sync(kBar, kConsumers);
+  const uint32_t q_addr = hopper::smem_u32(Qs);
+  const uint32_t p_addr = hopper::smem_u32(Ps);
+  T* kc = reinterpret_cast<T*>(smem + L.conv);   // widened codes (kCodes)
+  T* vc = kc + 64 * DT;
+
+  float acc[NB][N / 2];   // O^T: rows d = 64x + r0 (+8), heads 8j + 2t4 (+1)
+#pragma unroll
+  for (int x = 0; x < NB; ++x)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[x][i] = 0.f;
+  float m[NC][2], l[NC][2];   // heads 8j + 2t4 + c; l: this thread's rows
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      m[j][c] = RAP_NEG_INF;
+      l[j][c] = 0.f;
+    }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % stages;
+    const int nt = min(kTile, t_end - (t_begin + it * kTile));
+    unsigned char* kst = smem + (size_t)s * 2 * L.tile;
+    unsigned char* vst = kst + L.tile;
+    const uint8_t* vl = vld + s * 64;
+    const float* sc_s = scl + s * 2 * kMaxBoxes;
+    hopper::mbar_wait(full + s, (it / stages) & 1);
+    // V rows past the tile's last token may hold anything (a stale stage,
+    // the cache's unwritten tail): they are weighted by p = 0, so they
+    // must be finite
+    const T* kt;
+    const T* vt;
+    if constexpr (Src::kCodes) {
+      widen<typename Src::C, T, DT>(kst, kc, D, kTile, tid);
+      widen<typename Src::C, T, DT>(vst, vc, D, nt, tid);
+      kt = kc;
+      vt = vc;
+    } else {
+      kt = reinterpret_cast<const T*>(kst);
+      vt = reinterpret_cast<const T*>(vst);
+      if (nt < kTile) zero_rows<DT>(vst, nt, tid);
+    }
+    if (Src::kCodes || nt < kTile) {
+      hopper::fence_proxy_async();
+      hopper::named_sync(kBar, kConsumers);
+    }
+    // S^T = K_tile . Q^T, both K-major
+    float sc[N / 2];
+    {
+      const uint32_t k_addr = hopper::smem_u32(kt);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DT / 16; ++kk) {
+        const uint64_t da = hopper::desc_sw128(
+            k_addr + (kk / 4) * 8192 + (kk % 4) * 32, 16, 1024);
+        const uint64_t db = hopper::desc_sw128(
+            q_addr + (kk / 4) * N * 128 + (kk % 4) * 32, 16, 1024);
+        hopper::WgmmaNarrow<N, T>::template ss<0>(sc, da, db, kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+    }
+    // scores (scaled, softcapped, RAP_NEG_INF where masked) and each
+    // head's max over the thread's two tokens, then over the warp
+    const bool ok0 = src.valid(vl, r0, nt), ok1 = src.valid(vl, r1, nt);
+    float ks0 = 1.f, ks1 = 1.f, vs0 = 1.f, vs1 = 1.f;
+    if constexpr (Src::kCodes) {
+      ks0 = sc_s[r0 / src.rows];
+      ks1 = sc_s[r1 / src.rows];
+      vs0 = sc_s[kMaxBoxes + r0 / src.rows];
+      vs1 = sc_s[kMaxBoxes + r1 / src.rows];
+    }
+    float cm[NC][2];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * j + e];
+        if constexpr (Src::kCodes) x *= e < 2 ? ks0 : ks1;
+        x *= scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        sc[4 * j + e] = (e < 2 ? ok0 : ok1) ? x : RAP_NEG_INF;
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float x = fmaxf(sc[4 * j + c], sc[4 * j + 2 + c]);
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 16));
+        cm[j][c] = x;
+      }
+    }
+    if (gq == 0)
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          red[warp * N + 8 * j + 2 * t4 + c] = cm[j][c];
+    hopper::named_sync(kBar, kConsumers);
+    // the tile's max over the four warps, the new max, the rescale; p
+    // (exactly 0 where masked) into P^T's rows of heads, in T
+    unsigned char* pb = reinterpret_cast<unsigned char*>(Ps);
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int h = 8 * j + 2 * t4 + c;
+        const float mx = fmaxf(fmaxf(red[h], red[N + h]),
+                               fmaxf(red[2 * N + h], red[3 * N + h]));
+        const float m_new = fmaxf(m[j][c], mx);
+        const float alpha = expf(m[j][c] - m_new);
+        m[j][c] = m_new;
+        const float p0 = ok0 ? expf(sc[4 * j + c] - m_new) : 0.f;
+        const float p1 = ok1 ? expf(sc[4 * j + 2 + c] - m_new) : 0.f;
+        l[j][c] = alpha * l[j][c] + (p0 + p1);
+#pragma unroll
+        for (int x = 0; x < NB; ++x) {
+          acc[x][4 * j + c] *= alpha;
+          acc[x][4 * j + 2 + c] *= alpha;
+        }
+        // a token past the tile's last box has no scale loaded: its 0 stays
+        const float w0 = Src::kCodes && ok0 ? p0 * vs0 : p0;
+        const float w1 = Src::kCodes && ok1 ? p1 * vs1 : p1;
+        const T hi0 = from_f32<T>(w0), hi1 = from_f32<T>(w1);
+        unsigned char* e0 =
+            pb + h * 128 + (((r0 >> 3) ^ (h & 7)) << 4) + (r0 & 7) * 2;
+        unsigned char* e1 =
+            pb + h * 128 + (((r1 >> 3) ^ (h & 7)) << 4) + (r1 & 7) * 2;
+        *reinterpret_cast<T*>(e0) = hi0;
+        *reinterpret_cast<T*>(e1) = hi1;
+        *reinterpret_cast<T*>(e0 + N * 128) = from_f32<T>(w0 - to_f32(hi0));
+        *reinterpret_cast<T*>(e1 + N * 128) = from_f32<T>(w1 - to_f32(hi1));
+      }
+    hopper::fence_proxy_async();
+    hopper::named_sync(kBar, kConsumers);
+    // O^T += V^T . P^T: V MN-major (a transposed A), P^T K-major, as
+    // P's T part and then its remainder's, so that P keeps ~16 bits
+    {
+      const uint32_t v_addr = hopper::smem_u32(vt);
+#pragma unroll
+      for (int x = 0; x < NB; ++x) hopper::fence_regs(acc[x]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk) {
+          const uint64_t da = hopper::desc_sw128(
+              v_addr + x * 8192 + kk * 16 * 128, 8192, 1024);
+          const uint64_t db =
+              hopper::desc_sw128(p_addr + kk * 32, 16, 1024);
+          const uint64_t dl =
+              hopper::desc_sw128(p_addr + N * 128 + kk * 32, 16, 1024);
+          hopper::WgmmaNarrow<N, T>::template ss<1>(acc[x], da, db, 1);
+          hopper::WgmmaNarrow<N, T>::template ss<1>(acc[x], da, dl, 1);
+        }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int x = 0; x < NB; ++x) hopper::fence_regs(acc[x]);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty + s);
+  }
+
+  // each head's sum: the thread's rows, the warp's (xor over its 8 row
+  // groups), then the four warps' in order
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float x = l[j][c];
+      x += __shfl_xor_sync(0xffffffffu, x, 4);
+      x += __shfl_xor_sync(0xffffffffu, x, 8);
+      x += __shfl_xor_sync(0xffffffffu, x, 16);
+      if (gq == 0) red[warp * N + 8 * j + 2 * t4 + c] = x;
+    }
+  hopper::named_sync(kBar, kConsumers);
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int h = 8 * j + 2 * t4 + c;
+      l[j][c] = ((red[h] + red[N + h]) + red[2 * N + h]) + red[3 * N + h];
+    }
+#pragma unroll
+  for (int x = 0; x < NB; ++x)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int j = i / 4, c = i & 1;
+      const int h = 8 * j + 2 * t4 + c;
+      const int d = 64 * x + r0 + ((i & 2) ? 8 : 0);
+      if (h < G && d < D) {
+        if (o.out)
+          o.out[h * D + d] = from_f32<O>(acc[x][i] / fmaxf(l[j][c], 1e-30f));
+        else
+          o.acc[h * D + d] = acc[x][i];
+      }
+    }
+  if (warp == 0 && gq == 0)
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int h = 8 * j + 2 * t4 + c;
+        if (h >= G) continue;
+        if (o.out) {
+          if (o.lse) o.lse[h] = head_lse(m[j][c], l[j][c]);
+        } else {
+          o.ml[2 * h] = m[j][c];
+          o.ml[2 * h + 1] = l[j][c];
+        }
+      }
+}
+
+}  // namespace tc
 
 }  // namespace rap_decode

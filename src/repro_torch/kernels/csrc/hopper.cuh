@@ -74,6 +74,44 @@ inline int encode_4d(CUtensorMap* map, const void* base, bool bf16, int n0,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A 4-D tensor of 1- or 2-byte elements with the given byte strides of
+// dims 1-3 (dim 0 contiguous; base and strides 16-byte multiples) as a
+// tensor map with box `box` (innermost first). `swizzle128`: the box's
+// inner extent is 128 bytes, stored with the 128-byte swizzle; else it is
+// stored plainly, row after row. Elements past the tensor's edge load as
+// zero. `dtype`: 0 bf16, 1 fp16, 2 one-byte codes. Returns 0 or a CUDA
+// error code.
+inline int encode_strided(CUtensorMap* map, const void* base, int dtype,
+                          const long long (&dims)[4],
+                          const long long (&strides)[3],
+                          const int (&box)[4], bool swizzle128) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t d[4], s[3];
+  cuuint32_t b[4];
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    if (dims[i] < 1 || box[i] < 1 || box[i] > 256)
+      return (int)cudaErrorInvalidValue;
+    d[i] = (cuuint64_t)dims[i];
+    b[i] = (cuuint32_t)box[i];
+  }
+  for (int i = 0; i < 3; ++i) {
+    if (strides[i] <= 0 || strides[i] % 16) return (int)cudaErrorInvalidValue;
+    s[i] = (cuuint64_t)strides[i];
+  }
+  const CUtensorMapDataType ty = dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                 : dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                              : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUresult r = fn(map, ty, 4, const_cast<void*>(base), d, s, b, step,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------- device
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -339,5 +377,40 @@ template <> struct Wgmma<256, T> {                                              
 RAP_WGMMA_FOR(__nv_bfloat16, "bf16")
 RAP_WGMMA_FOR(__half, "f16")
 #undef RAP_WGMMA_FOR
+
+// Narrow products for decode's token tiles: D[64 x N] (+)= A[64 x 16]
+// B[16 x N], N = 8 or 16, f32 accumulators (N / 2 a thread, the
+// layout above), both operands in shared memory through descriptors. B is
+// K-major; A is K-major (TA = 0) or MN-major (TA = 1: a transposed A, M
+// along the 128-byte rows, as a tile of V read as V^T).
+template <int N, typename T> struct WgmmaNarrow;
+
+#define RAP_WGMMA_NARROW(T, TY)                                                                                            \
+template <> struct WgmmaNarrow<8, T> {                                                                                     \
+  template <int TA>                                                                                                        \
+  static __device__ __forceinline__ void ss(float (&d)[4], uint64_t da, uint64_t db, int accumulate) {                     \
+    asm volatile(                                                                                                          \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"                                                                        \
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32." TY "." TY " "                                                         \
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, 0;\n}\n"                                                                   \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                                                                   \
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA));                                                                     \
+  }                                                                                                                        \
+};                                                                                                                         \
+template <> struct WgmmaNarrow<16, T> {                                                                                    \
+  template <int TA>                                                                                                        \
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t da, uint64_t db, int accumulate) {                     \
+    asm volatile(                                                                                                          \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                                                                       \
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " "                                                        \
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 0;\n}\n"                                                  \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                  \
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA));                                                                     \
+  }                                                                                                                        \
+};
+
+RAP_WGMMA_NARROW(__nv_bfloat16, "bf16")
+RAP_WGMMA_NARROW(__half, "f16")
+#undef RAP_WGMMA_NARROW
 
 }  // namespace hopper

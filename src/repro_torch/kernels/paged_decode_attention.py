@@ -7,7 +7,8 @@ kernel ``csrc/paged_decode_attention.cu`` (the port of the Pallas kernel
 ``repro/kernels/paged_decode_attention.py::paged_decode_attention``,
 model-dtype pages), which chases the page table without a gather; it cuts
 each row's ``max_pages · page_tokens`` slots into the same splits as the
-dense kernel (``decode_attention.split_scratch``).
+dense kernel, and takes its body from the same plan
+(``decode_attention.plan``).
 
 The quantized pair serves int8 / float8_e4m3fn pages with f32 scales
 ``[n_pages, K]``: ``paged_decode_attention_quant_ref`` widens the gathered
@@ -23,7 +24,8 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import (io_cost, split_scratch,
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels.decode_attention import (io_cost,
                                                   split_scratch_bytes)
 from repro_torch.kernels.ref import _sdpa, concrete, gather_pages
 
@@ -107,31 +109,56 @@ def _check(q, k_pages, v_pages, page_table, lengths):
     return B, H, K, D, pt
 
 
+def _launch(what, symbol, q, k_pages, v_pages, scales, page_table,
+            lengths, softcap, split_rows, body, extra=()):
+    """One launch of either paged kernel on the plan's body (``body``: the
+    private entries' forced one); returns the output."""
+    B, H, K, D, pt = _check(q, k_pages, v_pages, page_table, lengths)
+    q = q if q.is_contiguous() and _dec.aligned16(q) else q.clone(
+        memory_format=torch.contiguous_format)
+    table = page_table.contiguous()
+    lengths = lengths.contiguous()
+    max_pages = table.shape[1]
+    p = _dec.planned(what, q, K, k_pages.dtype, H // K, D, pt,
+                     max_pages * pt, split_rows,
+                     aligned=_dec.aligned16(k_pages, v_pages), body=body)
+    out = torch.empty_like(q)
+    part = _dec.scratch(q, p)
+    fn = build.function(symbol, [build.P] * (7 + len(scales))
+                        + [build.I] * 9 + [build.F32, build.F32]
+                        + [build.I] * (3 + len(extra)) + [build.P])
+    build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                   *(s.data_ptr() for s in scales),
+                   table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                   part.data_ptr(), B, H, K, D, pt, max_pages,
+                   k_pages.shape[0], p.split_tokens, p.nsplit,
+                   1.0 / math.sqrt(D), float(softcap), build.dtype_code(q),
+                   *extra, _dec.BODY_CODES[p.body], p.stages,
+                   build.stream(q)),
+                what)
+    _dec.BODY_LAUNCHES[p.body] += 1
+    return out
+
+
 def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths, *,
                                 softcap: float = 0.0, split_rows: int = 0):
+    return _paged_cuda(q, k_pages, v_pages, page_table, lengths,
+                       softcap=softcap, split_rows=split_rows)
+
+
+def _paged_cuda(q, k_pages, v_pages, page_table, lengths, *,
+                softcap: float = 0.0, split_rows: int = 0, body=None):
+    """:func:`paged_decode_attention_cuda` on the plan's body, or (tests
+    and timing only) on ``body``."""
     tensors = (q, k_pages, v_pages, page_table, lengths)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("paged_decode_attention_cuda takes CUDA tensors")
     if not (q.dtype == k_pages.dtype == v_pages.dtype):
         raise TypeError("q and the pages must share one dtype (int8/fp8 "
                         "pages go to paged_decode_attention_quant_cuda)")
-    B, H, K, D, pt = _check(q, k_pages, v_pages, page_table, lengths)
-    q = q.contiguous()
-    table = page_table.contiguous()
-    lengths = lengths.contiguous()
-    out = torch.empty_like(q)
-    max_pages = table.shape[1]
-    split, n, part = split_scratch(q, B, K, max_pages * pt, split_rows)
-    fn = build.function("rap_paged_decode_attention",
-                        [build.P] * 7 + [build.I] * 8
-                        + [build.F32, build.F32, build.I, build.P])
-    build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                   table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                   part.data_ptr(), B, H, K, D, pt, max_pages,
-                   split, n, 1.0 / math.sqrt(D), float(softcap),
-                   build.dtype_code(q), build.stream(q)),
-                "paged_decode_attention")
-    return out
+    return _launch("paged_decode_attention", "rap_paged_decode_attention",
+                   q, k_pages, v_pages, (), page_table, lengths, softcap,
+                   split_rows, body)
 
 
 PAGE_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}   # csrc page loaders
@@ -143,6 +170,16 @@ def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scales,
                                       split_rows: int = 0):
     """Fused-dequant paged decode on the card: q bf16/f32/f16, pages int8 or
     float8_e4m3fn, scales f32 ``[n_pages, K]``."""
+    return _paged_quant_cuda(q, k_pages, v_pages, k_scales, v_scales,
+                             page_table, lengths, softcap=softcap,
+                             split_rows=split_rows)
+
+
+def _paged_quant_cuda(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                      lengths, *, softcap: float = 0.0, split_rows: int = 0,
+                      body=None):
+    """:func:`paged_decode_attention_quant_cuda` on the plan's body, or
+    (tests and timing only) on ``body``."""
     tensors = (q, k_pages, v_pages, k_scales, v_scales, page_table, lengths)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("paged_decode_attention_quant_cuda takes CUDA "
@@ -150,7 +187,7 @@ def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scales,
     if k_pages.dtype != v_pages.dtype or k_pages.dtype not in PAGE_CODES:
         raise TypeError(f"quantized pages must be int8 or float8_e4m3fn, "
                         f"got {k_pages.dtype}/{v_pages.dtype}")
-    B, H, K, D, pt = _check(q, k_pages, v_pages, page_table, lengths)
+    K = k_pages.shape[2]
     n_pages = k_pages.shape[0]
     for s in (k_scales, v_scales):
         if s.dtype != torch.float32 or s.shape != (n_pages, K):
@@ -158,21 +195,7 @@ def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scales,
                              f"{s.dtype} {tuple(s.shape)}")
         if not s.is_contiguous():
             raise ValueError("scales must be contiguous (updated in place)")
-    q = q.contiguous()
-    table = page_table.contiguous()
-    lengths = lengths.contiguous()
-    out = torch.empty_like(q)
-    max_pages = table.shape[1]
-    split, n, part = split_scratch(q, B, K, max_pages * pt, split_rows)
-    fn = build.function("rap_paged_decode_attention_quant",
-                        [build.P] * 9 + [build.I] * 8
-                        + [build.F32, build.F32, build.I, build.I, build.P])
-    build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                   k_scales.data_ptr(), v_scales.data_ptr(),
-                   table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                   part.data_ptr(), B, H, K, D, pt, max_pages,
-                   split, n, 1.0 / math.sqrt(D), float(softcap),
-                   build.dtype_code(q), PAGE_CODES[k_pages.dtype],
-                   build.stream(q)),
-                "paged_decode_attention_quant")
-    return out
+    return _launch("paged_decode_attention_quant",
+                   "rap_paged_decode_attention_quant", q, k_pages, v_pages,
+                   (k_scales, v_scales), page_table, lengths, softcap,
+                   split_rows, body, (PAGE_CODES[k_pages.dtype],))

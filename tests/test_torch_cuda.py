@@ -26,7 +26,12 @@ its launches give the same bits. Small recurrent models are held card
 against CPU by ``chip_smoke.py``'s reference phase. The MoE decoders and
 whisper-medium add flash without the causal mask (Skv = 1500 frames), the
 GLU on a 3-D expert buffer, decode at dbrx's G = 6 and at whisper's self
-and cross shapes, and their SMOKE models card against CPU.
+and cross shapes, and their SMOKE models card against CPU. bf16 / fp16 q
+runs the decode kernels' tensor-core body wherever the wrappers' plan
+names it (the f32 twins above stay on the FMA body); the cases at its end
+hold it at G = 8 and 16, D = 128 and 256, on every page kind, both bodies
+at the narrow groups (G = 1, 5, 6, 7), its dense ≡ paged and two-launch
+bits, and strided cache views read without a copy.
 """
 import numpy as np
 import pytest
@@ -1386,3 +1391,160 @@ def test_moe_and_whisper_smoke_card_match_cpu(cuda, arch):
     launches = out["cuda"][2]
     assert launches["flash_attention"] > 0 and launches["decode_attention"] > 0
     assert (launches["fused_glu"] > 0) == (not cfg.is_encoder_decoder)
+
+
+# ------------------------------------------- the tensor-core decode body
+# bf16 / fp16 q run the decode kernels' tensor-core body (TMA ring from a
+# producer warp, wgmma with the 64-token tile as M) wherever the plan
+# (``decode_attention.plan``) names it: here at G = 8 and 16 and D = 128
+# and 256, through the dense cache, model-dtype pages and int8 / fp8 pages,
+# each launch counted on its body (``decode_attention.BODY_LAUNCHES``)
+TC_CASES = [
+    # B, H, K, D, page_tokens, lengths
+    (4, 16, 2, 128, 16, (300, 1, 137, 64)),    # G = 8 at D = 128
+    (4, 8, 1, 256, 16, (300, 1, 137, 64)),     # gemma-2b: G = 8 at D = 256
+    (4, 32, 2, 128, 16, (300, 1, 137, 64)),    # glm4-9b: G = 16
+    (3, 16, 1, 256, 16, (264, 65, 1)),         # recurrentgemma: G = 16, 256
+    (2, 16, 2, 128, 8, (129, 40)),             # pages of 8: 8 boxes a tile
+    (2, 32, 2, 256, 24, (150, 64)),            # pages of 24: boxes of 8
+]
+TC_IDS = [f"B{c[0]}-H{c[1]}-K{c[2]}-D{c[3]}-pt{c[4]}" for c in TC_CASES]
+
+
+def _tc_inputs(cuda, seed, B, H, K, D, pt, lengths, dtype):
+    arrays = _split_inputs(seed, B, H, K, D, pt, lengths)
+    q, kp, vp, table, lens = _on(cuda, *arrays)
+    _, kd, vd, valid = _on(cuda, *_dense_of(*arrays))
+    return (q.to(dtype), kp.to(dtype), vp.to(dtype), table, lens,
+            kd.to(dtype), vd.to(dtype), valid, kp, vp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,H,K,D,pt,lengths", TC_CASES, ids=TC_IDS)
+def test_tensor_core_decode_body_matches_plain(cuda, B, H, K, D, pt, lengths,
+                                               dtype):
+    q, kp, vp, table, lens, kd, vd, valid, kp32, vp32 = _tc_inputs(
+        cuda, 41, B, H, K, D, pt, lengths, dtype)
+    before = dict(dec.BODY_LAUNCHES)
+    for got, want in (
+            (dec.decode_attention_cuda(q, kd, vd, valid),
+             dec.decode_attention_ref(q, kd, vd, valid)),
+            (pdec.paged_decode_attention_cuda(q, kp, vp, table, lens),
+             pdec.paged_decode_attention_ref(q, kp, vp, table, lens))):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    for page_dtype in (torch.int8, torch.float8_e4m3fn):
+        kq, ks = attention.page_quant(kp32, page_dtype)
+        vq, vs = attention.page_quant(vp32, page_dtype)
+        torch.testing.assert_close(
+            pdec.paged_decode_attention_quant_cuda(q, kq, vq, ks, vs, table,
+                                                   lens).float(),
+            pdec.paged_decode_attention_quant_ref(q, kq, vq, ks, vs, table,
+                                                  lens).float(),
+            atol=2e-2, rtol=2e-2)
+    assert dec.BODY_LAUNCHES["wgmma"] - before["wgmma"] == 4
+    assert dec.BODY_LAUNCHES["fma"] == before["fma"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,D,pt,lengths",
+                         TC_CASES + [(2, 4, 1, 128, 64, (200, 64)),
+                                     (8, 32, 32, 128, 16,
+                                      (512, 137, 300, 45, 511, 257, 64, 1))],
+                         ids=TC_IDS + ["B2-H4-K1-D128-pt64",
+                                       "B8-H32-K32-D128-pt16"])
+def test_tensor_core_decode_body_keeps_its_twins(cuda, B, H, K, D, pt,
+                                                 lengths):
+    """On the tensor-core body (bf16 q; asked for by name through the
+    private launch entries, as the plan gives G = 1 the FMA body): the
+    dense kernel equals the paged kernel bitwise on pages holding the same
+    tokens in order
+    (one body, the same split points), pages of 64 tokens
+    (``page_tokens == block_k``) among them; two launches of each kernel
+    give the same bits."""
+    q, kp, vp, table, lens, kd, vd, valid, kp32, vp32 = _tc_inputs(
+        cuda, 43, B, H, K, D, pt, lengths, torch.bfloat16)
+    before = dec.BODY_LAUNCHES["wgmma"]
+    tc = {"body": "wgmma"}
+    dense = dec._decode_cuda(q, kd, vd, valid, **tc)
+    assert torch.equal(dense, pdec._paged_cuda(q, kp, vp, table, lens,
+                                               **tc))
+    kq, ks = attention.page_quant(kp32, torch.int8)
+    vq, vs = attention.page_quant(vp32, torch.int8)
+    fq, fs = attention.page_quant(vp32, torch.float8_e4m3fn)
+    for run in (lambda: dec._decode_cuda(q, kd, vd, valid, **tc),
+                lambda: pdec._paged_cuda(q, kp, vp, table, lens, **tc),
+                lambda: pdec._paged_quant_cuda(
+                    q, kq, vq, ks, vs, table, lens, **tc),
+                lambda: pdec._paged_quant_cuda(
+                    q, fq, fq, fs, fs, table, lens, **tc)):
+        assert torch.equal(run(), run())
+    assert dec.BODY_LAUNCHES["wgmma"] - before == 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["wgmma", "fma"])
+@pytest.mark.parametrize("H,K,D", [(32, 32, 128), (40, 8, 128),
+                                   (48, 8, 128), (14, 2, 64)],
+                         ids=["G1", "G5", "G6", "G7"])
+def test_both_bodies_at_narrow_groups(cuda, H, K, D, body):
+    """At the groups where the plan's choice rests on the card's timings
+    (G = 1, and 5 to 7), both bodies run every kernel (bf16 q, N padded to
+    8 on the tensor cores) within the bf16 tolerance of the plain
+    versions, each launch on the body asked for (the private launch
+    entries), and dense ≡ paged holds on either."""
+    q, kp, vp, table, lens, kd, vd, valid, kp32, vp32 = _tc_inputs(
+        cuda, 47, 4, H, K, D, 16, (300, 1, 137, 64), torch.bfloat16)
+    before = dict(dec.BODY_LAUNCHES)
+    got = dec._decode_cuda(q, kd, vd, valid, body=body)
+    torch.testing.assert_close(
+        got.float(), dec.decode_attention_ref(q, kd, vd, valid).float(),
+        atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, pdec._paged_cuda(q, kp, vp, table, lens,
+                                             body=body))
+    kq, ks = attention.page_quant(kp32, torch.int8)
+    vq, vs = attention.page_quant(vp32, torch.int8)
+    torch.testing.assert_close(
+        pdec._paged_quant_cuda(q, kq, vq, ks, vs, table, lens,
+                               body=body).float(),
+        pdec.paged_decode_attention_quant_ref(q, kq, vq, ks, vs, table,
+                                              lens).float(),
+        atol=2e-2, rtol=2e-2)
+    assert dec.BODY_LAUNCHES[body] - before[body] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_cache_views_run_without_a_copy(cuda, dtype):
+    """A sequence block ``k[:, a:b]`` (the sequence-parallel step's), a
+    batch slice and one kv head's view of a cache reach the kernel in
+    place: no K/V copy (``decode_attention.COPIES``), one launch each on
+    the plan's body, and the same bits as the call on a contiguous copy of
+    the view (the same plan). A view whose rows of D are not contiguous is
+    copied once."""
+    g = torch.Generator().manual_seed(3)
+    B, S, H, K, D = 4, 512, 16, 2, 128
+    q = torch.randn(B, 1, H, D, generator=g).to(dtype).to(cuda)
+    k = torch.randn(B, S, K, D, generator=g).to(dtype).to(cuda)
+    v = torch.randn(B, S, K, D, generator=g).to(dtype).to(cuda)
+    lens = torch.tensor([512, 300, 129, 7], device=cuda)
+    valid = torch.arange(S, device=cuda)[None, :] < lens[:, None]
+    body = "fma" if dtype == torch.float32 else "wgmma"
+    views = {"block": (q, k[:, 128:256], v[:, 128:256], valid[:, 128:256]),
+             "batch": (q[1:3], k[1:3], v[1:3], valid[1:3]),
+             "head": (q[:, :, 8:], k[:, :, 1:], v[:, :, 1:], valid)}
+    for name, (qq, kk, vv, m) in views.items():
+        copies, before = dec.COPIES["kv"], dict(dec.BODY_LAUNCHES)
+        got, lse = dec.decode_attention_cuda(qq, kk, vv, m, return_lse=True)
+        assert dec.COPIES["kv"] == copies, name
+        assert dec.BODY_LAUNCHES[body] - before[body] == 1, name
+        want, want_lse = dec.decode_attention_cuda(
+            qq.contiguous(), kk.contiguous(), vv.contiguous(),
+            m.contiguous(), return_lse=True)
+        assert torch.equal(got, want) and torch.equal(lse, want_lse), name
+    kt = k.transpose(1, 3).contiguous().transpose(1, 3)   # D not innermost
+    copies = dec.COPIES["kv"]
+    got = dec.decode_attention_cuda(q, kt, v, valid)
+    assert dec.COPIES["kv"] == copies + 1
+    assert torch.equal(got, dec.decode_attention_cuda(q, k, v, valid))

@@ -99,17 +99,12 @@ def splits_from_launch():
     """The decode kernels' split count from the launch's own rows, as
     before the executors passed their slot width (``split_rows``)."""
     from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import paged_decode_attention as pdec
-    orig = dec.split_scratch
-
-    def per_launch(q, B, K, S, split_rows=0):
-        return orig(q, B, K, S)
-
-    dec.split_scratch = pdec.split_scratch = per_launch
+    orig = dec.split_rows_of
+    dec.split_rows_of = lambda B, split_rows: B
     try:
         yield
     finally:
-        dec.split_scratch = pdec.split_scratch = orig
+        dec.split_rows_of = orig
 
 
 def shock_runs(torch, configs, slots: int, pool_requests: float,
